@@ -1,0 +1,87 @@
+"""Package rules of ugpg_tpu_torch: it imports neither JAX nor ugpg_tpu,
+its entry points need CUDA unless the CPU is asked for, and the Predictor
+options this slice does not port raise instead of being ignored."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ugpg_tpu_torch
+from ugpg_tpu_torch.device import resolve_device
+from ugpg_tpu_torch.eval.serving import Predictor
+from ugpg_tpu_torch.io.checkpoint import load_checkpoint
+
+PKG = pathlib.Path(ugpg_tpu_torch.__file__).parent
+ROOT = PKG.parent
+
+
+def test_imports_with_jax_and_ugpg_tpu_blocked():
+    code = (
+        "import pkgutil, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ugpg_tpu'):\n"
+        "    sys.modules[name] = None  # any import of them raises ImportError\n"
+        "import ugpg_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(ugpg_tpu_torch.__path__, 'ugpg_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    __import__(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'ugpg_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15  # every module of the package was imported
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax)\b"  # import statements
+    r"|\bugpg_tpu\.|\bugpg_tpu\s+import\b|import_module\(\s*['\"]ugpg_tpu['\".]",
+    re.MULTILINE,
+)
+
+
+def test_source_names_no_jax_and_no_ugpg_tpu_module():
+    hits = []
+    for path in sorted(PKG.rglob("*.py")):
+        for m in _FORBIDDEN.finditer(path.read_text()):
+            hits.append(f"{path.relative_to(ROOT)}: {m.group(0).strip()}")
+    assert not hits, hits
+    # the pattern does catch what it must, and spares the port's own name
+    assert _FORBIDDEN.search("from ugpg_tpu.ops import resize")
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert not _FORBIDDEN.search("from ugpg_tpu_torch.ops import resize")
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(str(tmp_path / "never_read.pth"))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(task_type="classification"), dict(quantize=True), dict(mesh=object()),
+    dict(shard_model=True), dict(mc_dropout=4), dict(fold_bn=False),
+])
+def test_options_outside_the_slice_raise(kwargs, tmp_path):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Predictor(str(tmp_path / "never_read.pth"), device="cpu", **kwargs)
+
+
+def test_load_checkpoint_container_and_bare_state_dict(tmp_path):
+    sd = {"outc.conv.weight": torch.ones(1, 8, 1, 1)}
+    torch.save({"stage": 2, "epoch": 3, "model_state_dict": sd}, tmp_path / "c.pth")
+    torch.save(sd, tmp_path / "bare.pth")
+    stage, got = load_checkpoint(tmp_path / "c.pth")
+    assert stage == 2 and torch.equal(got["outc.conv.weight"], sd["outc.conv.weight"])
+    assert load_checkpoint(tmp_path / "bare.pth")[0] == 4  # the reference's default

@@ -1,0 +1,103 @@
+"""U-Net building blocks (counterpart of ``ugpg_tpu/models/blocks.py``).
+
+Modules are NCHW-logical and keep the reference torch layout's names
+(``conv_op.{0,1,3,4}``, ``mpconv.1``, ``conv``), so a ``.pth`` written by
+``ugpg-export-torch`` loads with strict ``load_state_dict``.
+
+``use_bn=True``: Conv -> BatchNorm (eps 1e-5) -> ReLU in plain PyTorch,
+the layout of the parity tests and of training.  ``use_bn=False``: the
+BN-folded inference path (``models/folding.py``); ``DoubleConv`` runs the
+fused kernel and ``Up`` the 2x upsample kernel.  BN slots 1 and 4 then
+hold ``nn.Identity`` so that the parameter names do not shift.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ugpg_tpu_torch.ops.cuda.double_conv import fused_double_conv
+from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x
+from ugpg_tpu_torch.ops.resize import upsample2x_bilinear_align_corners
+
+__all__ = ["DoubleConv", "InConv", "Down", "Up", "OutConv"]
+
+BN_EPS = 1e-5
+
+
+class DoubleConv(nn.Module):
+    """(3x3 conv -> BN -> ReLU) x 2."""
+
+    def __init__(self, in_channels: int, out_channels: int, use_bn: bool = True):
+        super().__init__()
+        self.use_bn = use_bn
+
+        def norm():
+            return nn.BatchNorm2d(out_channels, eps=BN_EPS) if use_bn else nn.Identity()
+
+        self.conv_op = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, 3, padding=1),
+            norm(),
+            nn.ReLU(),
+            nn.Conv2d(out_channels, out_channels, 3, padding=1),
+            norm(),
+            nn.ReLU(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_bn:
+            return self.conv_op(x)
+        c1, c2 = self.conv_op[0], self.conv_op[3]
+        return fused_double_conv(x, c1.weight, c1.bias, c2.weight, c2.bias)
+
+
+class InConv(nn.Module):
+    """Entry block: one DoubleConv."""
+
+    def __init__(self, in_channels: int, out_channels: int, use_bn: bool = True):
+        super().__init__()
+        self.conv = DoubleConv(in_channels, out_channels, use_bn)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Down(nn.Module):
+    """MaxPool(2) -> DoubleConv."""
+
+    def __init__(self, in_channels: int, out_channels: int, use_bn: bool = True):
+        super().__init__()
+        self.mpconv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(in_channels, out_channels, use_bn))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mpconv(x)
+
+
+class Up(nn.Module):
+    """Bilinear 2x upsample (align_corners) -> concat [skip, up] -> DoubleConv."""
+
+    def __init__(self, in_channels: int, out_channels: int, use_bn: bool = True):
+        super().__init__()
+        self.use_bn = use_bn
+        self.conv = DoubleConv(in_channels, out_channels, use_bn)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        if self.use_bn:
+            x1 = upsample2x_bilinear_align_corners(x1)
+        else:
+            x1 = upsample2x(x1)
+        return self.conv(torch.cat([x2, x1], dim=1))
+
+
+class OutConv(nn.Module):
+    """1x1 logits head, always computed in float32 (as a matmul, which
+    PyTorch runs in full float32 on the GPU by default)."""
+
+    def __init__(self, in_channels: int, num_classes: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.conv.weight.float().flatten(1)  # (K, C)
+        y = x.float().permute(0, 2, 3, 1) @ w.t() + self.conv.bias.float()
+        return y.permute(0, 3, 1, 2)

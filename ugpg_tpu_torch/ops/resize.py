@@ -1,0 +1,83 @@
+"""PyTorch-semantics bilinear resize (``align_corners=True``) as matmuls.
+
+Counterpart of ``ugpg_tpu/ops/resize.py``: the same two-tap interpolation
+matrices (float64 weights rounded to float32), applied per spatial axis in
+float32.  Used for the request resize and the multi-scale head upsampling;
+it is not a kernel in the JAX package either, so it stays plain PyTorch.
+
+Tensors are NCHW-logical (any memory format).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = ["resize_bilinear_align_corners", "upsample2x_bilinear_align_corners"]
+
+
+@functools.lru_cache(maxsize=None)
+def _bilinear_ac_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Interpolation matrix W (out_size, in_size) for align_corners=True.
+
+    Row i holds the two-tap weights of output sample i at
+    ``src = i * (in-1) / (out-1)``; a size of 1 on either side maps every
+    output to input 0 (torch's area_pixel_compute_scale guard).
+    """
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    if out_size == 1 or in_size == 1:
+        w[:, 0] = 1.0
+        return w.astype(np.float32)
+    src = np.arange(out_size, dtype=np.float64) * (in_size - 1) / (out_size - 1)
+    lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
+    hi = np.minimum(lo + 1, in_size - 1)
+    frac = src - lo
+    rows = np.arange(out_size)
+    np.add.at(w, (rows, lo), 1.0 - frac)
+    np.add.at(w, (rows, hi), frac)
+    return w.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _lerp2x_weights(size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row lerp weights of the exact-2x align_corners=True upsample.
+
+    Output row o samples input row ``o * (size-1) / (2*size-1)``, which
+    lands between adjacent rows:
+
+    * even rows o=2k:   taps (k-1, k), weight on k-1 is  k/(2*size-1)
+    * odd  rows o=2k+1: taps (k, k+1), weight on k+1 is (size-1-k)/(2*size-1)
+
+    k=0 / k=size-1 put weight exactly 0 on the out-of-range tap.
+    """
+    k = np.arange(size, dtype=np.float64)
+    even_lo = (k / (2 * size - 1)).astype(np.float32)
+    odd_hi = ((size - 1 - k) / (2 * size - 1)).astype(np.float32)
+    return even_lo, odd_hi
+
+
+def _matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_bilinear_ac_matrix(in_size, out_size)).to(device)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NCHW ``x`` to ``size`` (torch align_corners=True),
+    float32 math, result in ``x.dtype``.  Same size returns ``x``."""
+    out_h, out_w = size
+    h, w = x.shape[-2:]
+    if (h, w) == (out_h, out_w):
+        return x
+    y = x.float()
+    if out_h != h:
+        y = torch.einsum("oh,nchw->ncow", _matrix(h, out_h, y.device), y)
+    if out_w != w:
+        y = torch.einsum("pw,nchw->nchp", _matrix(w, out_w, y.device), y)
+    return y.to(x.dtype)
+
+
+def upsample2x_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample (align_corners=True) through the general resize."""
+    h, w = x.shape[-2:]
+    return resize_bilinear_align_corners(x, (2 * h, 2 * w))
