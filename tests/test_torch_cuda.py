@@ -7,7 +7,10 @@ one.  The file imports no JAX, so it also runs on a machine without it:
 
 Tolerances: float32 (TF32 off) 1e-4, since the kernel and cuDNN sum in
 different orders; bfloat16 2e-2 of the largest output, since the rounded
-middle activation of the double conv may land one bf16 step apart.
+middle activation of the double conv may land one bf16 step apart.  The
+loss kernels: the two means to rtol 1e-5 (float32 terms; the kernel sums
+them in float64, torch in float32), dx to 1e-5 x max|dx| (the same
+float32 expression, evaluated in another order).
 """
 
 import pytest
@@ -19,6 +22,13 @@ from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x, upsample2x_reference
 from ugpg_tpu_torch.ops.cuda.uncertainty import (
     uncertainty_from_logits,
     uncertainty_from_logits_reference,
+)
+from ugpg_tpu_torch.ops.cuda.uncertainty_bce import (
+    uncertainty_weighted_bce,
+    uncertainty_weighted_bce_backward,
+    uncertainty_weighted_bce_backward_reference,
+    uncertainty_weighted_bce_forward,
+    uncertainty_weighted_bce_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -82,6 +92,63 @@ def test_fused_double_conv_kernel(cuda, dtype, n, h, w, cin, cm, cout):
     _close(got, fused_double_conv_reference(x, w1, b1, w2, b2), dtype)
 
 
+def _loss_inputs(shape, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, device=device, generator=g) * 4
+    z = (torch.rand(shape, device=device, generator=g) > 0.6).float()
+    p = torch.rand(shape, device=device, generator=g)
+    return x, z, p
+
+
+@pytest.mark.parametrize("alpha", [0.0, 1.0, 2.0])
+@pytest.mark.parametrize("shape", [(8, 1, 256, 256), (2, 1, 17, 19), (8, 1, 32, 32),
+                                   (8, (1 << 21) + 1, 1, 1)])  # 2^24 + 8 elements
+def test_uncertainty_bce_kernels(cuda, shape, alpha):
+    x, z, p = _loss_inputs(shape, cuda)
+    final, base = uncertainty_weighted_bce_forward(x, z, p, 5.0, alpha)
+    want_final, want_base = uncertainty_weighted_bce_reference(x, z, p, 5.0, alpha)
+    torch.cuda.synchronize()
+    assert final.shape == base.shape == () and final.dtype == torch.float32
+    torch.testing.assert_close(final, want_final, rtol=1e-5, atol=0)
+    torch.testing.assert_close(base, want_base, rtol=1e-5, atol=0)
+    again = uncertainty_weighted_bce_forward(x, z, p, 5.0, alpha)
+    assert torch.equal(final, again[0]) and torch.equal(base, again[1])  # no atomics
+    g = torch.tensor(1.7, device=cuda)
+    dx = uncertainty_weighted_bce_backward(x, z, p, 5.0, alpha, g)
+    want_dx = uncertainty_weighted_bce_backward_reference(x, z, p, 5.0, alpha, g)
+    torch.cuda.synchronize()
+    scale = want_dx.abs().max().item()
+    assert (dx - want_dx).abs().max().item() <= 1e-5 * scale
+
+
+def test_uncertainty_bce_keeps_the_last_element(cuda):
+    n = (1 << 24) + 8  # a float32 index compare would drop elements past 2^24
+    x, z, p = _loss_inputs((n,), cuda, seed=7)
+    final, _ = uncertainty_weighted_bce_forward(x, z, p, 5.0, 1.0)
+    x[-1], z[-1] = 50.0, 1.0  # a large logit at z=1: near-zero pixel loss
+    final2, _ = uncertainty_weighted_bce_forward(x, z, p, 5.0, 1.0)
+    want2, _ = uncertainty_weighted_bce_reference(x, z, p, 5.0, 1.0)
+    torch.cuda.synchronize()
+    assert final2.item() != final.item()
+    assert abs(final2.item() - want2.item()) <= 1e-5 * abs(want2.item())
+
+
+def test_uncertainty_bce_function_runs_both_kernels(cuda):
+    x, z, p = _loss_inputs((4, 1, 64, 64), cuda, seed=3)
+    xk = x.clone().requires_grad_()
+    xr = x.clone().requires_grad_()
+    _lib.reset_launch_counts()
+    final, base = uncertainty_weighted_bce(xk, z, p[:1], 5.0, 1.0)  # p broadcasts
+    final.backward()
+    assert _lib.launch_counts() == {"uncertainty_weighted_bce_fwd": 1,
+                                    "uncertainty_weighted_bce_bwd": 1}
+    want, _ = uncertainty_weighted_bce_reference(xr, z, p[:1].expand_as(x), 5.0, 1.0)
+    want.backward()
+    torch.testing.assert_close(final, want.detach(), rtol=1e-5, atol=0)
+    assert (xk.grad - xr.grad).abs().max().item() <= 1e-5 * xr.grad.abs().max().item()
+    assert not base.requires_grad
+
+
 def test_kernels_count_launches_and_check_layout(cuda):
     _lib.reset_launch_counts()
     x = torch.randn(1, 8, 4, 4, device=cuda)
@@ -95,6 +162,13 @@ def test_kernels_count_launches_and_check_layout(cuda):
     fused_double_conv(xc, w, b, w, b)
     upsample2x(xc)
     uncertainty_from_logits(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        uncertainty_weighted_bce_forward(xc, xc, xc, 5.0, 1.0)  # channels_last, C > 1
+    with pytest.raises(TypeError, match="float32"):
+        uncertainty_weighted_bce_forward(x.double(), x.double(), x.double(), 5.0, 1.0)
+    uncertainty_weighted_bce_forward(x, x, x, 5.0, 1.0)
+    uncertainty_weighted_bce_backward(x, x, x, 5.0, 1.0, torch.ones((), device=cuda))
     torch.cuda.synchronize()
     assert _lib.launch_counts() == {
-        "fused_double_conv": 1, "upsample2x": 1, "uncertainty_from_logits": 1}
+        "fused_double_conv": 1, "upsample2x": 1, "uncertainty_from_logits": 1,
+        "uncertainty_weighted_bce_fwd": 1, "uncertainty_weighted_bce_bwd": 1}

@@ -1,6 +1,6 @@
 """Package rules of ugpg_tpu_torch: it imports neither JAX nor ugpg_tpu,
 its entry points need CUDA unless the CPU is asked for, and the Predictor
-options this slice does not port raise instead of being ignored."""
+and trainer options not ported yet raise instead of being ignored."""
 
 import pathlib
 import re
@@ -14,6 +14,7 @@ import ugpg_tpu_torch
 from ugpg_tpu_torch.device import resolve_device
 from ugpg_tpu_torch.eval.serving import Predictor
 from ugpg_tpu_torch.io.checkpoint import load_checkpoint
+from ugpg_tpu_torch.train.seg_trainer import UncertaintyGuidedProgressiveTrainer
 
 PKG = pathlib.Path(ugpg_tpu_torch.__file__).parent
 ROOT = PKG.parent
@@ -36,7 +37,7 @@ def test_imports_with_jax_and_ugpg_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 33  # every module of the package was imported
 
 
 _FORBIDDEN = re.compile(
@@ -66,6 +67,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor(str(tmp_path / "never_read.pth"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        UncertaintyGuidedProgressiveTrainer()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -76,6 +79,28 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
 def test_options_outside_the_slice_raise(kwargs, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         Predictor(str(tmp_path / "never_read.pth"), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(mesh=object()), dict(shard_model=True), dict(axis_name="data"),
+    dict(checkpoint_backend="msgpack"), dict(scan_epochs=True), dict(scan_chunk_bytes=1 << 30),
+    dict(tb_logdir="tb"), dict(remat=True), dict(pipeline_unc=1), dict(aug_quantize=8),
+    dict(augment=True), dict(dtype=torch.bfloat16), dict(in_channels=1),
+])
+def test_trainer_options_outside_the_slice_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, **kwargs)
+
+
+@pytest.mark.parametrize("call", ["resume", "preemption", "finetune_native"])
+def test_trainer_calls_outside_the_slice_raise(call, tmp_path):
+    tr = UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        if call == "finetune_native":
+            tr.finetune_native([])
+        else:
+            tr.train_progressive([], [], save_dir=tmp_path,
+                                 **{call: True if call == "resume" else object()})
 
 
 def test_load_checkpoint_container_and_bare_state_dict(tmp_path):

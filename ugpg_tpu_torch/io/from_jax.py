@@ -53,7 +53,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
     unmapped = []
     for path, value in _flatten(variables):
         coll, *scope = path
-        arr = np.asarray(value, dtype=np.float32)
+        arr = np.array(value, dtype=np.float32)  # a writable copy
         name = None
         if len(scope) == 4 and scope[1] == "conv" and scope[2] in _SLOT_OF:
             block, _, child, leaf = scope

@@ -40,7 +40,7 @@ __all__ = [
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("uncertainty", "upsample2x", "double_conv")
+SOURCES = ("uncertainty", "upsample2x", "double_conv", "uncertainty_bce")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,9 +1,11 @@
-"""PyTorch-semantics bilinear resize (``align_corners=True``) as matmuls.
+"""PyTorch-semantics bilinear resize (``align_corners=True``) as matmuls,
+and the legacy ``mode='nearest'`` resize as an index gather.
 
 Counterpart of ``ugpg_tpu/ops/resize.py``: the same two-tap interpolation
 matrices (float64 weights rounded to float32), applied per spatial axis in
-float32.  Used for the request resize and the multi-scale head upsampling;
-it is not a kernel in the JAX package either, so it stays plain PyTorch.
+float32.  Used for the request and training resizes and the multi-scale
+head upsampling; it is not a kernel in the JAX package either, so it stays
+plain PyTorch.
 
 Tensors are NCHW-logical (any memory format).
 """
@@ -15,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["resize_bilinear_align_corners", "upsample2x_bilinear_align_corners"]
+__all__ = ["resize_bilinear_align_corners", "resize_nearest", "upsample2x_bilinear_align_corners"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,6 +60,16 @@ def _lerp2x_weights(size: int) -> tuple[np.ndarray, np.ndarray]:
     return even_lo, odd_hi
 
 
+@functools.lru_cache(maxsize=None)
+def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    """Source indices for torch's legacy ``mode='nearest'``: floor(i*in/out),
+    in float64 (``F.interpolate`` computes the scale in float32 and can pick
+    another source row for some sizes)."""
+    scale = in_size / out_size
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * scale).astype(np.int64)
+    return np.clip(idx, 0, in_size - 1)
+
+
 def _matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_bilinear_ac_matrix(in_size, out_size)).to(device)
 
@@ -81,3 +93,17 @@ def upsample2x_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample (align_corners=True) through the general resize."""
     h, w = x.shape[-2:]
     return resize_bilinear_align_corners(x, (2 * h, 2 * w))
+
+
+def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of NCHW ``x`` to ``size`` (torch legacy 'nearest'),
+    by gathering rows and columns.  Same size returns ``x``."""
+    out_h, out_w = size
+    h, w = x.shape[-2:]
+    if (h, w) == (out_h, out_w):
+        return x
+    if out_h != h:
+        x = x.index_select(-2, torch.from_numpy(_nearest_indices(h, out_h)).to(x.device))
+    if out_w != w:
+        x = x.index_select(-1, torch.from_numpy(_nearest_indices(w, out_w)).to(x.device))
+    return x

@@ -1,0 +1,404 @@
+"""Uncertainty-guided progressive trainer for segmentation (counterpart of
+``ugpg_tpu/train/seg_trainer.py``).
+
+* stage configs {1: (32 px, lr 3e-4), 2-4: (64/128/256 px, lr 1e-4)},
+  40 epochs each
+* RMSprop(weight_decay=1e-4), built anew at every stage entry
+* BCE-with-logits(pos_weight=5) base loss, weighted by ``1 + alpha A`` where
+  A comes from the frozen previous stage (stages > 1)
+* weight transfer at stage entry; the best-val-Dice checkpoint per stage,
+  as a reference-format ``.pth``; history, ``training_log.csv``, plots
+  (with matplotlib) and the uncertainty analysis JSON
+
+The loop reads the device once per epoch: the steps return device
+scalars, averaged at the epoch's end.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Any, Iterable, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from ugpg_tpu_torch.device import resolve_device
+from ugpg_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from ugpg_tpu_torch.models.pgunet import STAGE_MODELS
+from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from ugpg_tpu_torch.progressive.transfer import transfer_weights
+from ugpg_tpu_torch.train.optim import get_learning_rate, torch_rmsprop
+from ugpg_tpu_torch.train.steps import (
+    METRIC_KEYS,
+    make_seg_eval_step,
+    make_seg_train_step,
+    not_ported,
+)
+from ugpg_tpu_torch.uncertainty import generate_uncertainty_map
+from ugpg_tpu_torch.utils.anomaly import TrainingDivergedError, nonfinite_metrics
+from ugpg_tpu_torch.utils.profiling import CSVLogger
+
+__all__ = ["UncertaintyGuidedProgressiveTrainer", "DEFAULT_STAGE_CONFIGS"]
+
+DEFAULT_STAGE_CONFIGS = {
+    1: {"resolution": 32, "epochs_per_stage": 40, "lr": 3e-4},
+    2: {"resolution": 64, "epochs_per_stage": 40, "lr": 1e-4},
+    3: {"resolution": 128, "epochs_per_stage": 40, "lr": 1e-4},
+    4: {"resolution": 256, "epochs_per_stage": 40, "lr": 1e-4},
+}
+
+
+@torch.no_grad()
+def _init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """torch's default initialisation of every conv (kaiming-uniform weight,
+    uniform(+-1/sqrt(fan_in)) bias), drawn from ``generator``; BN layers
+    keep their ones/zeros."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
+            bound = 1.0 / (m.weight[0].numel() ** 0.5)
+            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+
+
+class UncertaintyGuidedProgressiveTrainer:
+    """Progressive 4-stage trainer with uncertainty-guided loss weighting."""
+
+    def __init__(
+        self,
+        in_channels: int = 3,
+        num_classes: int = 1,
+        uncertainty_alpha: float = 1.0,
+        pos_weight: float = 5.0,
+        weight_decay: float = 1e-4,
+        stage_configs: Mapping[int, Mapping[str, Any]] | None = None,
+        dtype: torch.dtype | None = None,
+        axis_name: str | None = None,
+        seed: int = 0,
+        verbose: bool = True,
+        augment: bool = False,
+        fused_loss: bool = False,
+        mesh=None,
+        shard_model: bool = False,
+        checkpoint_backend: str = "pth",
+        scan_epochs: bool = False,
+        scan_chunk_bytes: int | None = None,
+        tb_logdir=None,
+        accum_steps: int = 1,
+        remat: bool = False,
+        pipeline_unc: int = 0,
+        nan_guard: bool = True,
+        width: float = 1.0,
+        aug_quantize: int = 0,
+        device: str | torch.device | None = None,
+    ):
+        """``fused_loss=True``: every train step computes the loss and its
+        gradient with the hand-written ``uncertainty_weighted_bce`` kernels
+        (off by default, as in the JAX package).  ``accum_steps=K``: each
+        batch runs as K micro-batches with one optimizer step.  ``width``
+        scales every stage's channels (1.0 = the reference widths).
+        ``seed`` seeds the ``torch.Generator`` of each stage's
+        initialisation.  ``nan_guard``: a NaN/Inf epoch loss saves a
+        ``*_diverged.pth`` and raises ``TrainingDivergedError``.
+        ``device``: ``cuda`` unless given; raises without CUDA.
+
+        Options of the JAX trainer that are not ported raise
+        ``NotImplementedError``: ``mesh``, ``shard_model``, ``axis_name``,
+        ``checkpoint_backend`` other than ``"pth"``, ``scan_epochs``,
+        ``scan_chunk_bytes``, ``tb_logdir``, ``remat``, ``pipeline_unc``,
+        ``aug_quantize``, ``augment=True`` and ``dtype=torch.bfloat16``."""
+        self.device = resolve_device(device)
+        not_ported(
+            mesh=mesh is not None, shard_model=shard_model, axis_name=axis_name is not None,
+            checkpoint_backend=checkpoint_backend != "pth", scan_epochs=scan_epochs,
+            scan_chunk_bytes=scan_chunk_bytes is not None, tb_logdir=tb_logdir is not None,
+            remat=remat, pipeline_unc=bool(pipeline_unc), aug_quantize=bool(aug_quantize),
+            augment=augment, **{"dtype=bfloat16": dtype not in (None, torch.float32),
+                                "in_channels other than 3": in_channels != 3})
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        self.in_channels = in_channels
+        self.num_classes = num_classes
+        self.uncertainty_alpha = uncertainty_alpha
+        self.pos_weight = float(pos_weight)
+        self.weight_decay = weight_decay
+        self.stage_configs = {
+            s: dict(cfg) for s, cfg in (stage_configs or DEFAULT_STAGE_CONFIGS).items()}
+        self.seed = seed
+        self.verbose = verbose
+        self.fused_loss = fused_loss
+        self.accum_steps = accum_steps
+        self.nan_guard = nan_guard
+        self.width = float(width)
+        self._print = print if verbose else (lambda *a, **k: None)
+
+        self.models: dict[int, nn.Module] = {}  # built at first use
+        self.current_stage = 1
+        self.optimizer: torch.optim.Optimizer | None = None
+        self._optimizer_stage: int | None = None
+        self._train_steps: dict[int, Any] = {}
+        self._eval_steps: dict[int, Any] = {}
+        self.history: dict[str, list] = {
+            "train_loss": [], "val_loss": [], "train_dice": [], "val_dice": [],
+            "uncertainty_weights_mean": [], "uncertainty_weights_std": [],
+            "base_loss": [], "stage_transitions": [],
+        }
+
+    # ------------------------------------------------------------------
+    def _model(self, stage: int) -> nn.Module:
+        if stage not in self.models:
+            model = STAGE_MODELS[stage](num_classes=self.num_classes, use_bn=True,
+                                        width=self.width)
+            _init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
+            self.models[stage] = model.to(self.device)
+        return self.models[stage]
+
+    def setup_optimizer(self, stage: int) -> torch.optim.Optimizer:
+        """A fresh RMSprop for the stage; the stage's steps are rebuilt on it."""
+        self.optimizer = torch_rmsprop(self._model(stage).parameters(),
+                                       self.stage_configs[stage]["lr"],
+                                       weight_decay=self.weight_decay)
+        self._optimizer_stage = stage
+        self._train_steps.pop(stage, None)
+        return self.optimizer
+
+    def transfer_weights(self, prev_stage: int, new_stage: int) -> list[str]:
+        """Name-keyed overlap merge from the previous stage."""
+        self._print(f"Transferring weights from stage {prev_stage} to stage {new_stage}")
+        new = self._model(new_stage)
+        merged, copied = transfer_weights(self._model(prev_stage).state_dict(), new.state_dict())
+        new.load_state_dict(merged)
+        self._print(f"transfer_weights(stage={new_stage}): copied {len(copied)} keys "
+                    f"(examples: {copied[:5]})")
+        return copied
+
+    def _prev(self, stage: int):
+        if stage <= 1:
+            return None, None
+        return self._model(stage - 1), self.stage_configs[stage - 1]["resolution"]
+
+    def _get_train_step(self, stage: int):
+        if self._optimizer_stage != stage:
+            self.setup_optimizer(stage)
+        if stage not in self._train_steps:
+            prev_model, prev_res = self._prev(stage)
+            self._train_steps[stage] = make_seg_train_step(
+                self._model(stage), self.optimizer, stage,
+                self.stage_configs[stage]["resolution"], prev_model=prev_model,
+                prev_resolution=prev_res, alpha=self.uncertainty_alpha,
+                fused_loss=self.fused_loss, accum_steps=self.accum_steps)
+        return self._train_steps[stage]
+
+    def _get_eval_step(self, stage: int):
+        if stage not in self._eval_steps:
+            prev_model, prev_res = self._prev(stage)
+            self._eval_steps[stage] = make_seg_eval_step(
+                self._model(stage), stage, self.stage_configs[stage]["resolution"],
+                prev_model=prev_model, prev_resolution=prev_res,
+                alpha=self.uncertainty_alpha)
+        return self._eval_steps[stage]
+
+    @staticmethod
+    def _average(acc: list[dict]) -> tuple[float, ...]:
+        """Epoch means of the six metrics: one read from the device."""
+        if not acc:
+            return (0.0,) * len(METRIC_KEYS)
+        host = torch.stack([torch.stack([m[k] for k in METRIC_KEYS]) for m in acc]).cpu()
+        return tuple(float(np.mean(host[:, j].numpy())) for j in range(len(METRIC_KEYS)))
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
+        """One training epoch -> the means of (loss, base_loss, dice,
+        accuracy, uncertainty mean, uncertainty std)."""
+        step = self._get_train_step(stage)
+        acc = []
+        for batch_idx, batch in enumerate(dataloader):
+            metrics = step(batch, self.pos_weight)
+            acc.append(metrics)
+            if self.verbose and batch_idx % 10 == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                unc = f", Unc_mean: {m['uncertainty_weight_mean']:.4f}" if stage > 1 else ""
+                self._print(f"Stage {stage}, Batch {batch_idx}, Loss: {m['final_loss']:.4f}, "
+                            f"Base_Loss: {m['base_loss']:.4f}, Dice: {m['dice']:.4f}, "
+                            f"Acc: {m['accuracy']:.4f}{unc}")
+        return self._average(acc)
+
+    def validate_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
+        """One validation epoch (eval-mode BN, the plain loss, no update)."""
+        step = self._get_eval_step(stage)
+        return self._average([step(batch, self.pos_weight) for batch in dataloader])
+
+    def _checkpoint(self, path: Path, stage: int, epoch: int, **extra) -> Path:
+        return save_checkpoint(
+            path, self._model(stage).state_dict(), stage=stage, epoch=epoch,
+            optimizer_state_dict=self.optimizer.state_dict(),
+            uncertainty_alpha=self.uncertainty_alpha, history=self.history, **extra)
+
+    # ------------------------------------------------------------------
+    def train_progressive(
+        self,
+        train_loader: Iterable,
+        val_loader: Iterable,
+        max_stages: int = 4,
+        save_dir: str = "./uncertainty_guided_weights",
+        stages: Iterable[int] | None = None,
+        checkpoint_every: int | None = None,
+        resume: bool = False,
+        preemption=None,
+    ) -> dict[str, list]:
+        """Stages 1..max_stages (or ``stages``).  Per epoch: train,
+        validate, log a ``training_log.csv`` row, and write
+        ``ug_pgunet_stage{S}_best.pth`` when the validation Dice improves;
+        ``checkpoint_every=N`` also writes ``ug_pgunet_stage{S}_last.pth``
+        every N epochs.  Loaders may be dicts keyed by stage.  ``resume``
+        and ``preemption`` are not ported and raise."""
+        not_ported(resume=resume, preemption=preemption is not None)
+        save_path = Path(save_dir)
+        save_path.mkdir(parents=True, exist_ok=True)
+        csv_log = CSVLogger(
+            save_path / "training_log.csv",
+            ["stage", "epoch", "train_loss", "val_loss", "train_dice", "val_dice",
+             "train_acc", "val_acc", "base_loss", "uncertainty_mean", "lr", "epoch_time_s"])
+        self._print("Starting Uncertainty-Guided Progressive Growing U-Net Training")
+
+        stage_list = list(stages) if stages is not None else list(range(1, max_stages + 1))
+        for stage in stage_list:
+            tl = train_loader[stage] if isinstance(train_loader, dict) else train_loader
+            vl = val_loader[stage] if isinstance(val_loader, dict) else val_loader
+            cfg = self.stage_configs[stage]
+            self._print(f"\nStage {stage} — {cfg['resolution']}x{cfg['resolution']}"
+                        + (f" (uncertainty alpha={self.uncertainty_alpha})" if stage > 1 else ""))
+            if stage > 1:
+                self.transfer_weights(stage - 1, stage)
+            self.current_stage = stage
+            self.setup_optimizer(stage)
+            self.history["stage_transitions"].append(len(self.history["train_loss"]))
+            best_val_dice = 0.0
+            for epoch in range(cfg["epochs_per_stage"]):
+                t0 = time.time()
+                tr_loss, tr_base, tr_dice, tr_acc, _, _ = self.train_epoch(tl, stage)
+                va_loss, va_base, va_dice, va_acc, va_um, va_us = self.validate_epoch(vl, stage)
+                self.history["train_loss"].append(tr_loss)
+                self.history["val_loss"].append(va_loss)
+                self.history["train_dice"].append(tr_dice)
+                self.history["val_dice"].append(va_dice)
+                self.history["uncertainty_weights_mean"].append(va_um)
+                self.history["uncertainty_weights_std"].append(va_us)
+                self.history["base_loss"].append(va_base)
+                csv_log.log(
+                    stage=stage, epoch=epoch + 1,
+                    train_loss=round(tr_loss, 6), val_loss=round(va_loss, 6),
+                    train_dice=round(tr_dice, 6), val_dice=round(va_dice, 6),
+                    train_acc=round(tr_acc, 6), val_acc=round(va_acc, 6),
+                    base_loss=round(va_base, 6), uncertainty_mean=round(va_um, 6),
+                    lr=get_learning_rate(self.optimizer),
+                    epoch_time_s=round(time.time() - t0, 3))
+                self._print(
+                    f"Stage {stage}, Epoch {epoch + 1}/{cfg['epochs_per_stage']} "
+                    f"({time.time() - t0:.2f}s)\n"
+                    f"Train - Loss: {tr_loss:.4f}, Base: {tr_base:.4f}, "
+                    f"Dice: {tr_dice:.4f}, Acc: {tr_acc:.4f}\n"
+                    f"Val   - Loss: {va_loss:.4f}, Base: {va_base:.4f}, "
+                    f"Dice: {va_dice:.4f}, Acc: {va_acc:.4f}")
+
+                if self.nan_guard:
+                    bad = nonfinite_metrics(train_loss=tr_loss, val_loss=va_loss)
+                    if bad:
+                        ckpt = self._checkpoint(
+                            save_path / f"ug_pgunet_stage{stage}_diverged.pth", stage, epoch,
+                            diverged_metrics={k: repr(v) for k, v in bad.items()})
+                        raise TrainingDivergedError(stage, epoch + 1, bad, ckpt)
+                if va_dice > best_val_dice:
+                    best_val_dice = va_dice
+                    self._checkpoint(save_path / f"ug_pgunet_stage{stage}_best.pth", stage,
+                                     epoch, val_dice=va_dice, train_dice=tr_dice)
+                if checkpoint_every and (epoch + 1) % checkpoint_every == 0:
+                    self._checkpoint(save_path / f"ug_pgunet_stage{stage}_last.pth", stage,
+                                     epoch, val_dice=va_dice)
+        self._print("Uncertainty-guided progressive training completed!")
+        self.save_training_plots(save_path)
+        return self.history
+
+    def finetune_native(self, *args, **kwargs):
+        not_ported(finetune_native=True)
+
+    # ------------------------------------------------------------------
+    def load_stage_weights(self, stage: int, checkpoint_path: str) -> None:
+        """Load one stage's weights from a ``.pth`` (strict)."""
+        _, state_dict = load_checkpoint(checkpoint_path)
+        self._model(stage).load_state_dict(state_dict, strict=True)
+        self._print(f"Loaded weights for stage {stage} from {checkpoint_path}")
+
+    def save_uncertainty_analysis(self, data_loader: Iterable, stage: int, save_path):
+        """Uncertainty statistics of the first 10 batches, as
+        ``uncertainty_stats_stage{S}.json``; None at stage 1."""
+        if stage == 1:
+            self._print("No uncertainty analysis for stage 1 (base stage)")
+            return None
+        res = self.stage_configs[stage]["resolution"]
+        prev_model, prev_res = self._prev(stage)
+        prev_model.eval()
+        stats = []
+        for batch_idx, batch in enumerate(data_loader):
+            if batch_idx >= 10:
+                break
+            images = torch.as_tensor(batch[0], dtype=torch.float32).to(self.device)
+            x = resize_bilinear_align_corners(images.permute(0, 3, 1, 2), (res, res))
+            amap = generate_uncertainty_map(prev_model, x, prev_res, res)
+            stats.append({
+                "batch_idx": batch_idx,
+                "uncertainty_mean": float(amap.mean()),
+                "uncertainty_std": float(amap.std(correction=0)),
+                "uncertainty_min": float(amap.min()),
+                "uncertainty_max": float(amap.max()),
+            })
+        out = Path(save_path) / f"uncertainty_stats_stage{stage}.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(stats, indent=2))
+        self._print(f"Uncertainty analysis saved for stage {stage}")
+        return stats
+
+    def save_training_plots(self, save_path):
+        """4-panel history plot; skipped when matplotlib is not installed."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            self._print("matplotlib not available; skipping plots")
+            return None
+
+        h = self.history
+        epochs = range(len(h["train_loss"]))
+        fig, ((ax1, ax2), (ax3, ax4)) = plt.subplots(2, 2, figsize=(16, 12))
+        ax1.plot(epochs, h["train_loss"], label="Train Loss (Weighted)", alpha=0.7)
+        ax1.plot(epochs, h["val_loss"], label="Val Loss (Weighted)", alpha=0.7)
+        ax1.plot(epochs, h["base_loss"], "--", label="Base Loss (Unweighted)", alpha=0.7)
+        ax1.set_title("Loss (Uncertainty-Guided)")
+        ax2.plot(epochs, h["train_dice"], label="Train Dice")
+        ax2.plot(epochs, h["val_dice"], label="Val Dice")
+        ax2.set_title("Dice Coefficient")
+        um = np.array(h["uncertainty_weights_mean"])
+        us = np.array(h["uncertainty_weights_std"])
+        ax3.plot(epochs, um, label="Mean Uncertainty Weight")
+        if len(um):
+            ax3.fill_between(epochs, um - us, um + us, alpha=0.3, label="±1 Std")
+        ax3.set_title("Uncertainty Weights")
+        diff = np.array(h["val_loss"]) - np.array(h["base_loss"])
+        ax4.plot(epochs, diff, label="Weighted − Base", alpha=0.7)
+        ax4.axhline(0, color="black", alpha=0.3)
+        ax4.set_title("Impact of Uncertainty Weighting")
+        for ax in (ax1, ax2, ax3, ax4):
+            for t in h["stage_transitions"]:
+                ax.axvline(t, color="red", linestyle="--", alpha=0.5)
+            ax.set_xlabel("Epoch")
+            ax.legend()
+        fig.tight_layout()
+        out = Path(save_path) / "uncertainty_guided_training_plots.png"
+        fig.savefig(out, dpi=150, bbox_inches="tight")
+        plt.close(fig)
+        self._print(f"Training plots saved to {out}")
+        return out

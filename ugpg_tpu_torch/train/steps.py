@@ -1,0 +1,188 @@
+"""Segmentation train and eval steps (counterpart of ``ugpg_tpu/train/steps.py``).
+
+One train step runs, per batch:
+
+    resize (image bilinear align_corners, mask nearest)
+    -> stage > 1: the frozen previous stage in eval mode, no grad, on the
+       image resized down; sigmoid; resized back up; A = 1 - 2|P - 0.5|
+    -> the current stage in train mode (BN running stats update)
+    -> the loss: the fused kernels (``fused_loss=True``) or BCE + the
+       uncertainty-weighted mean
+    -> backward -> one optimizer step -> the six metrics
+
+Batches keep the JAX layout: ``(images (B, H, W, 3), masks (B, H, W, 1))``,
+NHWC numpy arrays or tensors, at any size (resized here).  They go to the
+model's device by a synchronous copy and are transposed to NCHW here.  The
+metrics come back as 0-d tensors on the device, so a step never waits for
+the device.
+
+The JAX package's whole-epoch ``lax.scan`` programs have no counterpart in
+eager PyTorch; CUDA graphs would be theirs.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+from ugpg_tpu_torch.metrics.segmentation import dice_coefficient, get_predictions, pixel_accuracy
+from ugpg_tpu_torch.ops.cuda.uncertainty_bce import uncertainty_weighted_bce
+from ugpg_tpu_torch.ops.losses import bce_with_logits
+from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
+from ugpg_tpu_torch.uncertainty import (
+    apply_uncertainty_weighted_loss,
+    binary_uncertainty,
+    generate_uncertainty_map,
+)
+
+__all__ = ["make_seg_train_step", "make_seg_eval_step", "METRIC_KEYS", "not_ported"]
+
+METRIC_KEYS = ("final_loss", "base_loss", "dice", "accuracy",
+               "uncertainty_weight_mean", "uncertainty_weight_std")
+
+Metrics = dict[str, torch.Tensor]
+
+
+def _nchw(a, device: torch.device) -> torch.Tensor:
+    """NHWC batch array -> float32 NCHW tensor on ``device``."""
+    return torch.as_tensor(a, dtype=torch.float32).to(device).permute(0, 3, 1, 2).contiguous()
+
+
+def _unc_stats(unc_map: torch.Tensor | None, like: torch.Tensor):
+    if unc_map is None:
+        zero = torch.zeros((), dtype=torch.float32, device=like.device)
+        return zero, zero
+    return unc_map.mean(), unc_map.std(correction=0)
+
+
+def _metrics(final, base, logits, y, unc_map) -> Metrics:
+    preds = get_predictions(logits.detach())
+    unc_mean, unc_std = _unc_stats(unc_map, logits)
+    return {
+        "final_loss": final.detach(),
+        "base_loss": base.detach(),
+        "dice": dice_coefficient(preds, y),
+        "accuracy": pixel_accuracy(preds, y),
+        "uncertainty_weight_mean": unc_mean,
+        "uncertainty_weight_std": unc_std,
+    }
+
+
+def not_ported(**asked: bool) -> None:
+    """Raise ``NotImplementedError`` naming every option asked for that the
+    port does not have yet."""
+    missing = [name for name, on in asked.items() if on]
+    if missing:
+        raise NotImplementedError(
+            f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} (see ROADMAP.md)")
+
+
+def make_seg_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    stage: int,
+    resolution: int,
+    prev_model: nn.Module | None = None,
+    prev_resolution: int | None = None,
+    alpha: float = 1.0,
+    augment: bool = False,
+    fused_loss: bool = False,
+    accum_steps: int = 1,
+    external_uncertainty: bool = False,
+    aug_quantize: int = 0,
+) -> Callable[[tuple, float], Metrics]:
+    """``step(batch, pos_weight) -> metrics``: one update of ``model``
+    through ``optimizer``.  ``prev_model`` is the frozen previous stage
+    (stage > 1).  ``fused_loss=True`` computes the loss and its gradient
+    with the ``uncertainty_weighted_bce`` kernels; at stage 1 it passes
+    probabilities of 0.5 with ``alpha=0``, so the kernels run there too.
+
+    ``accum_steps=K`` splits the batch (size K*m) into K micro-batches in
+    order: gradients are averaged over them, the BN running stats update
+    once per micro-batch, and one optimizer step follows; the metrics are
+    the micro-batch means."""
+    not_ported(augment=augment, external_uncertainty=external_uncertainty,
+               aug_quantize=bool(aug_quantize))
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    use_unc = stage > 1 and prev_model is not None
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def micro(images: torch.Tensor, masks: torch.Tensor, pos_weight: float) -> Metrics:
+        x = resize_bilinear_align_corners(images, (resolution, resolution))
+        y = resize_nearest(masks, (resolution, resolution))
+        probs_up = unc_map = None
+        if use_unc:
+            with torch.no_grad():
+                prev_model.eval()
+                x_prev = resize_bilinear_align_corners(x, (prev_resolution, prev_resolution))
+                probs_up = resize_bilinear_align_corners(
+                    torch.sigmoid(prev_model(x_prev)), (resolution, resolution))
+                unc_map = binary_uncertainty(probs_up)
+        model.train()
+        logits = model(x)
+        if fused_loss:
+            p_arg = probs_up if use_unc else torch.full_like(logits, 0.5)
+            final, base = uncertainty_weighted_bce(logits, y, p_arg, pos_weight,
+                                                   alpha if use_unc else 0.0)
+        else:
+            final, base = apply_uncertainty_weighted_loss(
+                bce_with_logits(logits, y, pos_weight), unc_map, alpha)
+        final.backward()
+        return _metrics(final, base, logits, y, unc_map)
+
+    def step(batch, pos_weight: float) -> Metrics:
+        device = params[0].device
+        images, masks = _nchw(batch[0], device), _nchw(batch[1], device)
+        n = images.shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch size {n} is not divisible by accum_steps={accum_steps}")
+        m = n // accum_steps
+        optimizer.zero_grad(set_to_none=True)
+        parts = [micro(images[i * m:(i + 1) * m], masks[i * m:(i + 1) * m], pos_weight)
+                 for i in range(accum_steps)]
+        if accum_steps > 1:
+            for p in params:  # the micro-batches' gradients were summed
+                if p.grad is not None:
+                    p.grad.div_(accum_steps)
+        optimizer.step()
+        if accum_steps == 1:
+            return parts[0]
+        return {k: torch.stack([part[k] for part in parts]).mean() for k in METRIC_KEYS}
+
+    return step
+
+
+def make_seg_eval_step(
+    model: nn.Module,
+    stage: int,
+    resolution: int,
+    prev_model: nn.Module | None = None,
+    prev_resolution: int | None = None,
+    alpha: float = 1.0,
+) -> Callable[[tuple, float], Metrics]:
+    """``step(batch, pos_weight) -> metrics`` in eval mode (running BN
+    stats), no update.  It always computes the plain loss, also where
+    training uses the fused kernels, as the JAX package does."""
+    use_unc = stage > 1 and prev_model is not None
+
+    def prev_apply(x: torch.Tensor) -> torch.Tensor:
+        prev_model.eval()
+        return prev_model(x)
+
+    @torch.no_grad()
+    def step(batch, pos_weight: float) -> Metrics:
+        device = next(model.parameters()).device
+        x = resize_bilinear_align_corners(_nchw(batch[0], device), (resolution, resolution))
+        y = resize_nearest(_nchw(batch[1], device), (resolution, resolution))
+        unc_map = (generate_uncertainty_map(prev_apply, x, prev_resolution, resolution)
+                   if use_unc else None)
+        model.eval()
+        logits = model(x)
+        final, base = apply_uncertainty_weighted_loss(
+            bce_with_logits(logits, y, pos_weight), unc_map, alpha)
+        return _metrics(final, base, logits, y, unc_map)
+
+    return step

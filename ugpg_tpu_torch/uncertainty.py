@@ -1,18 +1,54 @@
-"""Uncertainty maps (counterpart of ``ugpg_tpu/uncertainty.py``).
+"""Uncertainty maps and the uncertainty-weighted loss (counterpart of
+``ugpg_tpu/uncertainty.py``).
 
 * binary uncertainty  A = 1 - 2|P - 0.5|  (1 at P = 0.5, 0 at P in {0, 1})
+* the map of a frozen previous stage, and the weighted mean
+  ``mean(pixel_loss * (1 + alpha A))`` with the weights detached
 
 Serving computes the same map from logits in one kernel
-(``ops/cuda/uncertainty.py::uncertainty_from_logits``).
+(``ops/cuda/uncertainty.py::uncertainty_from_logits``); the train step's
+fused loss folds the weighting into its own kernels
+(``ops/cuda/uncertainty_bce.py``).  Tensors are NCHW.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-__all__ = ["binary_uncertainty"]
+from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+
+__all__ = ["binary_uncertainty", "generate_uncertainty_map", "apply_uncertainty_weighted_loss"]
 
 
 def binary_uncertainty(probs: torch.Tensor) -> torch.Tensor:
     """A = 1 - 2|P - 0.5| of a probability map."""
     return 1.0 - 2.0 * (probs - 0.5).abs()
+
+
+@torch.no_grad()
+def generate_uncertainty_map(prev_apply: Callable[[torch.Tensor], torch.Tensor],
+                             x_current: torch.Tensor, prev_resolution: int,
+                             current_resolution: int) -> torch.Tensor:
+    """Uncertainty map from the frozen previous-stage model: resize the
+    input down to ``prev_resolution``, run ``prev_apply`` (which must run
+    the model in eval mode) and the sigmoid, resize the probabilities back
+    up, take A.  No gradient flows through it."""
+    x_prev = resize_bilinear_align_corners(x_current, (prev_resolution, prev_resolution))
+    probs = torch.sigmoid(prev_apply(x_prev))
+    probs_up = resize_bilinear_align_corners(probs, (current_resolution, current_resolution))
+    return binary_uncertainty(probs_up)
+
+
+def apply_uncertainty_weighted_loss(pixel_loss: torch.Tensor,
+                                    uncertainty_map: torch.Tensor | None,
+                                    alpha: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(final_loss, base_loss): the plain mean at stage 1 (no map), else
+    ``mean(pixel_loss * detach(1 + alpha A))``; base_loss is the unweighted
+    mean, kept for monitoring."""
+    base_loss = pixel_loss.mean()
+    if uncertainty_map is None:
+        return base_loss, base_loss
+    weights = (1.0 + alpha * uncertainty_map).detach()
+    return (pixel_loss * weights).mean(), base_loss
