@@ -15,13 +15,17 @@
    (warm-up, then the median of repeats) beside its plain version, one
    PyTorch library call computing the same function (cuDNN conv pair +
    ReLU, F.interpolate, the sigmoid expression; the port never calls
-   these) and the card's bound for the work.
+   these) and the card's bound for the work; each line also gives the
+   achieved TFLOP/s (double conv) or GB/s and the share of the bound, and
+   the double conv's middle-activation round trip in GB.
 5. Serves stage 4 at full width through the port's entry points: seeded
    random weights with non-trivial BN stats saved as a reference-format
    .pth, Predictor(buckets=(1, 8, 64)), requests of 1, 5, 8 and 11 images
    in uint8 and float32, 16 concurrent BatchingServer submits, and
    images/s at bucket 64 in bfloat16 with a torch.profiler breakdown of
-   one such call.  The launch counters, reset just before, must show 9
+   one such call, whose double-conv device time must come from the
+   tensor-core kernel (conv3x3_mma_kernel) and none from the float32
+   CUDA-core kernel.  The launch counters, reset just before, must show 9
    double-conv, 4 upsample and 1 uncertainty launches per device call.  A
    float32 GPU Predictor must agree with the same Predictor on
    device="cpu" (probabilities 1e-4).
@@ -264,13 +268,25 @@ def time_kernels():
         ops_ms = nops(n) / PEAK_OPS_PER_S[dtype if kernel == "fused_double_conv"
                                           else torch.float32] * 1e3
         t["bytes_ms"], t["ops_ms"] = bytes_ms, ops_ms
+        rate = {"bound_share": max(bytes_ms, ops_ms) / t["ms"]}
+        if kernel == "fused_double_conv":
+            rate["tflop_per_s"] = nops(n) / t["ms"] / 1e9
+            # the bf16 path writes the middle activation and reads it back
+            rate["mid_roundtrip_gb"] = 2 * n * DOUBLE_CONVS[label][0] ** 2 \
+                * DOUBLE_CONVS[label][2] * itemsize / 1e9
+        else:
+            rate["gb_per_s"] = nbytes(n, itemsize) / t["ms"] / 1e6
         log("time", json.dumps({"kernel": kernel, "shape": label, "batch": n,
-                                **{k: round(v, 4) for k, v in t.items()}}))
+                                **{k: round(v, 4) for k, v in {**t, **rate}.items()}}))
         acc = totals.setdefault(kernel, dict.fromkeys(t, 0.0))
         for key, value in t.items():
             acc[key] += value
         del args
     torch.cuda.empty_cache()
+    for kernel, t in totals.items():
+        bound = max(t["bytes_ms"], t["ops_ms"])
+        log("time total", json.dumps({"kernel": kernel, "batch": n, **t,
+                                      "bound_share": bound / t["ms"]}))
     return totals
 
 
@@ -326,6 +342,7 @@ def profile_call(label, fn):
     log("profile", json.dumps({
         "call": label, "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": 1 - busy / wall_ms, "top_ms": {k[:90]: v for k, v in top}}))
+    return device, wall_ms
 
 
 def serve(tmp: Path):
@@ -374,7 +391,15 @@ def serve(tmp: Path):
     check_response(outs, 64)
     ips = reps * 64 / dt
     log(f"serve: bucket 64 bf16: {ips:.2f} images/s ({dt / reps * 1e3:.1f} ms per call)")
-    profile_call("serve: bucket 64, 64 images", lambda: pf(big))
+    device, wall_ms = profile_call("serve: bucket 64, 64 images", lambda: pf(big))
+    # the bf16 double conv must run on the tensor-core kernel, never the
+    # float32 CUDA-core one
+    mma_ms = sum(v for k, v in device.items() if "conv3x3_mma_kernel" in k)
+    f32_ms = sum(v for k, v in device.items() if "double_conv_f32_kernel" in k)
+    log(f"serve: bf16 double conv (conv3x3_mma_kernel, 18 launches): {mma_ms:.3f} ms of device "
+        f"time, {mma_ms / wall_ms:.1%} of the call, {mma_ms / sum(device.values()):.1%} of "
+        f"device busy; float32 CUDA-core kernel {f32_ms:.3f} ms")
+    assert mma_ms > 0 and f32_ms == 0, (mma_ms, f32_ms)
 
     g32 = p32(images[:2])
     counts = _lib.launch_counts()

@@ -17,7 +17,11 @@ import pytest
 import torch
 
 from ugpg_tpu_torch.ops.cuda import _lib
-from ugpg_tpu_torch.ops.cuda.double_conv import fused_double_conv, fused_double_conv_reference
+from ugpg_tpu_torch.ops.cuda.double_conv import (
+    fused_double_conv,
+    fused_double_conv_reference,
+    pack_double_conv,
+)
 from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x, upsample2x_reference
 from ugpg_tpu_torch.ops.cuda.uncertainty import (
     uncertainty_from_logits,
@@ -64,12 +68,26 @@ def test_uncertainty_kernel(cuda, dtype, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c,h,w", [(8, 512, 16, 16), (8, 64, 128, 128), (2, 5, 1, 7),
-                                     (1, 3, 9, 1)])
+                                     (1, 3, 9, 1),
+                                     (2, 16, 1, 9),    # H = 1, 16-byte vectors
+                                     (3, 24, 5, 1),    # W = 1
+                                     (2, 12, 5, 7),    # float32 vectors, bf16 scalar
+                                     (1, 8, 1, 1)])
 def test_upsample2x_kernel(cuda, dtype, n, c, h, w):
     x = torch.randn(n, c, h, w, device=cuda).to(dtype).contiguous(memory_format=CL)
     got = upsample2x(x)
     assert got.is_contiguous(memory_format=CL) and got.shape == (n, c, 2 * h, 2 * w)
     _close(got, upsample2x_reference(x), dtype)
+
+
+def _dc_inputs(device, dtype, n, h, w, cin, cm, cout):
+    g = torch.Generator(device=device).manual_seed(h)
+    x = torch.randn(n, cin, h, w, device=device, generator=g).to(dtype).contiguous(memory_format=CL)
+    w1 = (torch.randn(cm, cin, 3, 3, device=device, generator=g) * (2 / (9 * cin)) ** 0.5).to(dtype)
+    w2 = (torch.randn(cout, cm, 3, 3, device=device, generator=g) * (2 / (9 * cm)) ** 0.5).to(dtype)
+    b1 = torch.randn(cm, device=device, generator=g) * 0.1
+    b2 = torch.randn(cout, device=device, generator=g) * 0.1
+    return x, w1, b1, w2, b2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -79,17 +97,38 @@ def test_upsample2x_kernel(cuda, dtype, n, c, h, w):
     (8, 32, 32, 1024, 256, 256),   # up1: Cin chunks
     (2, 37, 23, 20, 24, 16),       # ragged H and W, partial channel passes
     (1, 5, 3, 8, 8, 8),            # image smaller than a tile
+    (3, 19, 45, 3, 24, 8),         # Cin = 3 (scalar staging), Cout = 8 < one N slice
+    (1, 32, 32, 1024, 256, 8),     # batch 1, Cin = 1024 at 32 px
+    (2, 17, 33, 64, 512, 64),      # Cm = 512 near 16 px, H and W past a tile
+    (1, 16, 16, 512, 512, 512),    # batch 1, one whole tile
+    (2, 40, 24, 128, 64, 64),      # H and W not multiples of the tile
 ])
 def test_fused_double_conv_kernel(cuda, dtype, n, h, w, cin, cm, cout):
-    g = torch.Generator(device=cuda).manual_seed(h)
-    x = torch.randn(n, cin, h, w, device=cuda, generator=g).to(dtype).contiguous(memory_format=CL)
-    w1 = (torch.randn(cm, cin, 3, 3, device=cuda, generator=g) * (2 / (9 * cin)) ** 0.5).to(dtype)
-    w2 = (torch.randn(cout, cm, 3, 3, device=cuda, generator=g) * (2 / (9 * cm)) ** 0.5).to(dtype)
-    b1 = torch.randn(cm, device=cuda, generator=g) * 0.1
-    b2 = torch.randn(cout, device=cuda, generator=g) * 0.1
+    x, w1, b1, w2, b2 = _dc_inputs(cuda, dtype, n, h, w, cin, cm, cout)
     got = fused_double_conv(x, w1, b1, w2, b2)
     assert got.is_contiguous(memory_format=CL) and got.dtype == dtype
     _close(got, fused_double_conv_reference(x, w1, b1, w2, b2), dtype)
+
+
+def test_bf16_kernels_repeat_to_the_same_bits(cuda):
+    # no atomics: a repeated call gives the same bits; packing ahead of the
+    # call (as Predictor does) gives the same bits as packing in it
+    args = _dc_inputs(cuda, torch.bfloat16, 2, 40, 24, 128, 64, 64)
+    first = fused_double_conv(*args)
+    assert torch.equal(first, fused_double_conv(*args))
+    assert torch.equal(first, fused_double_conv(*args, packed=pack_double_conv(*args[1:])))
+    x = torch.randn(4, 64, 32, 32, device=cuda).bfloat16().contiguous(memory_format=CL)
+    assert torch.equal(upsample2x(x), upsample2x(x))
+
+
+def test_fused_double_conv_refuses_packed_weights_of_another_layout(cuda):
+    args = _dc_inputs(cuda, torch.bfloat16, 1, 8, 8, 20, 24, 8)
+    w1k, b1k, w2k, b2k = pack_double_conv(*args[1:])
+    for bad in ((w1k[:, :, :16].contiguous(), b1k, w2k, b2k),   # another K padding
+                (w1k.float(), b1k, w2k, b2k),                   # another dtype
+                pack_double_conv(*(t.float() for t in args[1:]))):  # the float32 layout
+        with pytest.raises(ValueError, match="packed weights"):
+            fused_double_conv(*args, packed=bad)
 
 
 def _loss_inputs(shape, device, seed=0):
@@ -125,11 +164,17 @@ def test_uncertainty_bce_keeps_the_last_element(cuda):
     n = (1 << 24) + 8  # a float32 index compare would drop elements past 2^24
     x, z, p = _loss_inputs((n,), cuda, seed=7)
     final, _ = uncertainty_weighted_bce_forward(x, z, p, 5.0, 1.0)
-    x[-1], z[-1] = 50.0, 1.0  # a large logit at z=1: near-zero pixel loss
+    old, _ = uncertainty_weighted_bce_reference(x[-1:], z[-1:], p[-1:], 5.0, 1.0)
+    # a logit of -1e4 at z=1: a pixel loss of 5e4 that moves the mean by
+    # about 6e-3, far above its float32 rounding (a loss near zero would
+    # move the mean by less than one ulp)
+    x[-1], z[-1], p[-1] = -1e4, 1.0, 0.5
     final2, _ = uncertainty_weighted_bce_forward(x, z, p, 5.0, 1.0)
     want2, _ = uncertainty_weighted_bce_reference(x, z, p, 5.0, 1.0)
+    new, _ = uncertainty_weighted_bce_reference(x[-1:], z[-1:], p[-1:], 5.0, 1.0)
     torch.cuda.synchronize()
-    assert final2.item() != final.item()
+    delta = (new.item() - old.item()) / n
+    assert abs((final2.item() - final.item()) - delta) <= 1e-3 * delta
     assert abs(final2.item() - want2.item()) <= 1e-5 * abs(want2.item())
 
 

@@ -25,6 +25,7 @@ import torch
 
 from ugpg_tpu_torch.device import resolve_device
 from ugpg_tpu_torch.io.checkpoint import load_checkpoint
+from ugpg_tpu_torch.models.blocks import DoubleConv
 from ugpg_tpu_torch.models.folding import fold_batchnorm
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS, STAGE_RESOLUTIONS
 from ugpg_tpu_torch.ops.cuda.uncertainty import uncertainty_from_logits
@@ -205,6 +206,9 @@ class Predictor(_BucketRouter):
         model = STAGE_MODELS[self.stage](num_classes=num_classes, use_bn=False, dtype=dtype)
         model.load_state_dict(fold_batchnorm(state_dict), strict=True)
         self.model = model.to(self.device).eval()
+        for block in self.model.modules():  # the kernels' weight layouts, made once
+            if isinstance(block, DoubleConv):
+                block.pack()
 
     @torch.inference_mode()
     def _dispatch(self, bucket: int, chunk: np.ndarray):

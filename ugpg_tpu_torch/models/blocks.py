@@ -7,8 +7,8 @@ Modules are NCHW-logical and keep the reference torch layout's names
 ``use_bn=True``: Conv -> BatchNorm (eps 1e-5) -> ReLU in plain PyTorch,
 the layout of the parity tests and of training.  ``use_bn=False``: the
 BN-folded inference path (``models/folding.py``); ``DoubleConv`` runs the
-fused kernel and ``Up`` the 2x upsample kernel.  BN slots 1 and 4 then
-hold ``nn.Identity`` so that the parameter names do not shift.
+double-conv kernels and ``Up`` the 2x upsample kernel.  BN slots 1 and 4
+then hold ``nn.Identity`` so that the parameter names do not shift.
 """
 
 from __future__ import annotations
@@ -16,13 +16,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ugpg_tpu_torch.ops.cuda.double_conv import fused_double_conv
+from ugpg_tpu_torch.ops.cuda.double_conv import fused_double_conv, pack_double_conv
 from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x
 from ugpg_tpu_torch.ops.resize import upsample2x_bilinear_align_corners
 
 __all__ = ["DoubleConv", "InConv", "Down", "Up", "OutConv"]
 
 BN_EPS = 1e-5
+_PACKED = ("packed_w1", "packed_b1", "packed_w2", "packed_b2")  # DoubleConv.pack's buffers
 
 
 class DoubleConv(nn.Module):
@@ -44,11 +45,25 @@ class DoubleConv(nn.Module):
             nn.ReLU(),
         )
 
+        for name in _PACKED:
+            self.register_buffer(name, None, persistent=False)
+
+    def pack(self) -> None:
+        """Keep the kernels' layout of the current weights
+        (``pack_double_conv``) in non-persistent buffers, so that a call
+        does not repack; the state dict does not change.  A snapshot: call
+        again after changing the weights."""
+        c1, c2 = self.conv_op[0], self.conv_op[3]
+        with torch.no_grad():
+            for name, t in zip(_PACKED, pack_double_conv(c1.weight, c1.bias, c2.weight, c2.bias)):
+                setattr(self, name, t)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_bn:
             return self.conv_op(x)
         c1, c2 = self.conv_op[0], self.conv_op[3]
-        return fused_double_conv(x, c1.weight, c1.bias, c2.weight, c2.bias)
+        packed = None if self.packed_w1 is None else tuple(getattr(self, n) for n in _PACKED)
+        return fused_double_conv(x, c1.weight, c1.bias, c2.weight, c2.bias, packed=packed)
 
 
 class InConv(nn.Module):
