@@ -30,13 +30,17 @@
    float32 GPU Predictor must agree with the same Predictor on
    device="cpu" (probabilities 1e-4).
 6. Loss kernels (forward and backward of the uncertainty-weighted BCE):
-   against their plain versions at (8,1,256,256), (2,1,17,19), (8,1,32,32)
-   and 2^24 + 8 elements (means rtol 1e-5, dx 1e-5 x max|dx|), the forward
-   bit-identical on a repeat, the last element at 2^24 + 8 counted, and one
-   case of 2^31 + 2^24 elements against the closed form; then timed at the
-   stage-4 shape, batch 8 and 64, beside the plain versions,
-   F.binary_cross_entropy_with_logits (and its autograd backward) and the
-   byte bound.
+   against their plain versions at (8,1,R,R) for the four stage
+   resolutions, (2,1,17,19), a slice off a 16-byte boundary and 2^24 + 8
+   elements, alpha 0, 1 and 2 (means rtol 1e-5, dx 1e-5 x max|dx|), the
+   forward bit-identical on a repeat, a 0-d p at alpha = 0 bit-identical to
+   a full map of 0.5, the last element at 2^24 + 8 counted, and one case of
+   2^31 + 2^24 elements against the closed form; then timed at batch 8 for
+   the four stage resolutions, batch 64 at 256 px, and alpha = 0 at 32 px:
+   CUDA-event, device (torch.profiler, which must show exactly one forward
+   kernel per forward call) and host time per call, beside the plain
+   versions, F.binary_cross_entropy_with_logits (and its autograd backward)
+   and the byte bound.
 7. Trains, the training path: UncertaintyGuidedProgressiveTrainer at full
    width with fused_loss=True, stages 1-4 (32-256 px, 2 epochs each) on
    the synthetic disk task, 16 train and 8 validation images, batch 8.
@@ -134,6 +138,7 @@ KERNELS = {
 LOSS_KERNELS = ("uncertainty_weighted_bce_fwd", "uncertainty_weighted_bce_bwd")
 PW = 5.0  # the trainer's pos_weight
 TRAIN_BATCH = 8
+STAGE_RES = (32, 64, 128, 256)  # the four stages' resolutions in training
 
 
 def log(*parts):
@@ -449,25 +454,38 @@ def check_loss_kernels():
     """Both loss kernels against their plain versions: the two means to
     rtol 1e-5 (float32 terms, summed in float64 by the kernel and in
     float32 by torch), dx to 1e-5 x max|dx|; the forward bit-identical on a
-    repeat; the last element at 2^24 + 8; one case past 2^31 elements
+    repeat; at alpha = 0 a 0-d p gives the bits of a full map of 0.5; the
+    four stage resolutions at batch 8, a ragged shape, a slice off a 16-byte
+    boundary; the last element at 2^24 + 8; one case past 2^31 elements
     against the closed form."""
     g = torch.Generator(device=DEV).manual_seed(2)
     gup = torch.ones((), device=DEV)
+    half = torch.full((), 0.5, device=DEV)
     worst = dict.fromkeys(LOSS_KERNELS, 0.0)
-    for shape in ((8, 1, 256, 256), (2, 1, 17, 19), (8, 1, 32, 32), ((1 << 24) + 8,)):
-        x, z, p = loss_inputs(shape, g)
+    shapes = [(TRAIN_BATCH, 1, r, r) for r in STAGE_RES] + [(2, 1, 17, 19), "x[1:]",
+                                                           ((1 << 24) + 8,)]
+    for shape in shapes:
+        if shape == "x[1:]":  # off a 16-byte boundary, n % 4 = 1
+            x, z, p = (t[1:] for t in loss_inputs((TRAIN_BATCH * 64 * 64 + 2,), g))
+        else:
+            x, z, p = loss_inputs(shape, g)
         for alpha in (0.0, 1.0, 2.0):
             got = uncertainty_weighted_bce_forward(x, z, p, PW, alpha)
             again = uncertainty_weighted_bce_forward(x, z, p, PW, alpha)
             want = uncertainty_weighted_bce_reference(x, z, p, PW, alpha)
             dx = uncertainty_weighted_bce_backward(x, z, p, PW, alpha, gup)
             want_dx = uncertainty_weighted_bce_backward_reference(x, z, p, PW, alpha, gup)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if alpha == 0.0:  # the stage-1 call: p is not read
+                same = same and all(torch.equal(a, b) for a, b in zip(
+                    got, uncertainty_weighted_bce_forward(x, z, half, PW, alpha)))
+                same = same and torch.equal(
+                    dx, uncertainty_weighted_bce_backward(x, z, half, PW, alpha, gup))
             torch.cuda.synchronize()
             fwd_err = max(abs(a.item() - b.item()) for a, b in zip(got, want))
             fwd_rel = max(abs(a.item() - b.item()) / abs(b.item()) for a, b in zip(got, want))
             bwd_err = (dx - want_dx).abs().max().item()
             scale = want_dx.abs().max().item()
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
             log(f"check loss {str(shape):20s} alpha={alpha} final={got[0].item():.7g} "
                 f"base={got[1].item():.7g} fwd rel err={fwd_rel:.2e} "
                 f"bwd err={bwd_err:.2e} (max|dx|={scale:.2e}) repeat identical={same}")
@@ -525,31 +543,60 @@ def check_loss_kernels_past_2_31():
 
 def device_ms(fn, args, names, reps=20):
     """Device time per call of the kernels whose names contain one of
-    ``names`` (torch.profiler), over ``reps`` calls after a warm-up."""
+    ``names`` (torch.profiler), over ``reps`` calls after a warm-up, and
+    the launches of every kernel in that window, by name."""
     fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn(*args)
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.cpu_time_total == 0 and any(n in e.key for n in names)) / 1e3 / reps
+    rows = [e for e in prof.key_averages() if e.cpu_time_total == 0
+            and e.self_device_time_total > 0 and e.key != "Activity Buffer Request"]
+    ms = sum(e.self_device_time_total for e in rows if any(n in e.key for n in names))
+    return ms / 1e3 / reps, {e.key: e.count for e in rows}
+
+
+def host_us(fn, args, calls=200):
+    """Host time per call: a host clock around ``calls`` calls with no
+    synchronise among them, the rate the host issues them at."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+# (batch, px, alpha) of the loss timings: the training path's four stage
+# shapes, batch 64 at 256 px, and stage 1's call (alpha = 0, a 0-d p)
+LOSS_TIMES = [(TRAIN_BATCH, r, 1.0) for r in STAGE_RES] + [(TIME_BATCH, 256, 1.0),
+                                                          (TRAIN_BATCH, 32, 0.0)]
 
 
 def time_loss_kernels():
-    """Forward and backward at the stage-4 shape (B, 1, 256, 256), batch 8
-    (the training path) and 64, float32, with their plain versions, the
-    library yardstick (F.binary_cross_entropy_with_logits with the weights
-    precomputed, and its autograd backward) and the byte bound.  ``ms`` is
-    CUDA-event time per call, which at these sizes is the rate the host
-    issues calls at; ``device_ms`` is the kernels' own device time."""
+    """Forward and backward, float32, at each (B, 1, px, px) of LOSS_TIMES,
+    beside their plain versions, the library yardstick
+    (F.binary_cross_entropy_with_logits with the weights precomputed, and
+    its autograd backward) and the byte bound (12n + 8 and 16n + 4 bytes;
+    8n + 8 and 12n + 4 at alpha = 0, where p is not read).  ``ms`` is
+    CUDA-event time per call, which at small sizes is the rate the host
+    issues calls at; ``device_ms`` the kernel's own device time, in a
+    profile that must hold exactly one forward kernel per forward call;
+    ``host_us`` host time per call without a synchronise."""
     g = torch.Generator(device=DEV).manual_seed(3)
     out = {}
-    for batch in (TRAIN_BATCH, TIME_BATCH):
-        x, z, p = loss_inputs((batch, 1, 256, 256), g)
-        n, alpha = x.numel(), 1.0
+    for batch, res, alpha in LOSS_TIMES:
+        shape = (batch, 1, res, res)
+        x, z, p = loss_inputs(shape, g)
+        weighted = alpha != 0.0
+        if not weighted:
+            p = torch.full((), 0.5, device=DEV)  # as the stage-1 step passes it
+        n = x.numel()
         gup = torch.ones((), device=DEV)
-        w = 1 + alpha * (1 - 2 * (p - 0.5).abs())
+        w = 1 + alpha * (1 - 2 * (p - 0.5).abs()) if weighted else None
         pw = torch.tensor([PW], device=DEV)
         xr = x.clone().requires_grad_()
         lib_loss = F.binary_cross_entropy_with_logits(xr, z, weight=w, pos_weight=pw)
@@ -557,30 +604,40 @@ def time_loss_kernels():
         t = {
             "uncertainty_weighted_bce_fwd": {
                 "ms": time_ms(uncertainty_weighted_bce_forward, args, reps=20),
+                "host_us": host_us(uncertainty_weighted_bce_forward, args),
                 "plain_ms": time_ms(uncertainty_weighted_bce_reference, args, reps=20),
                 "library_ms": time_ms(lambda: F.binary_cross_entropy_with_logits(
                     x, z, weight=w, pos_weight=pw), (), reps=20),
-                "bytes_ms": (12 * n + 8) / HBM_BYTES_PER_S * 1e3,
-                "ops_ms": 21 * n / PEAK_OPS_PER_S[torch.float32] * 1e3,
+                "bytes_ms": ((12 if weighted else 8) * n + 8) / HBM_BYTES_PER_S * 1e3,
+                "ops_ms": (21 if weighted else 16) * n / PEAK_OPS_PER_S[torch.float32] * 1e3,
             },
             "uncertainty_weighted_bce_bwd": {
                 "ms": time_ms(uncertainty_weighted_bce_backward, (*args, gup), reps=20),
+                "host_us": host_us(uncertainty_weighted_bce_backward, (*args, gup)),
                 "plain_ms": time_ms(uncertainty_weighted_bce_backward_reference, (*args, gup),
                                     reps=20),
                 "library_ms": time_ms(lambda: torch.autograd.grad(lib_loss, xr, retain_graph=True),
                                       (), reps=20),
-                "bytes_ms": (16 * n + 4) / HBM_BYTES_PER_S * 1e3,
-                "ops_ms": 15 * n / PEAK_OPS_PER_S[torch.float32] * 1e3,
+                "bytes_ms": ((16 if weighted else 12) * n + 4) / HBM_BYTES_PER_S * 1e3,
+                "ops_ms": (15 if weighted else 10) * n / PEAK_OPS_PER_S[torch.float32] * 1e3,
             },
         }
-        t["uncertainty_weighted_bce_fwd"]["device_ms"] = device_ms(
-            uncertainty_weighted_bce_forward, args, ("bce_forward",))
-        t["uncertainty_weighted_bce_bwd"]["device_ms"] = device_ms(
-            uncertainty_weighted_bce_backward, (*args, gup), ("bce_backward",))
+        fwd_ms, fwd_kernels = device_ms(uncertainty_weighted_bce_forward, args, ("bce_forward",))
+        # one launch per forward: every kernel of the window is the forward's
+        assert sum(fwd_kernels.values()) == 20 and all("bce_forward" in k for k in fwd_kernels), \
+            fwd_kernels
+        bwd_ms, _ = device_ms(uncertainty_weighted_bce_backward, (*args, gup), ("bce_backward",))
+        t["uncertainty_weighted_bce_fwd"]["device_ms"] = fwd_ms
+        t["uncertainty_weighted_bce_bwd"]["device_ms"] = bwd_ms
         for kernel, v in t.items():
-            log("time", json.dumps({"kernel": kernel, "shape": [batch, 1, 256, 256], "batch": batch,
-                                    **v}))
-        out[batch] = t
+            bound = max(v["bytes_ms"], v["ops_ms"])
+            log("time", json.dumps({
+                "kernel": kernel, "shape": list(shape), "batch": batch, "alpha": alpha, **v,
+                "bound_share_event": bound / v["ms"], "bound_share_device": bound / v["device_ms"],
+                "gb_per_s_device": v["bytes_ms"] * HBM_BYTES_PER_S / v["device_ms"] / 1e9}))
+        log(f"time loss {shape} alpha={alpha}: one forward kernel per call "
+            f"({json.dumps(fwd_kernels)} in 20 calls)")
+        out[batch, res, alpha] = t
         del x, z, p, w, xr, lib_loss
     torch.cuda.empty_cache()
     return out
@@ -743,7 +800,7 @@ def main():
     errors.update(check_loss_kernels())
     check_loss_kernels_past_2_31()
     loss_times = time_loss_kernels()
-    totals.update(loss_times[TRAIN_BATCH])  # the training path's shape
+    totals.update(loss_times[TRAIN_BATCH, 256, 1.0])  # the stage-4 train step's call
     with tempfile.TemporaryDirectory() as tmp:
         trainer, batch, train_launches, train_ips = train_progressive(Path(tmp))
         fused_vs_plain(trainer, batch)

@@ -10,7 +10,8 @@ different orders; bfloat16 2e-2 of the largest output, since the rounded
 middle activation of the double conv may land one bf16 step apart.  The
 loss kernels: the two means to rtol 1e-5 (float32 terms; the kernel sums
 them in float64, torch in float32), dx to 1e-5 x max|dx| (the same
-float32 expression, evaluated in another order).
+float32 expression, evaluated in another order); repeats of the same call
+bit-identical (a fixed order of sums, no float atomics).
 """
 
 import pytest
@@ -192,6 +193,103 @@ def test_uncertainty_bce_function_runs_both_kernels(cuda):
     torch.testing.assert_close(final, want.detach(), rtol=1e-5, atol=0)
     assert (xk.grad - xr.grad).abs().max().item() <= 1e-5 * xr.grad.abs().max().item()
     assert not base.requires_grad
+
+
+def _assert_loss_matches_plain(x, z, p, alpha, got=None):
+    final, base = got if got is not None else uncertainty_weighted_bce_forward(x, z, p, 5.0, alpha)
+    want_final, want_base = uncertainty_weighted_bce_reference(x, z, p, 5.0, alpha)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(final, want_final, rtol=1e-5, atol=0)
+    torch.testing.assert_close(base, want_base, rtol=1e-5, atol=0)
+    return final, base
+
+
+def test_uncertainty_bce_forward_resets_its_ticket_between_sizes(cuda):
+    # the last block puts the ticket back to 0: calls of another size (so
+    # another grid) in turn keep matching the plain version
+    inputs = {n: _loss_inputs((n,), cuda, seed=n % 97) for n in (8192, 524288, 17 * 19 * 2)}
+    first = {}
+    for rnd in range(2):
+        for alpha in (1.0, 0.0):
+            for n, (x, z, p) in inputs.items():
+                got = _assert_loss_matches_plain(x, z, p, alpha)
+                if rnd == 0:
+                    first[n, alpha] = got
+                else:
+                    assert all(torch.equal(a, b) for a, b in zip(got, first[n, alpha]))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [4096, 4097, 4098, 4099, 3, 1])
+@pytest.mark.parametrize("alpha", [0.0, 1.0])
+def test_uncertainty_bce_misaligned_base_and_ragged_tail(cuda, offset, n, alpha):
+    # x[offset:] of a flat tensor starts off a 16-byte boundary: the scalar
+    # prologue, the float4 walk and the n % 4 epilogue; z and p sliced alike
+    # walk together, a z at another offset takes the all-scalar walk
+    xf, zf, pf = _loss_inputs((n + offset,), cuda, seed=n + offset)
+    x, z, p = xf[offset:], zf[offset:], pf[offset:]
+    g = torch.tensor(0.3, device=cuda)
+    for zz in (z, z.clone()):
+        _assert_loss_matches_plain(x, zz, p, alpha)
+        dx = uncertainty_weighted_bce_backward(x, zz, p, 5.0, alpha, g)
+        want = uncertainty_weighted_bce_backward_reference(x, zz, p, 5.0, alpha, g)
+        torch.cuda.synchronize()
+        assert (dx - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_uncertainty_bce_forwards_on_two_streams_at_once(cuda):
+    # each stream has its own workspace and ticket
+    a = _loss_inputs((1 << 22,), cuda, seed=11)
+    b = _loss_inputs((1 << 20,), cuda, seed=12)
+    want = [uncertainty_weighted_bce_reference(*t, 5.0, 1.0) for t in (a, b)]
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(4):
+        for i, (s, t) in enumerate(zip(streams, (a, b))):
+            with torch.cuda.stream(s):
+                got[i].append(uncertainty_weighted_bce_forward(*t, 5.0, 1.0))
+    torch.cuda.synchronize()
+    for outs, (wf, wb) in zip(got, want):
+        for final, base in outs:
+            torch.testing.assert_close(final, wf, rtol=1e-5, atol=0)
+            torch.testing.assert_close(base, wb, rtol=1e-5, atol=0)
+            assert torch.equal(final, outs[0][0]) and torch.equal(base, outs[0][1])
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 32, 32), (8, 1, 256, 256), (2, 1, 17, 19)])
+def test_uncertainty_bce_zero_dim_p_at_alpha_zero_equals_the_full_half_map(cuda, shape):
+    x, z, _ = _loss_inputs(shape, cuda, seed=5)
+    results = []
+    for p in (torch.tensor(0.5, device=cuda), torch.full_like(x, 0.5)):
+        xg = x.clone().requires_grad_()
+        final, base = uncertainty_weighted_bce(xg, z, p, 5.0, 0.0)
+        final.backward()
+        results.append((final.detach(), base, xg.grad))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(*results))
+    assert torch.equal(results[0][0], results[0][1])  # weight 1: final is base
+    _assert_loss_matches_plain(x, z, torch.full_like(x, 0.5), 0.0, got=results[0][:2])
+
+
+def test_uncertainty_bce_forward_is_one_kernel_launch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, z, p = _loss_inputs((8, 1, 256, 256), cuda, seed=9)
+    calls = 5
+    for alpha in (1.0, 0.0):
+        uncertainty_weighted_bce_forward(x, z, p, 5.0, alpha)  # the workspace exists
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                uncertainty_weighted_bce_forward(x, z, p, 5.0, alpha)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.cpu_time_total == 0 and e.self_device_time_total > 0
+                   and e.key != "Activity Buffer Request"}
+        assert sum(kernels.values()) == calls, kernels
+        assert all("bce_forward" in k for k in kernels), kernels
 
 
 def test_kernels_count_launches_and_check_layout(cuda):

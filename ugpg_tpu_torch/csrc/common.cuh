@@ -58,6 +58,28 @@ inline int grid_stride_blocks(int64_t n, int threads) {
   return (int)(need < cap ? (need > 0 ? need : 1) : cap);
 }
 
+// Blocks of `kernel`, launched with `threads` threads and no dynamic shared
+// memory, that the current device keeps resident at once: one wave of a
+// persistent grid.  Looked up once per device into `cache` (zero-initialised,
+// indexed by device); racing callers store the same value.
+template <typename Kernel, int kDevices>
+cudaError_t resident_blocks(Kernel kernel, int threads, int (&cache)[kDevices], int* blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    if (e != cudaSuccess) return e;
+    cache[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  *blocks = cache[dev];
+  return cudaSuccess;
+}
+
 }  // namespace ugpg
 
 // Every library exports its own copy (each source is a separate .so).

@@ -141,8 +141,9 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
 
 
 def stream(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a pointer."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a pointer.  The raw
+    lookup skips building a ``torch.cuda.Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def count(kernel: str) -> None:

@@ -7,11 +7,19 @@ uncertainty_weighted_bce``: ``(final, base)`` with
     final = mean(pixel * (1 + alpha (1 - 2|p - 0.5|))),  base = mean(pixel)
 
 ``UncertaintyWeightedBCE`` is the ``torch.autograd.Function``: its forward
-and its backward each launch a CUDA kernel (``csrc/uncertainty_bce.cu``)
+and its backward each launch one CUDA kernel (``csrc/uncertainty_bce.cu``)
 for CUDA tensors, and take the plain versions below only for CPU tensors.
 The gradient flows to the logits only (p, the previous stage's
 probabilities, is detached, as in the reference); ``base`` is for
-monitoring and carries no gradient.
+monitoring and carries no gradient.  p broadcasts to the logits, as in the
+JAX function; with ``alpha == 0`` the weight is exactly 1 and p is neither
+read nor expanded, so a 0-d p costs nothing.
+
+The host path is kept short, since at the training path's sizes a call's
+host work is longer than its kernel: the C entries are bound once, the
+forward's workspace (the blocks' partial sums and the ticket that picks the
+last block) is allocated and zeroed once per device and stream, and a call
+allocates only its output.
 """
 
 from __future__ import annotations
@@ -34,8 +42,11 @@ __all__ = [
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
-_FWD_ARGTYPES = (_P, _P, _P, ctypes.c_int64, _F, _F, _P, ctypes.c_int, _P, _P)
+_FWD_ARGTYPES = (_P, _P, _P, ctypes.c_int64, _F, _F, _P, _P, _P)
 _BWD_ARGTYPES = (_P, _P, _P, _P, ctypes.c_int64, _F, _F, _F, _P, _P)
+
+_entries = None  # (forward, backward, workspace bytes), bound at the first launch
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}  # (device, stream) -> bytes
 
 
 def _weight(p: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -55,55 +66,107 @@ def uncertainty_weighted_bce_backward_reference(x, z, p, pos_weight: float, alph
     return g * (1.0 / x.numel()) * _weight(p, alpha) * dpl
 
 
-def _check(what: str, *tensors: torch.Tensor) -> None:
-    x = tensors[0]
-    for t in tensors:
+def _bind():
+    global _entries
+    size = _lib.function("uncertainty_bce", "ugpg_uncertainty_bce_workspace_bytes", ())()
+    _entries = (
+        _lib.function("uncertainty_bce", "ugpg_uncertainty_bce_forward", _FWD_ARGTYPES),
+        _lib.function("uncertainty_bce", "ugpg_uncertainty_bce_backward", _BWD_ARGTYPES),
+        size,
+    )
+    return _entries
+
+
+def _workspace(device: torch.device, stream: int, size: int) -> torch.Tensor:
+    """The forward's workspace on ``stream``, zeroed on that stream the
+    first time; the kernel leaves its ticket at 0 again."""
+    ws = _workspaces.get((device.index, stream))
+    if ws is None:
+        ws = _workspaces.setdefault((device.index, stream),
+                                    torch.zeros(size, dtype=torch.uint8, device=device))
+    return ws
+
+
+def _on_device(fn, device: torch.device, *args) -> int:
+    """``fn(*args)`` with ``device`` current, entering its context only
+    when another device is current."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
+def _broadcasts(shape, to) -> bool:
+    return len(shape) <= len(to) and all(a in (1, b) for a, b in zip(reversed(shape),
+                                                                       reversed(to)))
+
+
+def _probs(what: str, p: torch.Tensor, x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """p as the kernels take it: as given when ``alpha == 0`` (not read),
+    else of x's shape and contiguous (a broadcast p is expanded and copied)."""
+    if p.shape != x.shape:
+        if not _broadcasts(p.shape, x.shape):
+            raise ValueError(f"{what}: p of shape {tuple(p.shape)} does not broadcast to "
+                             f"{tuple(x.shape)}")
+        return p if alpha == 0.0 else p.expand(x.shape).contiguous()
+    return p if alpha == 0.0 or p.is_contiguous() else p.contiguous()
+
+
+def _check(what: str, x: torch.Tensor, z: torch.Tensor, p: torch.Tensor) -> None:
+    for t in (x, z, p):
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: float32 expected, got {t.dtype}")
-        if t.shape != x.shape:
-            raise ValueError(f"{what}: shapes differ, {tuple(t.shape)} vs {tuple(x.shape)}")
-        if t.device != x.device:
-            raise ValueError(f"{what}: tensors on {t.device} and {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{what}: the kernel takes contiguous tensors")
+    device = x.device
+    for t in (z, p):
+        if t.device != device:
+            raise ValueError(f"{what}: tensors on {t.device} and {device}")
+    if z.shape != x.shape:
+        raise ValueError(f"{what}: shapes differ, {tuple(z.shape)} vs {tuple(x.shape)}")
+    if device.type == "cuda":
+        if not (x.is_contiguous() and z.is_contiguous()):
+            raise ValueError(f"{what}: the kernel takes contiguous tensors")
+    elif device.type != "cpu":
+        raise ValueError(f"{what}: unsupported device {device}")
 
 
 def uncertainty_weighted_bce_forward(x, z, p, pos_weight: float, alpha: float):
-    """(final, base) of float32 x, z, p of one shape, as two 0-d tensors."""
+    """(final, base) of float32 x and z of one shape and p that broadcasts
+    to them, as two 0-d tensors; one kernel launch on the card."""
+    p = _probs("uncertainty_weighted_bce_forward", p, x, alpha)
     _check("uncertainty_weighted_bce_forward", x, z, p)
     if x.device.type == "cpu":
         return uncertainty_weighted_bce_reference(x, z, p, pos_weight, alpha)
-    n = x.numel()
-    blocks = _lib.function("uncertainty_bce", "ugpg_uncertainty_bce_blocks",
-                           (ctypes.c_int64,))(n)
-    partials = torch.empty(2 * blocks, dtype=torch.float64, device=x.device)
-    out = torch.empty(2, dtype=torch.float32, device=x.device)
-    fn = _lib.function("uncertainty_bce", "ugpg_uncertainty_bce_forward", _FWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), z.data_ptr(), p.data_ptr(), n, pos_weight, alpha,
-                partials.data_ptr(), blocks, out.data_ptr(), _lib.stream(x))
+    fwd, _, size = _entries or _bind()
+    device = x.device
+    out = torch.empty(2, dtype=torch.float32, device=device)
+    stream = _lib.stream(x)
+    rc = _on_device(fwd, device, x.data_ptr(), z.data_ptr(), p.data_ptr(), x.numel(),
+                    pos_weight, alpha, _workspace(device, stream, size).data_ptr(),
+                    out.data_ptr(), stream)
     _lib.check(rc, "uncertainty_bce", "uncertainty_weighted_bce_forward")
     _lib.count("uncertainty_weighted_bce_fwd")
-    return out[0], out[1]
+    return out.unbind(0)
 
 
 def uncertainty_weighted_bce_backward(x, z, p, pos_weight: float, alpha: float, g):
-    """dx of ``final`` for the upstream gradient ``g`` (a 0-d float32
-    tensor on x's device, read by the kernel: no host sync)."""
+    """dx of ``final`` for the upstream gradient ``g`` (one float32 on x's
+    device, read by the kernel: no host sync)."""
+    p = _probs("uncertainty_weighted_bce_backward", p, x, alpha)
     _check("uncertainty_weighted_bce_backward", x, z, p)
     if x.device.type == "cpu":
         return uncertainty_weighted_bce_backward_reference(x, z, p, pos_weight, alpha, g)
+    if g.numel() != 1:
+        raise ValueError(f"uncertainty_weighted_bce_backward: g of shape {tuple(g.shape)}, "
+                         "one element expected")
     dx = torch.empty_like(x)
     n = x.numel()
     if n == 0:
         return dx
-    g = g.to(device=x.device, dtype=torch.float32).reshape(()).contiguous()
-    fn = _lib.function("uncertainty_bce", "ugpg_uncertainty_bce_backward", _BWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), z.data_ptr(), p.data_ptr(), g.data_ptr(), n, pos_weight,
-                alpha, 1.0 / n, dx.data_ptr(), _lib.stream(x))
+    if g.device != x.device or g.dtype != torch.float32:
+        g = g.to(device=x.device, dtype=torch.float32)
+    _, bwd, _ = _entries or _bind()
+    rc = _on_device(bwd, x.device, x.data_ptr(), z.data_ptr(), p.data_ptr(), g.data_ptr(), n,
+                    pos_weight, alpha, 1.0 / n, dx.data_ptr(), _lib.stream(x))
     _lib.check(rc, "uncertainty_bce", "uncertainty_weighted_bce_backward")
     _lib.count("uncertainty_weighted_bce_bwd")
     return dx
@@ -117,7 +180,7 @@ class UncertaintyWeightedBCE(torch.autograd.Function):
         pos_weight, alpha = float(pos_weight), float(alpha)
         x = logits.contiguous()
         z = targets.contiguous()
-        p = probs_prev.expand_as(x).contiguous()  # p broadcasts to x
+        p = _probs("uncertainty_weighted_bce", probs_prev, x, alpha)
         final, base = uncertainty_weighted_bce_forward(x, z, p, pos_weight, alpha)
         ctx.save_for_backward(x, z, p)
         ctx.pos_weight, ctx.alpha = pos_weight, alpha
@@ -135,6 +198,6 @@ class UncertaintyWeightedBCE(torch.autograd.Function):
 
 
 def uncertainty_weighted_bce(logits, targets, probs_prev, pos_weight: float, alpha: float):
-    """(final_loss, base_loss); ``probs_prev`` broadcasts to ``logits``.
-    The gradient flows to ``logits`` only."""
+    """(final_loss, base_loss); ``probs_prev`` broadcasts to ``logits`` and
+    is not read when ``alpha == 0``.  The gradient flows to ``logits`` only."""
     return UncertaintyWeightedBCE.apply(logits, targets, probs_prev, pos_weight, alpha)

@@ -96,8 +96,9 @@ def make_seg_train_step(
     """``step(batch, pos_weight) -> metrics``: one update of ``model``
     through ``optimizer``.  ``prev_model`` is the frozen previous stage
     (stage > 1).  ``fused_loss=True`` computes the loss and its gradient
-    with the ``uncertainty_weighted_bce`` kernels; at stage 1 it passes
-    probabilities of 0.5 with ``alpha=0``, so the kernels run there too.
+    with the ``uncertainty_weighted_bce`` kernels; at stage 1 it passes a
+    0-d probability of 0.5 with ``alpha=0``, so the kernels run there too
+    and read no p.
 
     ``accum_steps=K`` splits the batch (size K*m) into K micro-batches in
     order: gradients are averaged over them, the BN running stats update
@@ -124,7 +125,8 @@ def make_seg_train_step(
         model.train()
         logits = model(x)
         if fused_loss:
-            p_arg = probs_up if use_unc else torch.full_like(logits, 0.5)
+            # stage 1: alpha = 0, so the kernels never read p
+            p_arg = probs_up if use_unc else logits.new_full((), 0.5)
             final, base = uncertainty_weighted_bce(logits, y, p_arg, pos_weight,
                                                    alpha if use_unc else 0.0)
         else:
