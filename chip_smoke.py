@@ -10,14 +10,21 @@
    card at the stage-4 shapes, batch 8, in bfloat16 and in float32 (TF32
    off for cuDNN and matmul).  Tolerance: max |kernel - plain| <= 1e-4
    (float32) or 2e-2 (bfloat16: the double conv rounds its middle
-   activation) times max(1, max |plain|).
+   activation) times max(1, max |plain|).  Then the uncertainty map of
+   2^31 + 11 float32 logits (about 17 GB in and out) against the closed
+   form: a body and a tail past 2^31 of two constants, the last 3 elements
+   taken by the scalar n % 4 epilogue, whose index would wrap in int32.
 4. Times each serving kernel at batch 64 in bfloat16 with CUDA events
    (warm-up, then the median of repeats) beside its plain version, one
    PyTorch library call computing the same function (cuDNN conv pair +
    ReLU, F.interpolate, the sigmoid expression; the port never calls
    these) and the card's bound for the work; each line also gives the
    achieved TFLOP/s (double conv) or GB/s and the share of the bound, and
-   the double conv's middle-activation round trip in GB.
+   the double conv's middle-activation round trip in GB.  The uncertainty
+   map is timed at each serving bucket (1, 8, 64) on float32 logits and
+   at 64 on bfloat16: CUDA-event, device (torch.profiler, which must show
+   exactly one uncertainty kernel per call; at 64 also with the L2 cold,
+   the time the kernels line gives) and host time per call.
 5. Serves stage 4 at full width through the port's entry points: seeded
    random weights with non-trivial BN stats saved as a reference-format
    .pth, Predictor(buckets=(1, 8, 64)), requests of 1, 5, 8 and 11 images
@@ -25,7 +32,8 @@
    images/s at bucket 64 in bfloat16 with a torch.profiler breakdown of
    one such call, whose double-conv device time must come from the
    tensor-core kernel (conv3x3_mma_kernel) and none from the float32
-   CUDA-core kernel.  The launch counters, reset just before, must show 9
+   CUDA-core kernel, and which gives the uncertainty map's device time in
+   serving.  The launch counters, reset just before, must show 9
    double-conv, 4 upsample and 1 uncertainty launches per device call.  A
    float32 GPU Predictor must agree with the same Predictor on
    device="cpu" (probabilities 1e-4).
@@ -63,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import math
 import statistics
@@ -264,11 +273,12 @@ def time_kernels():
     g = torch.Generator(device=DEV).manual_seed(1)
     totals = {}
     for kernel, label, make, fn, plain, library, nbytes, nops in cases():
-        # the logits of the main path are float32 (the heads' dtype)
-        args = make(n, torch.float32 if kernel == "uncertainty_from_logits" else dtype, g)
+        if kernel == "uncertainty_from_logits":  # per bucket, below
+            continue
+        args = make(n, dtype, g)
         t = {"ms": time_ms(fn, args), "plain_ms": time_ms(plain, args, reps=1, repeats=3),
              "library_ms": time_ms(library, args)}
-        itemsize = 4 if kernel == "uncertainty_from_logits" else 2
+        itemsize = dtype.itemsize
         bytes_ms = nbytes(n, itemsize) / HBM_BYTES_PER_S * 1e3
         ops_ms = nops(n) / PEAK_OPS_PER_S[dtype if kernel == "fused_double_conv"
                                           else torch.float32] * 1e3
@@ -292,7 +302,87 @@ def time_kernels():
         bound = max(t["bytes_ms"], t["ops_ms"])
         log("time total", json.dumps({"kernel": kernel, "batch": n, **t,
                                       "bound_share": bound / t["ms"]}))
+    # the logits of the main path are float32 (the heads' dtype); the
+    # kernels line gives the device time the HBM byte bound applies to
+    unc = time_uncertainty(g)[n, torch.float32]
+    totals["uncertainty_from_logits"] = {**unc, "device_ms": unc["device_ms_cold"]}
     return totals
+
+
+# (batch, dtype) of the uncertainty-map timings: the serving buckets on the
+# heads' float32 logits, and bucket 64 in bfloat16
+UNC_TIMES = [(b, torch.float32) for b in (1, CHECK_BATCH, TIME_BATCH)] + [
+    (TIME_BATCH, torch.bfloat16)]
+
+
+def time_uncertainty(g):
+    """uncertainty_from_logits on (B, 1, 256, 256) logits at each (B, dtype)
+    of UNC_TIMES: CUDA-event time per call (``ms``, at the small buckets the
+    rate the host issues calls at), device time (``device_ms``, in a
+    torch.profiler window that must hold exactly one uncertainty kernel per
+    call) and host time per call (``host_us``), beside the plain version,
+    the library yardstick and the byte bound (8n bytes float32, 4n
+    bfloat16).  The timing loops call the map on the same logits, which
+    at bucket 64 (33.5 MB read and written) stay in the 50 MB L2;
+    ``device_ms_cold`` at bucket 64 takes 8 logits tensors in turn and
+    keeps every output, so that the reads and the writes reach device
+    memory.  Phase 5 reads the map's device time in a serving call."""
+    k, h = LOGITS
+    out = {}
+    for batch, dtype in UNC_TIMES:
+        args = unc_inputs(batch, k, h, dtype, g)
+        n = args[0].numel()
+        t = {"ms": time_ms(uncertainty_from_logits, args, reps=20),
+             "host_us": host_us(uncertainty_from_logits, args),
+             "plain_ms": time_ms(uncertainty_from_logits_reference, args, reps=20),
+             "library_ms": time_ms(library_uncertainty, args, reps=20),
+             "bytes_ms": 2 * n * args[0].element_size() / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": 20 * n / PEAK_OPS_PER_S[torch.float32] * 1e3}
+        windows = {"device_ms": (uncertainty_from_logits, args)}
+        if batch == TIME_BATCH:
+            cold = itertools.cycle([args[0]] + [unc_inputs(batch, k, h, dtype, g)[0]
+                                                for _ in range(7)])
+            outs = []
+            windows["device_ms_cold"] = (
+                lambda: outs.append(uncertainty_from_logits(next(cold))), ())
+        for key, (fn, fn_args) in windows.items():
+            t[key], kernels = device_ms(fn, fn_args, ("uncertainty_kernel",))
+            # one launch per call: every kernel of the window is the map's
+            assert sum(kernels.values()) == 20, kernels
+            assert all("uncertainty_kernel" in name for name in kernels), kernels
+        bound = max(t["bytes_ms"], t["ops_ms"])
+        shares = {f"bound_share_{key.replace('_ms', '')}": bound / t[key] for key in windows}
+        log("time", json.dumps({
+            "kernel": "uncertainty_from_logits", "shape": [batch, k, h, h],
+            "dtype": str(dtype)[6:], **t, "bound_share_event": bound / t["ms"], **shares,
+            "gb_per_s_device": t["bytes_ms"] * HBM_BYTES_PER_S / t["device_ms"] / 1e9}))
+        out[batch, dtype] = t
+        del args, windows
+    log(f"time uncertainty: one uncertainty kernel per call at every bucket ({json.dumps(kernels)} "
+        "in the last 20 calls)")
+    return out
+
+
+def check_uncertainty_past_2_31():
+    """n = 2^31 + 11 float32 logits (about 17 GB in and out): the body and
+    the last 11 elements, past where an int32 index wraps, hold two
+    constants, so the map is known in closed form.  n % 4 = 3: the last 3
+    elements, at indices past 2^31, take the kernel's scalar epilogue."""
+    n1, n = 1 << 31, (1 << 31) + 11
+    body, tail = 0.75, -3.0
+    x = torch.full((n,), body, device=DEV)
+    x[n1:] = tail
+    out = uncertainty_from_logits(x)
+    torch.cuda.synchronize()
+    want = [1 - 2 * abs(1 / (1 + math.exp(-v)) - 0.5) for v in (body, tail)]
+    got = [(out[:n1].amin().item(), out[:n1].amax().item()),
+           (out[n1:].amin().item(), out[n1:].amax().item())]
+    log(f"check uncertainty past 2^31 (n={n}): body min/max {got[0]} want {want[0]:.9g}, "
+        f"tail min/max {got[1]} want {want[1]:.9g}")
+    for pair, w in zip(got, want):
+        assert all(abs(v - w) <= 1e-6 for v in pair), (pair, w)
+    del x, out
+    torch.cuda.empty_cache()
 
 
 def random_checkpoint(path: Path, seed: int = 0) -> None:
@@ -405,6 +495,9 @@ def serve(tmp: Path):
         f"time, {mma_ms / wall_ms:.1%} of the call, {mma_ms / sum(device.values()):.1%} of "
         f"device busy; float32 CUDA-core kernel {f32_ms:.3f} ms")
     assert mma_ms > 0 and f32_ms == 0, (mma_ms, f32_ms)
+    unc_ms = sum(v for k, v in device.items() if "uncertainty_kernel" in k)
+    log(f"serve: uncertainty map (uncertainty_kernel, 1 launch): {unc_ms * 1e3:.3f} us of device "
+        "time in that call")
 
     g32 = p32(images[:2])
     counts = _lib.launch_counts()
@@ -544,30 +637,44 @@ def check_loss_kernels_past_2_31():
 def device_ms(fn, args, names, reps=20):
     """Device time per call of the kernels whose names contain one of
     ``names`` (torch.profiler), over ``reps`` calls after a warm-up, and
-    the launches of every kernel in that window, by name."""
+    the launches of every kernel in that window, by name.  Each call
+    launches one kernel of ``names``; a window that holds fewer is taken
+    once more, and logged: torch.profiler has been seen to lose a
+    window's kernels at random on an H100 (one window of 20 calls held
+    none)."""
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.cpu_time_total == 0
-            and e.self_device_time_total > 0 and e.key != "Activity Buffer Request"]
-    ms = sum(e.self_device_time_total for e in rows if any(n in e.key for n in names))
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.cpu_time_total == 0
+                and e.self_device_time_total > 0 and e.key != "Activity Buffer Request"]
+        mine = [e for e in rows if any(n in e.key for n in names)]
+        if sum(e.count for e in mine) >= reps:
+            break
+        log(f"profile: a window of {reps} calls held {json.dumps({e.key: e.count for e in rows})}; "
+            "taken once more")
+    ms = sum(e.self_device_time_total for e in mine)
     return ms / 1e3 / reps, {e.key: e.count for e in rows}
 
 
-def host_us(fn, args, calls=200):
+def host_us(fn, args, calls=200, repeats=5):
     """Host time per call: a host clock around ``calls`` calls with no
-    synchronise among them, the rate the host issues them at."""
+    synchronise among them, the rate the host issues them at; the median
+    of ``repeats`` such runs, since the host's clock spreads far more than
+    the device's."""
     fn(*args)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn(*args)
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / calls * 1e6
+    samples = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        samples.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
 
 
 # (batch, px, alpha) of the loss timings: the training path's four stage
@@ -793,6 +900,7 @@ def main():
 
     with tf32(False):  # the serving phases, as their numbers in PERF.md were taken
         errors = check_kernels()
+        check_uncertainty_past_2_31()
         totals = time_kernels()
         with tempfile.TemporaryDirectory() as tmp:
             launches, ips = serve(Path(tmp))
@@ -819,6 +927,7 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound,
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
             "library_ms": t["library_ms"],
+            **{key: t[key] for key in ("device_ms", "host_us") if key in t},
         })
     log(f"serving: {ips:.2f} images/s, stage 4, bucket 64, bf16 on {card}")
     log(f"training: images/s at batch {TRAIN_BATCH}, epoch 2 of each stage: "

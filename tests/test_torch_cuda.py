@@ -50,6 +50,22 @@ def cuda():
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def _kernels_in_profile(fn, calls):
+    """Launches by kernel name in a torch.profiler window around ``calls``
+    calls of ``fn`` (after one outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.cpu_time_total == 0 and e.self_device_time_total > 0
+            and e.key != "Activity Buffer Request"}
+
+
 def _close(got, want, dtype):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -61,10 +77,120 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 1, 256, 256), (3, 2, 33, 65), (1, 1, 1, 7)])
+@pytest.mark.parametrize("shape", [(8, 1, 256, 256), (3, 2, 33, 65), (1, 1, 1, 7),
+                                   (1, 1, 256, 256), (64, 1, 256, 256)])  # serving buckets
 def test_uncertainty_kernel(cuda, dtype, shape):
     x = (torch.randn(shape, device=cuda) * 4).to(dtype)
-    _close(uncertainty_from_logits(x), uncertainty_from_logits_reference(x), dtype)
+    got = uncertainty_from_logits(x)
+    assert got.shape == x.shape and got.dtype == dtype and got.stride() == x.stride()
+    _close(got, uncertainty_from_logits_reference(x), dtype)
+
+
+def test_uncertainty_kernel_agrees_with_torch_sigmoid_to_a_few_ulp(cuda):
+    # the same float32 expression with expf and IEEE division: a few ulp of
+    # 1.0 at most, across the range where sigmoid saturates (|x| ~ 17)
+    x = torch.linspace(-40.0, 40.0, 1 << 20, device=cuda)
+    err = (uncertainty_from_logits(x) - uncertainty_from_logits_reference(x)).abs().max().item()
+    assert err <= 4 * 2.0 ** -23, err
+
+
+def _entry_launch(x, out):
+    """The C entry called directly, with an output of the caller's choice."""
+    from ugpg_tpu_torch.ops.cuda import uncertainty as unc
+
+    fn = unc._entry or unc._bind()
+    rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), _lib.dtype_code(x, "test"), _lib.stream(x))
+    _lib.check(rc, "uncertainty", "test")
+    return out
+
+
+# (dtype, element offset off a 16-byte boundary, n): n % vec from 0 to vec - 1
+# (vec = 4 float32, 8 bfloat16) past 4096, and every n shorter than a vector
+_MISALIGNED = [(dtype, offset, n) for dtype, vec in ((torch.float32, 4), (torch.bfloat16, 8))
+               for offset in (1, 2, 3)
+               for n in [4096 + r for r in range(vec)] + list(range(1, vec))]
+
+
+@pytest.mark.parametrize("dtype,offset,n", _MISALIGNED)
+def test_uncertainty_kernel_misaligned_base_and_ragged_tail(cuda, dtype, offset, n):
+    # x = buf[offset:] starts off a 16-byte boundary.  Through the wrapper
+    # the fresh output is aligned, so every element takes the scalar walk;
+    # through the C entry with an output at x's offset, the scalar
+    # prologue, the vector walk and the n % vec epilogue; at another
+    # offset, the scalar walk again
+    buf = (torch.randn(n + offset + 1, device=cuda) * 4).to(dtype)
+    x = buf[offset:offset + n]
+    want = uncertainty_from_logits_reference(x)
+    _close(uncertainty_from_logits(x), want, dtype)
+    for out_offset in (offset, offset + 1):
+        out = torch.full((n + offset + 1,), float("nan"), device=cuda, dtype=dtype)
+        got = _entry_launch(x, out[out_offset:out_offset + n])
+        _close(got, want, dtype)
+        torch.cuda.synchronize()
+        assert out[:out_offset].isnan().all() and out[out_offset + n:].isnan().all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_uncertainty_kernel_keeps_channels_last(cuda, dtype):
+    x = (torch.randn(3, 2, 33, 65, device=cuda) * 4).to(dtype).contiguous(memory_format=CL)
+    got = uncertainty_from_logits(x)
+    assert got.is_contiguous(memory_format=CL) and not got.is_contiguous()
+    _close(got, uncertainty_from_logits_reference(x), dtype)
+    assert torch.equal(got, uncertainty_from_logits(x.contiguous()))
+
+
+def test_uncertainty_kernel_takes_empty_tensors_without_a_launch(cuda):
+    _lib.reset_launch_counts()
+    for shape in ((0,), (2, 0, 4, 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            got = uncertainty_from_logits(torch.empty(shape, device=cuda, dtype=dtype))
+            assert got.shape == shape and got.dtype == dtype and got.device.type == "cuda"
+    assert _lib.launch_counts() == {}
+
+
+def test_uncertainty_kernel_on_two_streams_at_once(cuda):
+    inputs = (torch.randn(64, 1, 256, 256, device=cuda) * 4,
+              (torch.randn(8, 1, 256, 256, device=cuda) * 4).bfloat16())
+    want = [uncertainty_from_logits_reference(t) for t in inputs]
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(4):
+        for i, (s, t) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(s):
+                got[i].append(uncertainty_from_logits(t))
+    torch.cuda.synchronize()
+    for outs, w, t in zip(got, want, inputs):
+        for out in outs:
+            _close(out, w, t.dtype)
+            assert torch.equal(out, outs[0])
+
+
+def test_uncertainty_kernel_repeats_to_the_same_bits(cuda):
+    for x in (torch.randn(64, 1, 256, 256, device=cuda) * 4,
+              (torch.randn(8, 1, 256, 256, device=cuda) * 4).bfloat16(),
+              (torch.randn(4099, device=cuda) * 4)[1:]):
+        first = uncertainty_from_logits(x)
+        assert all(torch.equal(first, uncertainty_from_logits(x)) for _ in range(3))
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_uncertainty_kernel_is_one_launch_per_call(cuda, batch):
+    x = torch.randn(batch, 1, 256, 256, device=cuda)
+    calls = 5
+    kernels = _kernels_in_profile(lambda: uncertainty_from_logits(x), calls)
+    assert sum(kernels.values()) == calls, kernels
+    assert all("uncertainty_kernel" in k for k in kernels), kernels
+
+
+def test_uncertainty_kernel_refuses_layouts_and_dtypes_it_does_not_take(cuda):
+    x = torch.randn(2, 3, 8, 8, device=cuda)
+    for bad in (x[:, :, ::2], x[..., 1:], x.transpose(2, 3)):  # not dense, or dense but permuted
+        with pytest.raises(ValueError, match="contiguous or channels_last"):
+            uncertainty_from_logits(bad)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        uncertainty_from_logits(x.half())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -274,20 +400,12 @@ def test_uncertainty_bce_zero_dim_p_at_alpha_zero_equals_the_full_half_map(cuda,
 
 
 def test_uncertainty_bce_forward_is_one_kernel_launch(cuda):
-    from torch.profiler import ProfilerActivity, profile
-
     x, z, p = _loss_inputs((8, 1, 256, 256), cuda, seed=9)
     calls = 5
     for alpha in (1.0, 0.0):
-        uncertainty_weighted_bce_forward(x, z, p, 5.0, alpha)  # the workspace exists
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                uncertainty_weighted_bce_forward(x, z, p, 5.0, alpha)
-            torch.cuda.synchronize()
-        kernels = {e.key: e.count for e in prof.key_averages()
-                   if e.cpu_time_total == 0 and e.self_device_time_total > 0
-                   and e.key != "Activity Buffer Request"}
+        # the first call, outside the window, allocates the workspace
+        kernels = _kernels_in_profile(
+            lambda: uncertainty_weighted_bce_forward(x, z, p, 5.0, alpha), calls)
         assert sum(kernels.values()) == calls, kernels
         assert all("bce_forward" in k for k in kernels), kernels
 

@@ -35,13 +35,36 @@ def _nhwc(t: torch.Tensor) -> np.ndarray:
     return t.permute(0, 2, 3, 1).numpy()
 
 
-@pytest.mark.parametrize("shape", [(4, 32, 32, 1), (1, 7, 13, 1), (3, 33, 65, 2)])
+@pytest.mark.parametrize("shape", [(4, 32, 32, 1), (1, 7, 13, 1), (3, 33, 65, 2),
+                                   (1, 256, 256, 1),  # serving bucket 1
+                                   (1001,)])          # 1-D: a slice at offset 1
 def test_uncertainty_from_logits_matches_pallas(shape):
-    # odd sizes do not tile into the Pallas kernel's (256, 128) blocks
-    x = (np.random.default_rng(0).standard_normal(shape) * 3).astype(np.float32)
-    want = np.asarray(jax_uncertainty(jnp.asarray(x)))  # interpret mode off-TPU
-    got = uncertainty_from_logits(torch.from_numpy(x)).numpy()
+    # odd sizes do not tile into the Pallas kernel's (256, 128) blocks; a
+    # 1-D shape is taken as x[1:] of a longer buffer, off a 16-byte boundary
+    offset = 1 if len(shape) == 1 else 0
+    buf = (np.random.default_rng(0).standard_normal(offset + np.prod(shape)) * 3).astype(np.float32)
+    x = torch.from_numpy(buf)[offset:].reshape(shape)
+    assert x.storage_offset() == offset
+    want = np.asarray(jax_uncertainty(jnp.asarray(x.numpy())))  # interpret mode off-TPU
+    got = uncertainty_from_logits(x).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_uncertainty_from_logits_on_the_cpu_never_reaches_the_kernel_library():
+    # a CPU tensor takes the plain version: no build, no binding, no launch
+    from ugpg_tpu_torch.ops.cuda import _lib
+    from ugpg_tpu_torch.ops.cuda import uncertainty as unc
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    x = torch.randn(2, 1, 9, 11).to(memory_format=torch.channels_last)
+    with mock.patch.object(_lib, "function", refuse), mock.patch.object(unc, "_entry", refuse), \
+            mock.patch.object(_lib, "on_device", refuse), mock.patch.object(_lib, "count", refuse):
+        for t in (x, x.bfloat16(), x[:, :, 1:]):
+            got = uncertainty_from_logits(t)
+            want = (1 - 2 * (torch.sigmoid(t.float()) - 0.5).abs()).to(t.dtype)
+            assert got.dtype == t.dtype and torch.equal(got, want)
 
 
 def test_binary_uncertainty_matches_jax_and_the_logits_kernel():

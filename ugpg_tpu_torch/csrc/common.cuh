@@ -50,14 +50,6 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// Grid size of a grid-stride elementwise pass: enough blocks to fill the
-// card several times over, never more than the work needs.
-inline int grid_stride_blocks(int64_t n, int threads) {
-  const int64_t need = (n + threads - 1) / threads;
-  const int64_t cap = 132 * 16;  // 132 SMs on an H100 SXM
-  return (int)(need < cap ? (need > 0 ? need : 1) : cap);
-}
-
 // Blocks of `kernel`, launched with `threads` threads and no dynamic shared
 // memory, that the current device keeps resident at once: one wave of a
 // persistent grid.  Looked up once per device into `cache` (zero-initialised,

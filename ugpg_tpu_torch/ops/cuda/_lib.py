@@ -32,6 +32,7 @@ __all__ = [
     "check",
     "dtype_code",
     "stream",
+    "on_device",
     "count",
     "launch_counts",
     "reset_launch_counts",
@@ -144,6 +145,15 @@ def stream(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a pointer.  The raw
     lookup skips building a ``torch.cuda.Stream`` object on every launch."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(fn, device: torch.device, *args) -> int:
+    """``fn(*args)`` with ``device`` current, entering its context only
+    when another device is current."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def count(kernel: str) -> None:

@@ -87,15 +87,6 @@ def _workspace(device: torch.device, stream: int, size: int) -> torch.Tensor:
     return ws
 
 
-def _on_device(fn, device: torch.device, *args) -> int:
-    """``fn(*args)`` with ``device`` current, entering its context only
-    when another device is current."""
-    if device.index == torch.cuda.current_device():
-        return fn(*args)
-    with torch.cuda.device(device):
-        return fn(*args)
-
-
 def _broadcasts(shape, to) -> bool:
     return len(shape) <= len(to) and all(a in (1, b) for a, b in zip(reversed(shape),
                                                                        reversed(to)))
@@ -140,9 +131,9 @@ def uncertainty_weighted_bce_forward(x, z, p, pos_weight: float, alpha: float):
     device = x.device
     out = torch.empty(2, dtype=torch.float32, device=device)
     stream = _lib.stream(x)
-    rc = _on_device(fwd, device, x.data_ptr(), z.data_ptr(), p.data_ptr(), x.numel(),
-                    pos_weight, alpha, _workspace(device, stream, size).data_ptr(),
-                    out.data_ptr(), stream)
+    rc = _lib.on_device(fwd, device, x.data_ptr(), z.data_ptr(), p.data_ptr(), x.numel(),
+                        pos_weight, alpha, _workspace(device, stream, size).data_ptr(),
+                        out.data_ptr(), stream)
     _lib.check(rc, "uncertainty_bce", "uncertainty_weighted_bce_forward")
     _lib.count("uncertainty_weighted_bce_fwd")
     return out.unbind(0)
@@ -165,8 +156,8 @@ def uncertainty_weighted_bce_backward(x, z, p, pos_weight: float, alpha: float, 
     if g.device != x.device or g.dtype != torch.float32:
         g = g.to(device=x.device, dtype=torch.float32)
     _, bwd, _ = _entries or _bind()
-    rc = _on_device(bwd, x.device, x.data_ptr(), z.data_ptr(), p.data_ptr(), g.data_ptr(), n,
-                    pos_weight, alpha, 1.0 / n, dx.data_ptr(), _lib.stream(x))
+    rc = _lib.on_device(bwd, x.device, x.data_ptr(), z.data_ptr(), p.data_ptr(), g.data_ptr(),
+                        n, pos_weight, alpha, 1.0 / n, dx.data_ptr(), _lib.stream(x))
     _lib.check(rc, "uncertainty_bce", "uncertainty_weighted_bce_backward")
     _lib.count("uncertainty_weighted_bce_bwd")
     return dx
