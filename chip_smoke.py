@@ -60,7 +60,25 @@
    step.
 8. One stage-4 step, fused vs plain loss, from the same weights and batch;
    one stage-2 step at width 0.25 on the card vs on the CPU.
-9. Prints a "kernels" JSON line, then as its last line
+9. Trains on MoNuSeg, the main path of this slice.  The script writes a
+   MoNuSeg tree with the standard library (struct, zlib), no PIL: 32
+   patches of 256 px (PNG, about 30 polygon nuclei each, in train/aug) and
+   four 1000 x 1000 Deflate TIFF tiles of about 400 nuclei (two in train,
+   two in val), each with its Aperio XML.  The port's rasterizer must give
+   the pixel count Pillow 12.1.0 gives for a fixed polygon set (embedded).
+   AugMoNuSegTrainer at full width, fused_loss=True, augment=True, batch 8,
+   num_workers=4, stages 1-4 at 1 epoch each through the loaders and the
+   device prefetch queue; then one stage-2 epoch with aug_quantize=8.  The
+   counters, reset before each run, must show one loss forward and one
+   backward per train step and none from validation; the losses must be
+   finite, pos_weight (1 - r) / r from the masks, a .pth per stage written,
+   and the stage-4 .pth must serve one request (9/4/1 launches per call).
+   The augmentation on the card must equal its CPU run on the same
+   parameters (images 1e-5, masks exactly; continuous and 8 grid angles).
+   Prints images/s per stage, the host decode + rasterize + resize time per
+   batch, the time per step the steps waited on the prefetch queue and a
+   torch.profiler breakdown of one stage-4 augmented step.
+10. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -75,10 +93,12 @@ import itertools
 import json
 import math
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -89,6 +109,14 @@ from torch.profiler import ProfilerActivity, profile
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU")
 
+from ugpg_tpu_torch import native  # noqa: E402
+from ugpg_tpu_torch.data.augment import (  # noqa: E402
+    apply_monuseg_params,
+    sample_monuseg_params,
+)
+from ugpg_tpu_torch.data.loader import DataLoader, prefetch_to_device  # noqa: E402
+from ugpg_tpu_torch.data.monuseg import load_rgb, resize_image, resize_mask  # noqa: E402
+from ugpg_tpu_torch.data.rasterize import parse_polygons, rasterize_polygons  # noqa: E402
 from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset  # noqa: E402
 from ugpg_tpu_torch.eval.serving import BatchingServer, Predictor  # noqa: E402
 from ugpg_tpu_torch.models.pgunet import PGUNet4  # noqa: E402
@@ -108,6 +136,7 @@ from ugpg_tpu_torch.ops.cuda.uncertainty_bce import (  # noqa: E402
     uncertainty_weighted_bce_forward,
     uncertainty_weighted_bce_reference,
 )
+from ugpg_tpu_torch.train.aug_trainer import AugMoNuSegTrainer  # noqa: E402
 from ugpg_tpu_torch.train.optim import torch_rmsprop  # noqa: E402
 from ugpg_tpu_torch.train.seg_trainer import (  # noqa: E402
     DEFAULT_STAGE_CONFIGS,
@@ -886,6 +915,301 @@ def gpu_vs_cpu():
     assert param_gap <= 1e-5 and kept > 0.9 * total
 
 
+# ---------------------------------------------------------------- MoNuSeg training
+AUG_PATCHES, PATCH_PX, PATCH_NUCLEI = 32, 256, 30
+TILE_PX, TILE_NUCLEI = 1000, 400
+# ImageDraw.polygon(fill=1) of Pillow 12.1.0 over fixed_polygons() on a
+# 1000 x 1000 "L" image fills this many pixels (Pillow run once, off the
+# card); the even-odd scanline of backend="native" fills the second count
+PIL_FIXED_COUNT, NATIVE_FIXED_COUNT = 66767, 60787
+
+
+def fixed_polygons(n=TILE_NUCLEI, size=TILE_PX):
+    """n nucleus-like polygons of 8-20 vertices on a size x size tile, from a
+    64-bit LCG: the same floats on every machine."""
+    state = 0x2545F4914F6CDD1D
+
+    def rnd():
+        nonlocal state
+        state = (state * 6364136223846793005 + 1442695040888963407) % (1 << 64)
+        return (state >> 11) / float(1 << 53)
+
+    polys = []
+    for _ in range(n):
+        k = 8 + int(rnd() * 13)
+        cx, cy, r = rnd() * size, rnd() * size, 4 + 8 * rnd()
+        polys.append([(cx + r * (0.7 + 0.3 * rnd()) * math.cos(2 * math.pi * (i + 0.5 * rnd()) / k),
+                       cy + r * (0.7 + 0.3 * rnd()) * math.sin(2 * math.pi * (i + 0.5 * rnd()) / k))
+                      for i in range(k)])
+    return polys
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG (filter 0 on every row, one zlib IDAT)."""
+    h, w, _ = img.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def tiff_bytes(img: np.ndarray, rows_per_strip: int = 64) -> bytes:
+    """A little-endian classic TIFF, 8-bit RGB, chunky strips, Deflate (8)."""
+    h, w, _ = img.shape
+    strips = [zlib.compress(img[r:r + rows_per_strip].tobytes(), 6)
+              for r in range(0, h, rows_per_strip)]
+    n_tags = 10
+    data_at = 8 + 2 + 12 * n_tags + 4
+    bits_at, offs_at = data_at, data_at + 6
+    counts_at = offs_at + 4 * len(strips)
+    strip_at = counts_at + 4 * len(strips)
+    offsets = list(itertools.accumulate([strip_at] + [len(b) for b in strips[:-1]]))
+    short, long_ = 3, 4
+    tags = [(256, long_, 1, w), (257, long_, 1, h), (258, short, 3, bits_at), (259, short, 1, 8),
+            (262, short, 1, 2), (273, long_, len(strips), offs_at), (277, short, 1, 3),
+            (278, long_, 1, rows_per_strip), (279, long_, len(strips), counts_at),
+            (284, short, 1, 1)]
+    out = [b"II", struct.pack("<HI", 42, 8), struct.pack("<H", n_tags)]
+    out += [struct.pack("<HHII", *t) for t in tags] + [struct.pack("<I", 0)]
+    out += [struct.pack("<3H", 8, 8, 8), struct.pack(f"<{len(strips)}I", *offsets),
+            struct.pack(f"<{len(strips)}I", *[len(b) for b in strips])]
+    return b"".join(out + strips)
+
+
+def aperio_xml(polys) -> str:
+    regions = "".join(
+        "<Region><Vertices>" + "".join(f'<Vertex X="{x:.3f}" Y="{y:.3f}"/>' for x, y in p)
+        + "</Vertices></Region>" for p in polys)
+    return (f'<?xml version="1.0"?>\n<Annotations MicronsPerPixel="0.252"><Annotation><Regions>'
+            f"{regions}</Regions></Annotation></Annotations>")
+
+
+def he_image(rng, polys, size):
+    """An H&E-like RGB tile: pink stroma with noise, purple nuclei where
+    the polygons lie."""
+    nuclei = rasterize_polygons([np.asarray(p) for p in polys], (size, size)).astype(bool)
+    img = np.empty((size, size, 3), np.float32)
+    img[:] = (232, 182, 205)
+    img[nuclei] = (110, 62, 152)
+    img += rng.normal(0, 14, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def nuclei(rng, n, size):
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(8, 21))
+        c = rng.uniform(0, size, 2)
+        r = rng.uniform(4, 12) * rng.uniform(0.7, 1.0, k)
+        a = np.sort(rng.uniform(0, 2 * np.pi, k))
+        out.append(list(zip((c[0] + r * np.cos(a)).tolist(), (c[1] + r * np.sin(a)).tolist())))
+    return out
+
+
+def write_monuseg_tree(root: Path, seed: int = 0) -> None:
+    """train/aug: AUG_PATCHES PNG patches; train and val: two Deflate TIFF
+    tiles each; every image with its Aperio XML."""
+    rng = np.random.default_rng(seed)
+    items = [("train/aug", f"patch_{i:02d}", PATCH_PX, PATCH_NUCLEI, ".png")
+             for i in range(AUG_PATCHES)]
+    items += [(split, f"{split}_tile_{i}", TILE_PX, TILE_NUCLEI, ".tif")
+              for split in ("train", "val") for i in range(2)]
+    for split, stem, size, n, ext in items:
+        for sub in ("images", "annots"):
+            (root / split / sub).mkdir(parents=True, exist_ok=True)
+        polys = nuclei(rng, n, size)
+        img = he_image(rng, polys, size)
+        (root / split / "images" / f"{stem}{ext}").write_bytes(
+            png_bytes(img) if ext == ".png" else tiff_bytes(img))
+        (root / split / "annots" / f"{stem}.xml").write_text(aperio_xml(polys))
+
+
+def host_item_ms(ds, idx: int, repeats: int = 5) -> dict:
+    """One dataset item's host time by part, median of ``repeats``, one
+    thread: decode, XML parse, Pillow-exact fill, image and mask resize,
+    and the whole ``ds[idx]`` (which adds the float conversion)."""
+    img_path, annot = ds.samples[idx]
+    img, polys = load_rgb(img_path), parse_polygons(annot)
+    mask = rasterize_polygons(polys, img.shape[:2])
+    parts = {"decode": lambda: load_rgb(img_path), "parse_xml": lambda: parse_polygons(annot),
+             "rasterize": lambda: rasterize_polygons(polys, img.shape[:2]),
+             "resize_image": lambda: resize_image(img, ds.image_size),
+             "resize_mask": lambda: resize_mask(mask, ds.image_size),
+             "item": lambda: ds[idx]}
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        samples = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(samples)
+    return out
+
+
+@tf32(False)
+def check_augment_card_vs_cpu(images: torch.Tensor, masks: torch.Tensor) -> None:
+    """The augmentation of one stage-4 batch on the card and on the CPU from
+    the same parameters: images within 1e-5, masks exactly."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    for quantize in (0, 8):
+        params = sample_monuseg_params(g, images.shape[0], quantize_angles=quantize)
+        gi, gm = apply_monuseg_params(images, masks, params, quantize_angles=quantize)
+        ci, cm = apply_monuseg_params(images.cpu(), masks.cpu(),
+                                      {k: v.cpu() for k, v in params.items()},
+                                      quantize_angles=quantize)
+        err = (gi.cpu() - ci).abs().max().item()
+        mask_diff = int((gm.cpu() != cm).sum())
+        log(f"monuseg: augmentation card vs CPU, quantize_angles={quantize}: max|dimage|={err:.3e}, "
+            f"mask pixels differing={mask_diff} of {cm.numel()}, jitter applied to "
+            f"{int(params['apply'].sum())}/{images.shape[0]}")
+        assert err <= 1e-5 and mask_diff == 0, (quantize, err, mask_diff)
+
+
+def train_monuseg(tmp: Path):
+    """This slice's main path: AugMoNuSegTrainer on a MoNuSeg tree the script
+    writes, full width, fused loss, augmentation on the card, stages 1-4 at
+    1 epoch each, then one stage-2 epoch with 8 grid angles."""
+    root = tmp / "MoNuSeg"
+    t0 = time.perf_counter()
+    write_monuseg_tree(root)
+    log(f"monuseg: wrote {AUG_PATCHES} PNG patches of {PATCH_PX} px and 4 Deflate TIFF tiles of "
+        f"{TILE_PX} px in {time.perf_counter() - t0:.2f} s")
+
+    polys = [np.asarray(p) for p in fixed_polygons()]
+    got = int(rasterize_polygons(polys, (TILE_PX, TILE_PX)).sum())
+    got_native = int(rasterize_polygons(polys, (TILE_PX, TILE_PX), backend="native").sum())
+    t0 = time.perf_counter()
+    reps = 10
+    for _ in range(reps):
+        rasterize_polygons(polys, (TILE_PX, TILE_PX))
+    raster_ms = (time.perf_counter() - t0) / reps * 1e3
+    log(f"monuseg: rasterizer on {TILE_NUCLEI} fixed polygons: {got} pixels (Pillow {PIL_FIXED_COUNT}), "
+        f"native even-odd {got_native} ({NATIVE_FIXED_COUNT}); {raster_ms:.3f} ms per "
+        f"{TILE_PX} px tile")
+    assert got == PIL_FIXED_COUNT and got_native == NATIVE_FIXED_COUNT, (got, got_native)
+
+    cfgs = {s: {**c, "epochs_per_stage": 1} for s, c in DEFAULT_STAGE_CONFIGS.items()}
+    trainer = AugMoNuSegTrainer(fused_loss=True, width=1.0, stage_configs=cfgs, verbose=False)
+    assert trainer.augment
+    trainer.setup_datasets(str(root))
+    masks1 = np.stack([trainer.train_datasets[1][i][1] for i in range(AUG_PATCHES)])
+    r = float(masks1.sum()) / masks1.size
+    log(f"monuseg: pos_weight {trainer.pos_weight!r}, (1 - r) / r from the stage-1 masks "
+        f"{(1 - r) / r!r} (r = {r:.5f})")
+    assert abs(trainer.pos_weight - (1 - r) / r) <= 1e-12 * ((1 - r) / r)
+    train_loaders, val_loaders = trainer.make_loaders(batch_size=TRAIN_BATCH, num_workers=4)
+
+    host = {}
+    for stage in (1, 4):  # the host side alone: decode, rasterize, resize, collate
+        ds = trainer.train_datasets[stage]
+        loader = DataLoader(ds, batch_size=TRAIN_BATCH, num_workers=4)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        threaded = (time.perf_counter() - t0) / n * 1e3
+        t0 = time.perf_counter()
+        for i in range(TRAIN_BATCH):
+            ds[i]
+        host[stage] = {"loader_ms_per_batch": threaded,
+                       "one_thread_ms_per_batch": (time.perf_counter() - t0) * 1e3}
+    log("monuseg: host decode + rasterize + resize per batch of 8 (4 threads, and one): "
+        + json.dumps(host))
+    parts = {"patch 256 px -> 32 px": host_item_ms(trainer.train_datasets[1], 0),
+             "patch 256 px at 256 px": host_item_ms(trainer.train_datasets[4], 0),
+             "tile 1000 px -> 256 px": host_item_ms(trainer.val_datasets[4], 0)}
+    log("monuseg: host ms per item by part (one thread, median of 5): " + json.dumps(parts))
+
+    epoch = {}
+    train_epoch = trainer.train_epoch
+
+    def timed_train_epoch(loader, stage):
+        torch.cuda.synchronize()
+        w0, b0 = trainer.loader_stats["wait_s"], trainer.loader_stats["batches"]
+        t0 = time.perf_counter()
+        out = train_epoch(loader, stage)  # ends by reading the epoch's metrics back
+        dt = time.perf_counter() - t0
+        steps = trainer.loader_stats["batches"] - b0
+        epoch[stage] = {"images_per_s": steps * TRAIN_BATCH / dt, "epoch_s": dt, "steps": steps,
+                        "wait_ms_per_step": (trainer.loader_stats["wait_s"] - w0) / steps * 1e3}
+        return out
+
+    trainer.train_epoch = timed_train_epoch
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.train_progressive(train_loaders, val_loaders, save_dir=str(tmp / "ckpt"))
+    wall = time.perf_counter() - t0
+    counts = _lib.launch_counts()
+    steps = sum(len(train_loaders[s]) for s in cfgs)
+    log(f"monuseg: stages 1-4, full width, fused loss, augmented, {steps} train steps in "
+        f"{wall:.1f} s, launches {json.dumps(counts)}")
+    assert counts == {k: steps for k in LOSS_KERNELS}, counts
+    for key in ("train_loss", "val_loss", "base_loss"):
+        assert np.isfinite(history[key]).all(), (key, history[key])
+    assert history["stage_transitions"] == [0, 1, 2, 3], history["stage_transitions"]
+    assert all(u > 0 for u in history["uncertainty_weights_mean"][1:]), history
+    for stage in (1, 2, 3, 4):
+        assert (tmp / "ckpt" / f"ug_pgunet_stage{stage}_best.pth").exists(), stage
+    log("monuseg: history", json.dumps({k: [round(v, 5) for v in vs] for k, vs in history.items()
+                                        if k != "stage_transitions"}))
+    log(f"monuseg: per stage (batch {TRAIN_BATCH}, float32, augmented, epoch of "
+        f"{AUG_PATCHES} images): " + json.dumps(epoch))
+
+    images = np.stack([trainer.train_datasets[4][i][0] for i in range(TRAIN_BATCH)])
+    _lib.reset_launch_counts()
+    predictor = Predictor(str(tmp / "ckpt" / "ug_pgunet_stage4_best.pth"), buckets=(TRAIN_BATCH,))
+    check_response(predictor(images), TRAIN_BATCH)
+    served = _lib.launch_counts()
+    calls = predictor.stats()["device_calls"]
+    log(f"monuseg: the stage-4 checkpoint served {TRAIN_BATCH} patches in {calls} device call(s), "
+        f"launches {json.dumps(served)}")
+    assert served == {"fused_double_conv": 9 * calls, "upsample2x": 4 * calls,
+                      "uncertainty_from_logits": calls}, served
+
+    tq = AugMoNuSegTrainer(fused_loss=True, width=1.0, stage_configs=cfgs, verbose=False,
+                           aug_quantize=8)
+    tq.setup_datasets(str(root), stages=(2,))
+    tq.load_stage_weights(1, str(tmp / "ckpt" / "ug_pgunet_stage1_best.pth"))
+    tl, vl = tq.make_loaders(batch_size=TRAIN_BATCH, num_workers=4)
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    hq = tq.train_progressive(tl, vl, save_dir=str(tmp / "quantized"), stages=[2])
+    dt = time.perf_counter() - t0
+    q_counts = _lib.launch_counts()
+    log(f"monuseg: stage 2 with aug_quantize=8: {len(tl[2])} steps and validation in {dt:.2f} s, "
+        f"train loss {hq['train_loss']}, launches {json.dumps(q_counts)}")
+    assert q_counts == {k: len(tl[2]) for k in LOSS_KERNELS}, q_counts
+    assert np.isfinite(hq["train_loss"]).all() and np.isfinite(hq["val_loss"]).all()
+
+    batch = next(iter(prefetch_to_device(iter(train_loaders[4]), device=DEV)))
+    assert batch[0].device == DEV and batch[0].shape == (TRAIN_BATCH, 256, 256, 3)
+    check_augment_card_vs_cpu(batch[0].permute(0, 3, 1, 2).contiguous(),
+                              batch[1].permute(0, 3, 1, 2).contiguous())
+    g = torch.Generator(device=DEV).manual_seed(6)
+    x = batch[0].permute(0, 3, 1, 2).contiguous()
+    y = batch[1].permute(0, 3, 1, 2).contiguous()
+    for quantize in (0, 8):
+        aug = lambda: apply_monuseg_params(  # noqa: E731
+            x, y, sample_monuseg_params(g, TRAIN_BATCH, quantize_angles=quantize),
+            quantize_angles=quantize)
+        aug_ms = time_ms(aug, (), reps=10)
+        device, _ = profile_call(f"monuseg: augmentation of one stage-4 batch, quantize_angles="
+                                 f"{quantize} (sampling included)", aug)
+        log(f"monuseg: augmentation, quantize_angles={quantize}: {aug_ms:.3f} ms per batch of 8 "
+            f"(CUDA events), {sum(device.values()):.3f} ms of device time")
+    step = make_seg_train_step(trainer.models[4], trainer.optimizer, 4, 256,
+                               prev_model=trainer.models[3], prev_resolution=128,
+                               fused_loss=True, augment=True)
+    step(batch, trainer.pos_weight, g)
+    profile_call("monuseg: one stage-4 augmented step, batch 8, fused loss, batch already on the "
+                 "card", lambda: step(batch, trainer.pos_weight, g))
+    return counts, epoch, host
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -897,6 +1221,10 @@ def main():
     t0 = time.perf_counter()
     _lib.build()
     log(f"build: {len(_lib.SOURCES)} kernels in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    native.build()
+    log(f"build: the host C++ (rasterizers, PNG and TIFF decoders, g++) in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     with tf32(False):  # the serving phases, as their numbers in PERF.md were taken
         errors = check_kernels()
@@ -915,7 +1243,10 @@ def main():
         del trainer, batch
     torch.cuda.empty_cache()
     gpu_vs_cpu()
-    launches.update(train_launches)
+    log(f"train (synthetic disks): loss launches {json.dumps(train_launches)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        mon_launches, mon_epoch, mon_host = train_monuseg(Path(tmp))
+    launches.update(mon_launches)  # the loss kernels: this slice's main path, MoNuSeg training
 
     rows = []
     for kernel, (source, replaces) in KERNELS.items():
@@ -932,6 +1263,13 @@ def main():
     log(f"serving: {ips:.2f} images/s, stage 4, bucket 64, bf16 on {card}")
     log(f"training: images/s at batch {TRAIN_BATCH}, epoch 2 of each stage: "
         + ", ".join(f"stage {s} {v[-1]:.2f}" for s, v in train_ips.items()) + f" on {card}")
+    log(f"monuseg training: images/s at batch {TRAIN_BATCH} (augmented, 1 epoch of "
+        f"{AUG_PATCHES}), and ms per step waiting on the prefetch queue: "
+        + ", ".join(f"stage {s} {v['images_per_s']:.2f} ({v['wait_ms_per_step']:.3f} ms)"
+                    for s, v in mon_epoch.items())
+        + f"; host per batch of 8 (4 threads): stage 1 "
+        f"{mon_host[1]['loader_ms_per_batch']:.2f} ms, stage 4 "
+        f"{mon_host[4]['loader_ms_per_batch']:.2f} ms on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -400,13 +400,20 @@ def test_uncertainty_bce_zero_dim_p_at_alpha_zero_equals_the_full_half_map(cuda,
 
 
 def test_uncertainty_bce_forward_is_one_kernel_launch(cuda):
+    # The wrapper's counter gives the launches; the profiler shows that the
+    # device ran no other kernel and no second forward.  Its count is held
+    # to at most ``calls``: windows of this test lost exactly one forward
+    # kernel in three runs in a row on an H100 (torch 2.11.0+cu128), 4 of 5
+    # and 19 of 20, taken once more or not.
     x, z, p = _loss_inputs((8, 1, 256, 256), cuda, seed=9)
     calls = 5
     for alpha in (1.0, 0.0):
         # the first call, outside the window, allocates the workspace
+        _lib.reset_launch_counts()
         kernels = _kernels_in_profile(
             lambda: uncertainty_weighted_bce_forward(x, z, p, 5.0, alpha), calls)
-        assert sum(kernels.values()) == calls, kernels
+        assert _lib.launch_counts() == {"uncertainty_weighted_bce_fwd": calls + 1}
+        assert 0 < sum(kernels.values()) <= calls, kernels
         assert all("bce_forward" in k for k in kernels), kernels
 
 

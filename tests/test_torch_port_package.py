@@ -1,4 +1,4 @@
-"""Package rules of ugpg_tpu_torch: it imports neither JAX nor ugpg_tpu,
+"""Package rules of ugpg_tpu_torch: it imports neither JAX nor ugpg_tpu nor PIL,
 its entry points need CUDA unless the CPU is asked for, and the Predictor
 and trainer options not ported yet raise instead of being ignored."""
 
@@ -23,13 +23,14 @@ ROOT = PKG.parent
 def test_imports_with_jax_and_ugpg_tpu_blocked():
     code = (
         "import pkgutil, sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ugpg_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ugpg_tpu', 'PIL'):\n"
         "    sys.modules[name] = None  # any import of them raises ImportError\n"
         "import ugpg_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(ugpg_tpu_torch.__path__, 'ugpg_tpu_torch.')]\n"
         "for name in names:\n"
         "    __import__(name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'ugpg_tpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'ugpg_tpu',\n"
+        "                                                    'PIL')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -37,11 +38,11 @@ def test_imports_with_jax_and_ugpg_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 33  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 40  # every module of the package was imported
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax)\b"  # import statements
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|PIL)\b"  # import statements
     r"|\bugpg_tpu\.|\bugpg_tpu\s+import\b|import_module\(\s*['\"]ugpg_tpu['\".]",
     re.MULTILINE,
 )
@@ -56,6 +57,7 @@ def test_source_names_no_jax_and_no_ugpg_tpu_module():
     # the pattern does catch what it must, and spares the port's own name
     assert _FORBIDDEN.search("from ugpg_tpu.ops import resize")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("    from PIL import Image")
     assert not _FORBIDDEN.search("from ugpg_tpu_torch.ops import resize")
 
 
@@ -84,8 +86,7 @@ def test_options_outside_the_slice_raise(kwargs, tmp_path):
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object()), dict(shard_model=True), dict(axis_name="data"),
     dict(checkpoint_backend="msgpack"), dict(scan_epochs=True), dict(scan_chunk_bytes=1 << 30),
-    dict(tb_logdir="tb"), dict(remat=True), dict(pipeline_unc=1), dict(aug_quantize=8),
-    dict(augment=True), dict(dtype=torch.bfloat16), dict(in_channels=1),
+    dict(tb_logdir="tb"), dict(remat=True), dict(pipeline_unc=1), dict(dtype=torch.bfloat16),
 ])
 def test_trainer_options_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not ported"):

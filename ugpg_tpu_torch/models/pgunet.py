@@ -6,6 +6,7 @@ stage keeps a 16x16 bottleneck, and the output is the sum of multi-scale
 resolution.  Submodule names (``inc``, ``down1..4``, ``up1..4``,
 ``outc*``) match across stages and the reference torch layout.
 
+``in_channels`` is the input's channel count (3, RGB, by default).
 ``dtype`` is the compute dtype of the body (bfloat16 for serving); the
 heads and the summed logits stay float32.  Inputs are NCHW; the logits
 are (N, num_classes, H, W) float32.
@@ -34,9 +35,10 @@ class _Stage(nn.Module):
     heads to ``dtype``."""
 
     def __init__(self, num_classes: int = 1, use_bn: bool = True, width: float = 1.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, in_channels: int = 3):
         super().__init__()
         self.dtype = dtype
+        self.in_channels = in_channels
         c = lambda n: _scaled(n, width)  # noqa: E731
         self._build(c, use_bn, num_classes)
         for name, child in self.named_children():
@@ -61,7 +63,7 @@ class PGUNet1(_Stage):
     """Stage 1, 32px: inc -> down4 -> up1 -> outc."""
 
     def _build(self, c, ub, k):
-        self.inc = InConv(3, c(512), ub)
+        self.inc = InConv(self.in_channels, c(512), ub)
         self.down4 = Down(c(512), c(512), ub)
         self.up1 = Up(2 * c(512), c(256), ub)
         self.outc = OutConv(c(256), k)
@@ -76,7 +78,7 @@ class PGUNet2(_Stage):
     """Stage 2, 64px."""
 
     def _build(self, c, ub, k):
-        self.inc = InConv(3, c(256), ub)
+        self.inc = InConv(self.in_channels, c(256), ub)
         self.down3 = Down(c(256), c(512), ub)
         self.down4 = Down(c(512), c(512), ub)
         self.up1 = Up(2 * c(512), c(256), ub)
@@ -97,7 +99,7 @@ class PGUNet3(_Stage):
     """Stage 3, 128px."""
 
     def _build(self, c, ub, k):
-        self.inc = InConv(3, c(128), ub)
+        self.inc = InConv(self.in_channels, c(128), ub)
         self.down2 = Down(c(128), c(256), ub)
         self.down3 = Down(c(256), c(512), ub)
         self.down4 = Down(c(512), c(512), ub)
@@ -123,7 +125,7 @@ class PGUNet4(_Stage):
     """Stage 4, 256px."""
 
     def _build(self, c, ub, k):
-        self.inc = InConv(3, c(64), ub)
+        self.inc = InConv(self.in_channels, c(64), ub)
         self.down1 = Down(c(64), c(128), ub)
         self.down2 = Down(c(128), c(256), ub)
         self.down3 = Down(c(256), c(512), ub)

@@ -1,0 +1,216 @@
+"""ctypes bindings for the port's host C++: the polygon rasterizers and the
+PNG and TIFF decoders (copies of ``rasterize.cpp``, ``png_decode.cpp`` and
+``tiff_decode.cpp`` of the JAX package, the rasterizer extended with
+Pillow's polygon fill).
+
+Each source compiles at first use with ``g++`` into its own shared library
+under ``ugpg_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
+of the source and the flags, so an edited source rebuilds; a lock keeps
+threads from building one library twice, and a finished build is moved into
+place atomically.  A failed build raises ``RuntimeError`` with the
+compiler's output, and a file outside a decoder's profile raises
+``ValueError`` naming the file and what the decoder lacks: there is no other
+path to fall back on.  ctypes releases the GIL for every call, so the
+threaded ``DataLoader`` decodes and rasterizes in parallel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+__all__ = [
+    "build",
+    "rasterize_polygons_pil",
+    "rasterize_polygons_native",
+    "decode_png",
+    "decode_tiff",
+    "image_hw",
+]
+
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE.parent / "_build"
+# -ffp-contract=off: the Pillow fill must round where Pillow rounds, never
+# fuse a multiply and an add
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+_LDFLAGS = {"rasterize": ("-lpthread",), "png_decode": ("-lz",), "tiff_decode": ("-lz",)}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+_P_U8 = ctypes.POINTER(ctypes.c_uint8)
+_P_I64 = ctypes.POINTER(ctypes.c_int64)
+_P_F64 = ctypes.POINTER(ctypes.c_double)
+_SIGNATURES = {
+    "rasterize": {
+        "rasterize_polygons_pil": [_P_F64, _P_I64, ctypes.c_int64, _P_U8, ctypes.c_int64,
+                                   ctypes.c_int64],
+        "rasterize_polygons": [_P_F64, _P_I64, ctypes.c_int64, _P_U8, ctypes.c_int64,
+                               ctypes.c_int64],
+    },
+    "png_decode": {
+        "png_info": [_P_U8, ctypes.c_int64, _P_I64, _P_I64, ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_int)],
+        "png_decode_rgb8": [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int64],
+    },
+    "tiff_decode": {
+        "tiff_info": [_P_U8, ctypes.c_int64, _P_I64, _P_I64, ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_int)],
+        "tiff_decode_rgb8": [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int64],
+    },
+}
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS + _LDFLAGS[name]).encode())
+    h.update((_HERE / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=tuple(_SIGNATURES)) -> None:
+    """Compile every library of ``names`` that is not built yet, one ``g++``
+    each, all started together; raise ``RuntimeError`` with the compiler's
+    output on a failed build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        path = _library_path(name)
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(_HERE / f"{name}.cpp"), *_LDFLAGS[name]]
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+        except OSError as e:
+            raise RuntimeError(f"g++ could not start for {name}.cpp: {e}") from e
+        jobs[name] = (proc, tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cpp (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("g++ failed for " + "\n".join(failed))
+
+
+def _library(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _library_path(name)
+            if not path.exists():
+                build((name,))
+            lib = ctypes.CDLL(str(path))
+            for symbol, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = None if name == "rasterize" else ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+# ---------------------------------------------------------------- rasterizers
+def _pack(polygons):
+    if polygons:
+        vertices = np.concatenate([np.asarray(p, np.float64).reshape(-1, 2) for p in polygons])
+    else:
+        vertices = np.zeros((0, 2), np.float64)
+    offsets = np.zeros(len(polygons) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(p) for p in polygons])
+    return np.ascontiguousarray(vertices), offsets
+
+
+def _rasterize(symbol: str, polygons, image_hw) -> np.ndarray:
+    h, w = image_hw
+    vertices, offsets = _pack(polygons)
+    mask = np.zeros((h, w), np.uint8)
+    getattr(_library("rasterize"), symbol)(
+        vertices.ctypes.data_as(_P_F64), offsets.ctypes.data_as(_P_I64), len(polygons),
+        mask.ctypes.data_as(_P_U8), h, w)
+    return mask
+
+
+def rasterize_polygons_pil(polygons, image_hw) -> np.ndarray:
+    """Pillow's filled polygon (``ImageDraw.polygon(xy, fill=1)``, no
+    outline, on an "L" image), bit for bit: (H, W) uint8 {0, 1}."""
+    return _rasterize("rasterize_polygons_pil", polygons, image_hw)
+
+
+def rasterize_polygons_native(polygons, image_hw) -> np.ndarray:
+    """The even-odd scanline fill of the JAX package's native backend."""
+    return _rasterize("rasterize_polygons", polygons, image_hw)
+
+
+# ---------------------------------------------------------------- decoders
+# what each decoder reads; the rest of either format raises
+_PROFILES = {
+    "png_decode": "8-bit RGB (color type 2), non-interlaced PNG",
+    "tiff_decode": ("classic TIFF, first IFD, strips, chunky 8-bit gray/RGB/RGBA, compression "
+                    "none/LZW (predictor 1 or 2)/Deflate/PackBits, either byte order"),
+}
+_ERRORS = {-1: "not this format (bad signature)", -2: "truncated", -3: "outside the profile",
+           -4: "corrupt compressed data", -5: "bad PNG row filter", -6: "buffer too small"}
+
+
+def _read(source) -> tuple[bytes, str]:
+    if isinstance(source, (str, os.PathLike)):
+        return Path(source).read_bytes(), str(source)
+    return bytes(source), "<bytes>"
+
+
+def _info(name: str, data: bytes, label: str):
+    lib = _library(name)
+    buf = np.frombuffer(data, np.uint8)
+    ptr = buf.ctypes.data_as(_P_U8)
+    h, w, a, b = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int(), ctypes.c_int()
+    info = lib.png_info if name == "png_decode" else lib.tiff_info
+    rc = info(ptr, len(data), ctypes.byref(h), ctypes.byref(w), ctypes.byref(a), ctypes.byref(b))
+    if rc != 0:
+        raise ValueError(f"{label}: {_ERRORS.get(rc, f'error {rc}')}; the decoder reads "
+                         f"{_PROFILES[name]}")
+    if name == "png_decode" and (a.value, b.value) != (2, 8):
+        raise ValueError(f"{label}: PNG color type {a.value}, bit depth {b.value}; the decoder "
+                         f"reads {_PROFILES[name]}")
+    return buf, ptr, h.value, w.value
+
+
+def _decode(name: str, source) -> np.ndarray:
+    data, label = _read(source)
+    buf, ptr, h, w = _info(name, data, label)
+    out = np.empty((h, w, 3), np.uint8)
+    decode = _library(name).png_decode_rgb8 if name == "png_decode" \
+        else _library(name).tiff_decode_rgb8
+    rc = decode(ptr, len(data), out.ctypes.data_as(_P_U8), out.size)
+    if rc != 0:
+        raise ValueError(f"{label}: {_ERRORS.get(rc, f'error {rc}')}; the decoder reads "
+                         f"{_PROFILES[name]}")
+    return out
+
+
+def decode_png(source) -> np.ndarray:
+    """An 8-bit RGB non-interlaced PNG (a path or bytes) -> (H, W, 3)
+    uint8; any other PNG raises ``ValueError``."""
+    return _decode("png_decode", source)
+
+
+def decode_tiff(source) -> np.ndarray:
+    """A TIFF of the profile above (a path or bytes) -> (H, W, 3) uint8 RGB
+    (gray replicated, alpha dropped); any other TIFF raises ``ValueError``."""
+    return _decode("tiff_decode", source)
+
+
+def image_hw(path) -> tuple[int, int]:
+    """(H, W) of a PNG or TIFF from its header, without decoding."""
+    data, label = _read(path)
+    name = "png_decode" if label.lower().endswith(".png") else "tiff_decode"
+    _, _, h, w = _info(name, data, label)
+    return h, w

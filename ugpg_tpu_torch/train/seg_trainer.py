@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ugpg_tpu_torch.data.loader import prefetch_to_device
 from ugpg_tpu_torch.device import resolve_device
 from ugpg_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS
@@ -96,7 +97,11 @@ class UncertaintyGuidedProgressiveTrainer:
     ):
         """``fused_loss=True``: every train step computes the loss and its
         gradient with the hand-written ``uncertainty_weighted_bce`` kernels
-        (off by default, as in the JAX package).  ``accum_steps=K``: each
+        (off by default, as in the JAX package).  ``augment=True``: every
+        train step augments its batch on the device (``data/augment.py``)
+        with parameters drawn from the trainer's generator, seeded by
+        ``seed + 1``; ``aug_quantize=N`` rotates by one of N grid angles.
+        ``in_channels``: the models' input channels.  ``accum_steps=K``: each
         batch runs as K micro-batches with one optimizer step.  ``width``
         scales every stage's channels (1.0 = the reference widths).
         ``seed`` seeds the ``torch.Generator`` of each stage's
@@ -107,16 +112,15 @@ class UncertaintyGuidedProgressiveTrainer:
         Options of the JAX trainer that are not ported raise
         ``NotImplementedError``: ``mesh``, ``shard_model``, ``axis_name``,
         ``checkpoint_backend`` other than ``"pth"``, ``scan_epochs``,
-        ``scan_chunk_bytes``, ``tb_logdir``, ``remat``, ``pipeline_unc``,
-        ``aug_quantize``, ``augment=True`` and ``dtype=torch.bfloat16``."""
+        ``scan_chunk_bytes``, ``tb_logdir``, ``remat``, ``pipeline_unc`` and
+        ``dtype=torch.bfloat16``."""
         self.device = resolve_device(device)
         not_ported(
             mesh=mesh is not None, shard_model=shard_model, axis_name=axis_name is not None,
             checkpoint_backend=checkpoint_backend != "pth", scan_epochs=scan_epochs,
             scan_chunk_bytes=scan_chunk_bytes is not None, tb_logdir=tb_logdir is not None,
-            remat=remat, pipeline_unc=bool(pipeline_unc), aug_quantize=bool(aug_quantize),
-            augment=augment, **{"dtype=bfloat16": dtype not in (None, torch.float32),
-                                "in_channels other than 3": in_channels != 3})
+            remat=remat, pipeline_unc=bool(pipeline_unc),
+            **{"dtype=bfloat16": dtype not in (None, torch.float32)})
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.in_channels = in_channels
@@ -129,6 +133,10 @@ class UncertaintyGuidedProgressiveTrainer:
         self.seed = seed
         self.verbose = verbose
         self.fused_loss = fused_loss
+        self.augment = augment
+        self.aug_quantize = int(aug_quantize)
+        # stands where the JAX trainer splits its augmentation key
+        self.aug_generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.accum_steps = accum_steps
         self.nan_guard = nan_guard
         self.width = float(width)
@@ -140,6 +148,8 @@ class UncertaintyGuidedProgressiveTrainer:
         self._optimizer_stage: int | None = None
         self._train_steps: dict[int, Any] = {}
         self._eval_steps: dict[int, Any] = {}
+        # seconds the steps waited on the prefetch queue, and its batches
+        self.loader_stats = {"wait_s": 0.0, "batches": 0}
         self.history: dict[str, list] = {
             "train_loss": [], "val_loss": [], "train_dice": [], "val_dice": [],
             "uncertainty_weights_mean": [], "uncertainty_weights_std": [],
@@ -150,7 +160,7 @@ class UncertaintyGuidedProgressiveTrainer:
     def _model(self, stage: int) -> nn.Module:
         if stage not in self.models:
             model = STAGE_MODELS[stage](num_classes=self.num_classes, use_bn=True,
-                                        width=self.width)
+                                        width=self.width, in_channels=self.in_channels)
             _init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
             self.models[stage] = model.to(self.device)
         return self.models[stage]
@@ -188,7 +198,8 @@ class UncertaintyGuidedProgressiveTrainer:
                 self._model(stage), self.optimizer, stage,
                 self.stage_configs[stage]["resolution"], prev_model=prev_model,
                 prev_resolution=prev_res, alpha=self.uncertainty_alpha,
-                fused_loss=self.fused_loss, accum_steps=self.accum_steps)
+                augment=self.augment, fused_loss=self.fused_loss,
+                accum_steps=self.accum_steps, aug_quantize=self.aug_quantize)
         return self._train_steps[stage]
 
     def _get_eval_step(self, stage: int):
@@ -214,8 +225,10 @@ class UncertaintyGuidedProgressiveTrainer:
         accuracy, uncertainty mean, uncertainty std)."""
         step = self._get_train_step(stage)
         acc = []
-        for batch_idx, batch in enumerate(dataloader):
-            metrics = step(batch, self.pos_weight)
+        batches = prefetch_to_device(iter(dataloader), size=2, device=self.device,
+                                     stats=self.loader_stats)
+        for batch_idx, batch in enumerate(batches):
+            metrics = step(batch, self.pos_weight, self.aug_generator)
             acc.append(metrics)
             if self.verbose and batch_idx % 10 == 0:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -228,7 +241,9 @@ class UncertaintyGuidedProgressiveTrainer:
     def validate_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
         """One validation epoch (eval-mode BN, the plain loss, no update)."""
         step = self._get_eval_step(stage)
-        return self._average([step(batch, self.pos_weight) for batch in dataloader])
+        batches = prefetch_to_device(iter(dataloader), size=2, device=self.device,
+                                     stats=self.loader_stats)
+        return self._average([step(batch, self.pos_weight) for batch in batches])
 
     def _checkpoint(self, path: Path, stage: int, epoch: int, **extra) -> Path:
         return save_checkpoint(

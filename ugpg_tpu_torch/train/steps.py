@@ -3,6 +3,8 @@
 One train step runs, per batch:
 
     resize (image bilinear align_corners, mask nearest)
+    -> ``augment=True``: the MoNuSeg augmentation on the device
+       (``data/augment.py``; ``aug_quantize=N``: N grid angles)
     -> stage > 1: the frozen previous stage in eval mode, no grad, on the
        image resized down; sigmoid; resized back up; A = 1 - 2|P - 0.5|
     -> the current stage in train mode (BN running stats update)
@@ -11,10 +13,11 @@ One train step runs, per batch:
     -> backward -> one optimizer step -> the six metrics
 
 Batches keep the JAX layout: ``(images (B, H, W, 3), masks (B, H, W, 1))``,
-NHWC numpy arrays or tensors, at any size (resized here).  They go to the
-model's device by a synchronous copy and are transposed to NCHW here.  The
-metrics come back as 0-d tensors on the device, so a step never waits for
-the device.
+NHWC numpy arrays or tensors, at any size (resized here).  A batch on the
+host goes to the model's device by a synchronous copy; one already there
+(``data/loader.py::prefetch_to_device``) is used in place.  It is
+transposed to NCHW here.  The metrics come back as 0-d tensors on the
+device, so a step never waits for the device.
 
 The JAX package's whole-epoch ``lax.scan`` programs have no counterpart in
 eager PyTorch; CUDA graphs would be theirs.
@@ -27,6 +30,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ugpg_tpu_torch.data.augment import apply_monuseg_params, sample_monuseg_params
 from ugpg_tpu_torch.metrics.segmentation import dice_coefficient, get_predictions, pixel_accuracy
 from ugpg_tpu_torch.ops.cuda.uncertainty_bce import uncertainty_weighted_bce
 from ugpg_tpu_torch.ops.losses import bce_with_logits
@@ -46,7 +50,8 @@ Metrics = dict[str, torch.Tensor]
 
 
 def _nchw(a, device: torch.device) -> torch.Tensor:
-    """NHWC batch array -> float32 NCHW tensor on ``device``."""
+    """NHWC batch array -> float32 NCHW tensor on ``device`` (a float32
+    tensor already on ``device`` is not copied there again)."""
     return torch.as_tensor(a, dtype=torch.float32).to(device).permute(0, 3, 1, 2).contiguous()
 
 
@@ -92,9 +97,9 @@ def make_seg_train_step(
     accum_steps: int = 1,
     external_uncertainty: bool = False,
     aug_quantize: int = 0,
-) -> Callable[[tuple, float], Metrics]:
-    """``step(batch, pos_weight) -> metrics``: one update of ``model``
-    through ``optimizer``.  ``prev_model`` is the frozen previous stage
+) -> Callable[..., Metrics]:
+    """``step(batch, pos_weight, aug=None) -> metrics``: one update of
+    ``model`` through ``optimizer``.  ``prev_model`` is the frozen previous stage
     (stage > 1).  ``fused_loss=True`` computes the loss and its gradient
     with the ``uncertainty_weighted_bce`` kernels; at stage 1 it passes a
     0-d probability of 0.5 with ``alpha=0``, so the kernels run there too
@@ -103,17 +108,27 @@ def make_seg_train_step(
     ``accum_steps=K`` splits the batch (size K*m) into K micro-batches in
     order: gradients are averaged over them, the BN running stats update
     once per micro-batch, and one optimizer step follows; the metrics are
-    the micro-batch means."""
-    not_ported(augment=augment, external_uncertainty=external_uncertainty,
-               aug_quantize=bool(aug_quantize))
+    the micro-batch means.
+
+    ``augment=True``: the MoNuSeg augmentation runs after the resize and
+    before the previous stage sees ``x``, as in the JAX step.  ``aug`` is a
+    ``torch.Generator`` on the model's device, from which each micro-batch
+    draws its parameters in turn, or the parameters of the whole batch
+    drawn before (``data/augment.py::sample_monuseg_params``, sliced per
+    micro-batch).  ``aug_quantize=N`` rotates by one of N grid angles."""
+    not_ported(external_uncertainty=external_uncertainty)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     use_unc = stage > 1 and prev_model is not None
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def micro(images: torch.Tensor, masks: torch.Tensor, pos_weight: float) -> Metrics:
+    def micro(images: torch.Tensor, masks: torch.Tensor, pos_weight: float, aug) -> Metrics:
         x = resize_bilinear_align_corners(images, (resolution, resolution))
         y = resize_nearest(masks, (resolution, resolution))
+        if augment:
+            if isinstance(aug, torch.Generator):
+                aug = sample_monuseg_params(aug, x.shape[0], quantize_angles=aug_quantize)
+            x, y = apply_monuseg_params(x, y, aug, quantize_angles=aug_quantize)
         probs_up = unc_map = None
         if use_unc:
             with torch.no_grad():
@@ -135,16 +150,23 @@ def make_seg_train_step(
         final.backward()
         return _metrics(final, base, logits, y, unc_map)
 
-    def step(batch, pos_weight: float) -> Metrics:
+    def step(batch, pos_weight: float, aug=None) -> Metrics:
         device = params[0].device
         images, masks = _nchw(batch[0], device), _nchw(batch[1], device)
         n = images.shape[0]
         if n % accum_steps:
             raise ValueError(f"batch size {n} is not divisible by accum_steps={accum_steps}")
+        if augment and aug is None:
+            raise ValueError("augment=True: pass aug, a torch.Generator or drawn parameters")
         m = n // accum_steps
         optimizer.zero_grad(set_to_none=True)
-        parts = [micro(images[i * m:(i + 1) * m], masks[i * m:(i + 1) * m], pos_weight)
-                 for i in range(accum_steps)]
+        parts = []
+        for i in range(accum_steps):
+            part = aug
+            if isinstance(aug, dict):
+                part = {k: v[i * m:(i + 1) * m] for k, v in aug.items()}
+            parts.append(micro(images[i * m:(i + 1) * m], masks[i * m:(i + 1) * m], pos_weight,
+                               part))
         if accum_steps > 1:
             for p in params:  # the micro-batches' gradients were summed
                 if p.grad is not None:
