@@ -78,7 +78,33 @@
    Prints images/s per stage, the host decode + rasterize + resize time per
    batch, the time per step the steps waited on the prefetch queue and a
    torch.profiler breakdown of one stage-4 augmented step.
-10. Prints a "kernels" JSON line, then as its last line
+10. MoNuSeg through the command lines, on phase 9's tree.  Trains with
+   `python -m ugpg_tpu_torch.cli.train_monuseg` in a child process (full
+   width, --epochs 2, --checkpoint_every 1, batch 8) and sends it SIGTERM
+   when it prints its first "Stage 2, Batch" line: the child must exit 75
+   and leave ug_pgunet_stage2_last.pth at stage 2, epoch 0, with optimizer
+   state and history, and no stage-3 file.  The same command with --resume
+   must exit 0 with a _best.pth for stages 1-4 and exactly 8 epochs, none
+   repeated, in training_log.csv and the history.  Then test_monuseg runs
+   in this process on the stage-4 _best.pth (--eval_full, once with
+   --native_res, --num_images 2 --save_uncertainty, and --infer_dir on the
+   validation tiles): finite metrics in both JSON files, every PNG read
+   back by the port's decoders, and the counters, reset just before,
+   showing 9 double-conv, 4 upsample and 1 uncertainty launches per
+   forward and no call of a plain version.  The evaluator and
+   SlidePredictor on the card against the same on device="cpu" on one
+   tile cropped to 400 x 344 px (padded to 400 x 352), with the trained
+   checkpoint and phase 5's seeded one: probabilities and uncertainty
+   1e-4, preds equal except within 1e-4 of the threshold, native metrics
+   1e-4.
+   Each of the three kernels against its plain version at every stage-4
+   native-evaluation shape (float32, batch 1, 1008 -> 63 px) with phase
+   3's tolerance.  Prints the float32 double conv's event time per stage-4
+   forward at 1008 px beside cuDNN's pair (float32, TF32 off), its plain
+   version and its FP32 bound, seconds per tile of native evaluation,
+   images/s of the stage-resolution evaluation and a torch.profiler
+   breakdown of one native-resolution forward.
+11. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -89,14 +115,17 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import itertools
 import json
 import math
+import signal
 import statistics
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -118,9 +147,17 @@ from ugpg_tpu_torch.data.loader import DataLoader, prefetch_to_device  # noqa: E
 from ugpg_tpu_torch.data.monuseg import load_rgb, resize_image, resize_mask  # noqa: E402
 from ugpg_tpu_torch.data.rasterize import parse_polygons, rasterize_polygons  # noqa: E402
 from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset  # noqa: E402
+from ugpg_tpu_torch.cli import test_monuseg  # noqa: E402
+from ugpg_tpu_torch.data.monuseg import AugMoNuSegDataset, MoNuSegDataset  # noqa: E402
+from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator  # noqa: E402
 from ugpg_tpu_torch.eval.serving import BatchingServer, Predictor  # noqa: E402
+from ugpg_tpu_torch.eval.slide import SlidePredictor, native_forward  # noqa: E402
+from ugpg_tpu_torch.io.checkpoint import read_checkpoint  # noqa: E402
 from ugpg_tpu_torch.models.pgunet import PGUNet4  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import _lib  # noqa: E402
+from ugpg_tpu_torch.ops.cuda import double_conv as double_conv_mod  # noqa: E402
+from ugpg_tpu_torch.ops.cuda import resize2x as resize2x_mod  # noqa: E402
+from ugpg_tpu_torch.ops.cuda import uncertainty as uncertainty_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda.double_conv import (  # noqa: E402
     fused_double_conv,
     fused_double_conv_reference,
@@ -1210,6 +1247,291 @@ def train_monuseg(tmp: Path):
     return counts, epoch, host
 
 
+# ---------------------------------------------------------------- MoNuSeg through the command lines
+HERE = Path(__file__).resolve().parent
+CLI_EPOCHS = 2
+NATIVE_PX = 1008  # a 1000 px tile padded to a multiple of 16 (stage 4's four pools)
+# the stage-4 shapes of a native-resolution forward: 1008 px down to 63 px
+NATIVE_DOUBLE_CONVS = {name: (h * NATIVE_PX // 256, cin, cm, cout)
+                       for name, (h, cin, cm, cout) in DOUBLE_CONVS.items()}
+NATIVE_UPSAMPLES = {name: (c, h * NATIVE_PX // 256) for name, (c, h) in UPSAMPLES.items()}
+SERVING_KERNELS = ("fused_double_conv", "upsample2x", "uncertainty_from_logits")
+
+
+def train_command(root: Path, out: Path, *extra) -> list[str]:
+    return [sys.executable, "-u", "-m", "ugpg_tpu_torch.cli.train_monuseg",
+            "--data_dir", str(root), "--output_dir", str(out), "--epochs", str(CLI_EPOCHS),
+            "--checkpoint_every", "1", "--batch_size", str(TRAIN_BATCH), *extra]
+
+
+def run_command(cmd: list[str], stop_at: str | None = None, timeout: float = 600.0):
+    """Run ``cmd`` from the repository's root; with ``stop_at``, send it
+    SIGTERM when it prints a line starting so.  -> (exit code, output,
+    seconds).  The child is killed if it outlives ``timeout``."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    watchdog = threading.Timer(timeout, proc.kill)
+    watchdog.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if stop_at is not None and line.startswith(stop_at):
+                proc.send_signal(signal.SIGTERM)
+                stop_at = None
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, "".join(lines), time.perf_counter() - t0
+
+
+def log_tail(label: str, text: str, n: int = 8) -> None:
+    for line in text.strip().splitlines()[-n:]:
+        log(f"{label} | {line}")
+
+
+class _OneTile:
+    """A dataset of one (image, mask) pair for ``evaluate_dataset_native``."""
+
+    def __init__(self, image, mask):
+        self.image, self.mask = image, mask
+
+    def __len__(self):
+        return 1
+
+    def load_raw(self, idx):
+        return self.image, self.mask
+
+
+@contextlib.contextmanager
+def counting_forwards_and_plain_calls():
+    """Counts PGUNet4 forwards and every call of the three serving kernels'
+    plain versions while inside."""
+    counts = {"forwards": 0, "plain": 0}
+    forward = PGUNet4.forward
+
+    def counted_forward(self, x):
+        counts["forwards"] += 1
+        return forward(self, x)
+
+    plains = [(double_conv_mod, "fused_double_conv_reference"),
+              (resize2x_mod, "upsample2x_reference"),
+              (uncertainty_mod, "uncertainty_from_logits_reference")]
+    saved = [getattr(mod, name) for mod, name in plains]
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            counts["plain"] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    PGUNet4.forward = counted_forward
+    for (mod, name), fn in zip(plains, saved):
+        setattr(mod, name, counted(fn))
+    try:
+        yield counts
+    finally:
+        PGUNet4.forward = forward
+        for (mod, name), fn in zip(plains, saved):
+            setattr(mod, name, fn)
+
+
+@tf32(False)
+def check_native_kernels() -> dict:
+    """Each serving kernel against its plain version at every stage-4
+    native-evaluation shape, float32, batch 1, phase 3's tolerance."""
+    g = torch.Generator(device=DEV).manual_seed(7)
+    worst = {}
+    checks = [("fused_double_conv", name, dc_inputs(1, *shape, torch.float32, g), fused_double_conv,
+               fused_double_conv_reference) for name, shape in NATIVE_DOUBLE_CONVS.items()]
+    checks += [("upsample2x", name, up_inputs(1, *shape, torch.float32, g), upsample2x,
+                upsample2x_reference) for name, shape in NATIVE_UPSAMPLES.items()]
+    checks += [("uncertainty_from_logits", "logits", unc_inputs(1, 1, NATIVE_PX, torch.float32, g),
+                uncertainty_from_logits, uncertainty_from_logits_reference)]
+    for kernel, label, args, fn, plain in checks:
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype, (kernel, label)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = err <= 1e-4 * max(1.0, scale)
+        log(f"check native {kernel:24s} {label:7s} {tuple(args[0].shape)} float32 "
+            f"max_abs_err={err:.3e} max|plain|={scale:.3e} -> {'ok' if ok else 'FAIL'}")
+        assert ok, (kernel, label, err, scale)
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+        del args, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+@tf32(False)
+def time_native_double_conv() -> dict:
+    """The float32 double conv (the CUDA-core kernel) over the 9 shapes of one
+    stage-4 forward at 1008 px, batch 1: CUDA-event time beside its plain
+    version, cuDNN's pair in float32 with TF32 off, and the bound at the
+    card's FP32 CUDA-core peak (67 TFLOP/s) or its HBM rate."""
+    g = torch.Generator(device=DEV).manual_seed(8)
+    total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "flop"), 0.0)
+    for name, (h, cin, cm, cout) in NATIVE_DOUBLE_CONVS.items():
+        args = dc_inputs(1, h, cin, cm, cout, torch.float32, g)
+        flop = 2 * h * h * 9 * (cin * cm + cm * cout)
+        nbytes = h * h * (cin + cout) * 4 + 9 * cm * (cin + cout) * 4 + 4 * (cm + cout)
+        t = {"ms": time_ms(fused_double_conv, args), "plain_ms": time_ms(
+                fused_double_conv_reference, args, reps=1, repeats=3),
+             "library_ms": time_ms(library_double_conv, args),
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": flop / PEAK_OPS_PER_S[torch.float32] * 1e3, "flop": flop}
+        log("time native", json.dumps({"kernel": "fused_double_conv", "shape": name,
+                                       "hw": h, "dtype": "float32", **t,
+                                       "tflop_per_s": flop / t["ms"] / 1e9,
+                                       "bound_share": max(t["bytes_ms"], t["ops_ms"]) / t["ms"]}))
+        for key, value in t.items():
+            total[key] += value
+        del args
+    torch.cuda.empty_cache()
+    total["tflop_per_s"] = total["flop"] / total["ms"] / 1e9
+    total["bound_share"] = max(total["bytes_ms"], total["ops_ms"]) / total["ms"]
+    log("time native total", json.dumps({"kernel": "fused_double_conv", "dtype": "float32",
+                                         "px": NATIVE_PX, **total}))
+    return total
+
+
+def monuseg_command_lines(tmp: Path, root: Path):
+    """Phase 10: train with SIGTERM and --resume through the training
+    command, evaluate and infer through the test command, the card against
+    the CPU, the kernels at the native-evaluation shapes, and the times."""
+    out = tmp / "cli"
+    rc, text, dt = run_command(train_command(root, out), stop_at="Stage 2, Batch")
+    log(f"cli: train_monuseg, SIGTERM at its first 'Stage 2, Batch' line: exit {rc} after "
+        f"{dt:.1f} s")
+    log_tail("cli: preempted run", text)
+    assert rc == 75, text[-4000:]
+    last = read_checkpoint(out / "ug_pgunet_stage2_last.pth")
+    log(f"cli: ug_pgunet_stage2_last.pth: stage {last['stage']}, epoch {last['epoch']}, "
+        f"{len(last['optimizer_state_dict']['state'])} optimizer states, history of "
+        f"{len(last['history']['train_loss'])} epochs")
+    assert last["stage"] == 2 and last["epoch"] == 0, (last["stage"], last["epoch"])
+    assert last["optimizer_state_dict"]["state"]
+    assert len(last["history"]["train_loss"]) == CLI_EPOCHS + 1
+    assert not list(out.glob("ug_pgunet_stage3*")) and not list(out.glob("ug_pgunet_stage4*"))
+
+    rc, text, dt = run_command(train_command(root, out, "--resume"))
+    log(f"cli: train_monuseg --resume: exit {rc} after {dt:.1f} s")
+    log_tail("cli: resumed run", text)
+    assert rc == 0 and "Resuming from stage 2" in text, text[-4000:]
+    for stage in (1, 2, 3, 4):
+        assert (out / f"ug_pgunet_stage{stage}_best.pth").exists(), stage
+    with open(out / "training_log.csv") as f:
+        rows = [(int(r["stage"]), int(r["epoch"])) for r in csv.DictReader(f)]
+    history = read_checkpoint(out / "ug_pgunet_stage4_last.pth")["history"]
+    log(f"cli: training_log.csv (stage, epoch) rows {rows}; history of "
+        f"{len(history['train_loss'])} epochs, transitions {history['stage_transitions']}")
+    assert rows == [(s, e) for s in (1, 2, 3, 4) for e in range(1, CLI_EPOCHS + 1)], rows
+    assert len(history["train_loss"]) == 4 * CLI_EPOCHS
+    assert history["stage_transitions"] == [0, 2, 4, 6]
+    assert np.isfinite(history["train_loss"]).all() and np.isfinite(history["val_loss"]).all()
+
+    model = str(out / "ug_pgunet_stage4_best.pth")
+    res, inf = tmp / "eval", tmp / "infer"
+    common = ["--model", model, "--data", str(root), "--num_images", "2", "--eval_full",
+              "--save_uncertainty", "--output_dir", str(res)]
+    _lib.reset_launch_counts()
+    with counting_forwards_and_plain_calls() as calls:
+        t0 = time.perf_counter()
+        stage_res = test_monuseg.main(common)
+        native_res = test_monuseg.main(common + ["--native_res"])
+        inferred = test_monuseg.main(["--model", model, "--infer_dir",
+                                      str(root / "val" / "images"), "--output_dir", str(inf)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = _lib.launch_counts()
+    f = calls["forwards"]
+    log(f"cli: test_monuseg (stage resolution, native resolution, --infer_dir) in {dt:.1f} s: "
+        f"{f} stage-4 forwards, launches {json.dumps(launches)}, plain-version calls "
+        f"{calls['plain']}")
+    assert f > 0 and calls["plain"] == 0
+    assert launches == {"fused_double_conv": 9 * f, "upsample2x": 4 * f,
+                        "uncertainty_from_logits": f}, (launches, f)
+    for name, got in (("evaluation_results.json", stage_res),
+                      ("evaluation_results_native.json", native_res)):
+        saved = json.loads((res / name).read_text())
+        log(f"cli: {name}: " + json.dumps(saved))
+        assert saved == got["metrics"] and saved["stage"] == 4 and saved["num_samples"] == 2
+        values = [v for k, v in saved.items() if k.endswith(("_mean", "_std"))]
+        assert len(values) == 12 and np.isfinite(values).all(), saved
+    assert native_res["metrics"]["native_resolution"]
+    pngs = {}
+    for path in sorted(res.glob("uncertainty_*.png")) + sorted(inf.glob("*_mask.png")):
+        pngs[path.name] = native.decode_png_gray(path).shape
+    for path in sorted(inf.glob("*_vis.png")):
+        pngs[path.name] = native.decode_png(path).shape
+    log(f"cli: PNGs read back by the port's decoders: {json.dumps(pngs)}; inference "
+        f"confidences {json.dumps(inferred['inference'])}")
+    assert sorted(inferred["inference"]) == ["val_tile_0.tif", "val_tile_1.tif"]
+    assert sum(name.startswith("uncertainty_") for name in pngs) == 2
+    assert all(pngs[f"val_tile_{i}_{kind}.png"][:2] == (TILE_PX, TILE_PX)
+               for i in (0, 1) for kind in ("mask", "vis"))
+
+    # the card against the CPU: one tile cropped to 400 x 344 px (padded to 352),
+    # through the trained checkpoint and phase 5's seeded one, whose spread
+    # logits give both classes
+    img, mask = MoNuSegDataset(str(root), image_size=256, split="val").load_raw(0)
+    tile = _OneTile(img[:400, :344], mask[:400, :344])
+    seeded = tmp / "seeded_stage4.pth"
+    random_checkpoint(seeded)
+    for label, ckpt in (("trained", model), ("seeded", str(seeded))):
+        with tf32(False):
+            gpu = SlidePredictor(ckpt)(tile.image[None])
+            cpu = SlidePredictor(ckpt, device="cpu")(tile.image[None])
+            gpu_m = MoNuSegEvaluator(ckpt).evaluate_dataset_native(tile)
+            cpu_m = MoNuSegEvaluator(ckpt, device="cpu").evaluate_dataset_native(tile)
+        err = float(np.abs(gpu[1] - cpu[1]).max())
+        err_unc = float(np.abs(gpu[2] - cpu[2]).max())
+        flips = gpu[0] != cpu[0]
+        metric_err = max(abs(gpu_m[k] - cpu_m[k]) for k in cpu_m if isinstance(cpu_m[k], float))
+        log(f"cli: card vs CPU, {label} checkpoint, a 400 x 344 crop at native resolution: "
+            f"max|dprob|={err:.3e} max|dunc|={err_unc:.3e} pred flips={int(flips.sum())} of "
+            f"{flips.size} ({float(cpu[0].mean()):.4f} positive), native metrics "
+            f"max|d|={metric_err:.3e} (dice {gpu_m['dice_mean']:.6f} / {cpu_m['dice_mean']:.6f})")
+        assert gpu[1].shape == (1, 400, 344, 1) and cpu[1].std() > 1e-3
+        assert err <= 1e-4 and err_unc <= 1e-4 and metric_err <= 1e-4
+        assert np.all(np.abs(cpu[1][flips] - 0.5) < 1e-4)
+    assert 0.0 < float(cpu[0].mean()) < 1.0  # the seeded model predicts both classes
+
+    errors = check_native_kernels()
+    dc = time_native_double_conv()
+
+    # times: native evaluation per tile, stage-resolution evaluation images/s
+    ev = MoNuSegEvaluator(model)
+    val = MoNuSegDataset(str(root), image_size=256, split="val")
+    ev.evaluate_dataset_native(val)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev.evaluate_dataset_native(val)
+    s_per_tile = (time.perf_counter() - t0) / len(val)
+    x = torch.from_numpy(img.astype(np.float32) / 255.0)[None].to(DEV)
+    forward_ms = time_ms(lambda: native_forward(ev.model, x, (16, 16)), (), reps=2, repeats=3)
+    patches = AugMoNuSegDataset(str(root), image_size=256)
+    ev.evaluate_dataset(patches, batch_size=TRAIN_BATCH)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev.evaluate_dataset(patches, batch_size=TRAIN_BATCH)
+    ips = len(patches) / (time.perf_counter() - t0)
+    log(f"cli: native evaluation {s_per_tile:.4f} s per {TILE_PX} px tile (decode, XML, fill, "
+        f"forward, metrics), the padded forward alone {forward_ms:.2f} ms (CUDA events); "
+        f"stage-resolution evaluation {ips:.2f} images/s (batch {TRAIN_BATCH}, {len(patches)} "
+        f"{PATCH_PX} px patches, decode included)")
+    profile_call(f"eval: one native-resolution forward, {NATIVE_PX} px, float32",
+                 lambda: native_forward(ev.model, x, (16, 16)))
+    times = {"native_s_per_tile": s_per_tile, "native_forward_ms": forward_ms,
+             "stage_res_images_per_s": ips, "double_conv_f32_1008": dc}
+    return launches, errors, times
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -1246,7 +1568,12 @@ def main():
     log(f"train (synthetic disks): loss launches {json.dumps(train_launches)}")
     with tempfile.TemporaryDirectory() as tmp:
         mon_launches, mon_epoch, mon_host = train_monuseg(Path(tmp))
-    launches.update(mon_launches)  # the loss kernels: this slice's main path, MoNuSeg training
+        cli_launches, native_errors, cli_times = monuseg_command_lines(Path(tmp),
+                                                                       Path(tmp) / "MoNuSeg")
+    launches.update(mon_launches)  # the loss kernels: MoNuSeg training
+    for kernel in SERVING_KERNELS:  # and the evaluator's launches, this slice's path
+        launches[kernel] += cli_launches[kernel]
+        errors[kernel] = max(errors[kernel], native_errors[kernel])
 
     rows = []
     for kernel, (source, replaces) in KERNELS.items():
@@ -1260,6 +1587,12 @@ def main():
             "library_ms": t["library_ms"],
             **{key: t[key] for key in ("device_ms", "host_us") if key in t},
         })
+        if kernel == "fused_double_conv":  # float32, one stage-4 forward at 1008 px
+            dc = cli_times["double_conv_f32_1008"]
+            rows[-1]["float32_native_1008"] = {
+                "ms": dc["ms"], "plain_ms": dc["plain_ms"], "library_ms": dc["library_ms"],
+                "bound_ms": max(dc["bytes_ms"], dc["ops_ms"]),
+                "bound_by": "bytes" if dc["bytes_ms"] >= dc["ops_ms"] else "operations"}
     log(f"serving: {ips:.2f} images/s, stage 4, bucket 64, bf16 on {card}")
     log(f"training: images/s at batch {TRAIN_BATCH}, epoch 2 of each stage: "
         + ", ".join(f"stage {s} {v[-1]:.2f}" for s, v in train_ips.items()) + f" on {card}")
@@ -1270,6 +1603,12 @@ def main():
         + f"; host per batch of 8 (4 threads): stage 1 "
         f"{mon_host[1]['loader_ms_per_batch']:.2f} ms, stage 4 "
         f"{mon_host[4]['loader_ms_per_batch']:.2f} ms on {card}")
+    dc = cli_times["double_conv_f32_1008"]
+    log(f"monuseg evaluation: native {cli_times['native_s_per_tile']:.4f} s per {TILE_PX} px tile "
+        f"(forward {cli_times['native_forward_ms']:.2f} ms), stage resolution "
+        f"{cli_times['stage_res_images_per_s']:.2f} images/s; float32 double conv per stage-4 "
+        f"forward at {NATIVE_PX} px {dc['ms']:.3f} ms, cuDNN {dc['library_ms']:.3f} ms, bound "
+        f"{max(dc['bytes_ms'], dc['ops_ms']):.3f} ms on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -237,6 +237,33 @@ def test_fused_double_conv_kernel(cuda, dtype, n, h, w, cin, cm, cout):
     _close(got, fused_double_conv_reference(x, w1, b1, w2, b2), dtype)
 
 
+# stage 4 at native resolution: a 1000 px MoNuSeg tile padded to 1008 px,
+# float32 and batch 1, as MoNuSegEvaluator.evaluate_dataset_native and
+# SlidePredictor run it -- odd sides (63, 126 ... 504) and their tile tails
+NATIVE_DOUBLE_CONVS = [(1008, 3, 64, 64), (504, 64, 128, 128), (252, 128, 256, 256),
+                       (126, 256, 512, 512), (63, 512, 512, 512), (126, 1024, 256, 256),
+                       (252, 512, 128, 128), (504, 256, 64, 64), (1008, 128, 64, 64)]
+NATIVE_UPSAMPLES = [(512, 63), (256, 126), (128, 252), (64, 504)]
+
+
+@pytest.mark.parametrize("h,cin,cm,cout", NATIVE_DOUBLE_CONVS)
+def test_fused_double_conv_kernel_at_native_evaluation_shapes(cuda, h, cin, cm, cout):
+    x, w1, b1, w2, b2 = _dc_inputs(cuda, torch.float32, 1, h, h, cin, cm, cout)
+    got = fused_double_conv(x, w1, b1, w2, b2)
+    _close(got, fused_double_conv_reference(x, w1, b1, w2, b2), torch.float32)
+
+
+@pytest.mark.parametrize("c,h", NATIVE_UPSAMPLES)
+def test_upsample2x_kernel_at_native_evaluation_shapes(cuda, c, h):
+    x = torch.randn(1, c, h, h, device=cuda).contiguous(memory_format=CL)
+    _close(upsample2x(x), upsample2x_reference(x), torch.float32)
+
+
+def test_uncertainty_kernel_at_the_native_evaluation_shape(cuda):
+    x = torch.randn(1, 1, 1008, 1008, device=cuda) * 4
+    _close(uncertainty_from_logits(x), uncertainty_from_logits_reference(x), torch.float32)
+
+
 def test_bf16_kernels_repeat_to_the_same_bits(cuda):
     # no atomics: a repeated call gives the same bits; packing ahead of the
     # call (as Predictor does) gives the same bits as packing in it

@@ -1,20 +1,28 @@
 """Package rules of ugpg_tpu_torch: it imports neither JAX nor ugpg_tpu nor PIL,
-its entry points need CUDA unless the CPU is asked for, and the Predictor
-and trainer options not ported yet raise instead of being ignored."""
+its entry points need CUDA unless the CPU is asked for, and the Predictor,
+SlidePredictor, trainer and command-line options not ported yet raise (or
+exit "not ported") instead of being ignored; the options ported since run."""
 
 import pathlib
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import ugpg_tpu_torch
+from ugpg_tpu_torch.cli import test_monuseg, train_monuseg
+from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset
 from ugpg_tpu_torch.device import resolve_device
+from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator
 from ugpg_tpu_torch.eval.serving import Predictor
-from ugpg_tpu_torch.io.checkpoint import load_checkpoint
+from ugpg_tpu_torch.eval.slide import SlidePredictor
+from ugpg_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from ugpg_tpu_torch.models.pgunet import PGUNet1
 from ugpg_tpu_torch.train.seg_trainer import UncertaintyGuidedProgressiveTrainer
+from ugpg_tpu_torch.utils.preemption import PreemptionGuard
 
 PKG = pathlib.Path(ugpg_tpu_torch.__file__).parent
 ROOT = PKG.parent
@@ -71,12 +79,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         Predictor(str(tmp_path / "never_read.pth"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         UncertaintyGuidedProgressiveTrainer()
+    for entry in (MoNuSegEvaluator, SlidePredictor):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(str(tmp_path / "never_read.pth"))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 @pytest.mark.parametrize("kwargs", [
     dict(task_type="classification"), dict(quantize=True), dict(mesh=object()),
-    dict(shard_model=True), dict(mc_dropout=4), dict(fold_bn=False),
+    dict(shard_model=True), dict(mc_dropout=4),
 ])
 def test_options_outside_the_slice_raise(kwargs, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -86,22 +97,77 @@ def test_options_outside_the_slice_raise(kwargs, tmp_path):
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object()), dict(shard_model=True), dict(axis_name="data"),
     dict(checkpoint_backend="msgpack"), dict(scan_epochs=True), dict(scan_chunk_bytes=1 << 30),
-    dict(tb_logdir="tb"), dict(remat=True), dict(pipeline_unc=1), dict(dtype=torch.bfloat16),
+    dict(tb_logdir="tb"), dict(remat=True), dict(pipeline_unc=1),
 ])
 def test_trainer_options_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not ported"):
         UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, **kwargs)
 
 
-@pytest.mark.parametrize("call", ["resume", "preemption", "finetune_native"])
+@pytest.mark.parametrize("call", ["finetune_native"])
 def test_trainer_calls_outside_the_slice_raise(call, tmp_path):
     tr = UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match="not ported"):
-        if call == "finetune_native":
-            tr.finetune_native([])
+        tr.finetune_native([])
+
+
+@pytest.fixture(scope="module")
+def stage1_pth(tmp_path_factory):
+    path = tmp_path_factory.mktemp("pkg") / "stage1.pth"
+    torch.manual_seed(0)
+    save_checkpoint(path, PGUNet1(use_bn=True).state_dict(), stage=1, epoch=0)
+    return path
+
+
+@pytest.mark.parametrize("option", ["dtype=bfloat16", "resume", "preemption", "fold_bn=False"])
+def test_options_ported_since_run(option, stage1_pth, tmp_path):
+    """The options that raised until this slice now run."""
+    if option == "fold_bn=False":
+        preds, probs, unc = Predictor(str(stage1_pth), buckets=(1,), dtype=torch.float32,
+                                      fold_bn=False, device="cpu")(np.zeros((1, 32, 32, 3)))
+        assert probs.shape == (1, 32, 32, 1) and np.isfinite(probs).all()
+        return
+    images, masks = disk_dataset(num_samples=2, image_size=16, seed=0)
+    loader = ArrayLoader(images, masks, batch_size=2)
+    cfgs = {1: {"resolution": 16, "epochs_per_stage": 1, "lr": 3e-4}}
+    kwargs = {"resume": dict(resume=True), "preemption": dict(preemption=PreemptionGuard()),
+              "dtype=bfloat16": {}}[option]
+    tr = UncertaintyGuidedProgressiveTrainer(
+        device="cpu", verbose=False, width=0.25, stage_configs=cfgs,
+        dtype=torch.bfloat16 if option == "dtype=bfloat16" else None)
+    h = tr.train_progressive(loader, loader, max_stages=1, save_dir=tmp_path, **kwargs)
+    assert len(h["train_loss"]) == 1 and not tr.preempted
+
+
+@pytest.mark.parametrize("part", ["mesh", "w_axis", "export"])
+def test_slide_predictor_parts_outside_the_slice_raise(part, stage1_pth):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        if part == "export":
+            SlidePredictor(str(stage1_pth), device="cpu").export("never_written")
         else:
-            tr.train_progressive([], [], save_dir=tmp_path,
-                                 **{call: True if call == "resume" else object()})
+            SlidePredictor(str(stage1_pth), device="cpu", **{part: object()})
+
+
+@pytest.mark.parametrize("command,flags", [
+    ("train", ["--mesh", "4,2"]), ("train", ["--scan_epochs"]),
+    ("train", ["--scan_chunk_mb", "512"]), ("train", ["--tb_logdir", "tb"]),
+    ("train", ["--remat"]), ("train", ["--pipeline_unc", "1"]),
+    ("train", ["--native_finetune", "1"]), ("train", ["--checkpoint_backend", "msgpack"]),
+    ("train", ["--checkpoint_backend", "orbax-async"]), ("test", ["--mesh", "2,2"]),
+])
+def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_path, capsys):
+    """Never ignored: the command exits 2 naming the flag."""
+    if command == "train":
+        argv = ["--data_dir", str(tmp_path), "--device", "cpu", *flags]
+        main = train_monuseg.main
+    else:
+        argv = ["--model", str(tmp_path / "m.pth"), "--eval_full", "--native_res",
+                "--device", "cpu", *flags]
+        main = test_monuseg.main
+    with pytest.raises(SystemExit) as info:
+        main(argv)
+    err = capsys.readouterr().err
+    assert info.value.code == 2 and "not ported" in err and flags[0] in err
 
 
 def test_load_checkpoint_container_and_bare_state_dict(tmp_path):

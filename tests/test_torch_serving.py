@@ -1,4 +1,5 @@
-"""The port's stage-4 Predictor and BatchingServer against the JAX Predictor.
+"""The port's stage-4 Predictor (BN folded and live, called and streamed)
+and BatchingServer against the JAX Predictor.
 
 Full-width stage-4 weights come from a numpy seed (non-trivial BN stats),
 are saved as a JAX checkpoint and converted with the JAX package's own
@@ -107,5 +108,21 @@ def test_batching_server_matches_direct_call(served):
             np.testing.assert_allclose(got, want[i], atol=1e-6, rtol=0)
     stats = server.stats()
     assert stats["submitted"] == 4 and stats["groups"] <= 4
-    with pytest.raises(NotImplementedError):
-        port.stream(iter([x]))
+    # the stream of the same images, in batches of 2 and 1, gives the same maps
+    streamed = list(port.stream(iter([x[:2], x[2:3], x[3:]])))
+    assert [o[0].shape[0] for o in streamed] == [2, 1, 1]
+    for i, got in enumerate(zip(*streamed)):
+        np.testing.assert_allclose(np.concatenate(got), direct[i], atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="exceeds the largest bucket"):
+        list(port.stream(iter([x[:3]])))
+
+
+def test_predictor_live_bn_matches_jax(served):
+    """fold_bn=False runs the BN model in plain PyTorch; folding is exact
+    algebra, so it meets the (folded) JAX Predictor within the same 1e-4."""
+    d, reference, _ = served
+    live = Predictor(str(d / "model.pth"), dtype=torch.float32, buckets=(2,), fold_bn=False,
+                     device="cpu")
+    assert live.model.inc.conv.use_bn and live.model.inc.conv.conv_op[1].running_var.std() > 0
+    x = _images(5)
+    _check(live(x), reference(x))

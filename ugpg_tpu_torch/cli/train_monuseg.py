@@ -1,0 +1,190 @@
+"""MoNuSeg training command line (counterpart of ``ugpg_tpu/cli/train_monuseg.py``).
+
+    python -m ugpg_tpu_torch.cli.train_monuseg --data_dir DIR --output_dir OUT
+
+Takes the JAX command's flags, plus ``--device`` (default ``cuda``; ``cpu``
+runs the plain PyTorch path), where the JAX package reads
+``JAX_PLATFORMS``.  Checkpoints are reference-format ``.pth`` files
+(``--checkpoint_backend pth``, the only backend).  The flags of parts not
+ported yet (``--mesh``, ``--scan_epochs``, ``--scan_chunk_mb``,
+``--tb_logdir``, ``--remat``, ``--pipeline_unc``, ``--native_finetune``,
+another ``--checkpoint_backend``) exit with status 2 and a "not ported"
+message; none is ignored.
+
+``--resume`` loads every requested stage that has a ``_best.pth`` and no
+``_last.pth``, and ``train_progressive`` continues mid-stage from the
+latest ``_last.pth``.  SIGTERM stops the run at the end of the current
+epoch with a ``_last.pth`` written, and ``cli`` exits 75 (EX_TEMPFAIL), so
+that a scheduler requeues it with ``--resume``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from pathlib import Path
+
+EX_TEMPFAIL = 75
+
+
+def create_config() -> dict:
+    return {
+        "data_dir": "./data/MoNuSeg",
+        "output_dir": "./monuseg_outputs",
+        "stages": [1, 2, 3, 4],
+        "epochs_per_stage": 50,
+        "batch_size": 8,
+        "lr": None,  # per-stage defaults (3e-4 / 1e-4)
+        "uncertainty_alpha": 1.0,
+        "num_workers": 4,
+        "resume": False,
+    }
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Train Uncertainty-Guided Progressive U-Net on MoNuSeg (PyTorch/CUDA)")
+    p.add_argument("--data_dir", type=str, help="MoNuSeg dataset root")
+    p.add_argument("--output_dir", type=str, help="output directory")
+    p.add_argument("--stages", nargs="+", type=int, default=[1, 2, 3, 4])
+    p.add_argument("--epochs", type=int, default=50, help="epochs per stage")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--uncertainty_alpha", type=float, default=1.0)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the stage checkpoints in output_dir "
+                        "(mid-stage when _last.pth checkpoints exist)")
+    p.add_argument("--checkpoint_every", type=int, default=5,
+                   help="write a rolling _last.pth checkpoint every N epochs")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute over float32 parameters")
+    p.add_argument("--plain", action="store_true",
+                   help="use the raw MoNuSegDataset instead of aug patches")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (default cuda; cpu runs the plain PyTorch path)")
+    p.add_argument("--checkpoint_backend", default="pth",
+                   choices=["pth", "msgpack", "orbax", "orbax-async"],
+                   help="checkpoint format: pth, the only one ported")
+    p.add_argument("--accum_steps", type=int, default=1, metavar="K",
+                   help="gradient accumulation: each batch (size K*m) as K "
+                        "micro-batches with one optimizer update")
+    p.add_argument("--aug_quantize", type=int, default=0, metavar="N",
+                   help="quantize the augmentation rotation to N grid angles")
+    # parts not ported yet: given, they exit with "not ported"
+    p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
+                   help="not ported: device mesh")
+    p.add_argument("--scan_epochs", action="store_true", help="not ported: epoch scans")
+    p.add_argument("--scan_chunk_mb", type=int, default=None, help="not ported: epoch scans")
+    p.add_argument("--tb_logdir", type=str, default=None, help="not ported: TensorBoard")
+    p.add_argument("--remat", action="store_true", help="not ported: rematerialisation")
+    p.add_argument("--pipeline_unc", type=int, default=0, metavar="N",
+                   help="not ported: the uncertainty pipeline")
+    p.add_argument("--native_finetune", type=int, default=0, metavar="EPOCHS",
+                   help="not ported: native-resolution fine-tune (needs a mesh)")
+    p.add_argument("--native_size", type=int, default=1000,
+                   help="with --native_finetune (not ported)")
+    p.add_argument("--native_w_axis", action="store_true",
+                   help="with --native_finetune (not ported)")
+    return p
+
+
+def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
+    asked = {
+        "--mesh": args.mesh is not None,
+        "--scan_epochs": args.scan_epochs,
+        "--scan_chunk_mb": args.scan_chunk_mb is not None,
+        "--tb_logdir": args.tb_logdir is not None,
+        "--remat": args.remat,
+        "--pipeline_unc": bool(args.pipeline_unc),
+        "--native_finetune": bool(args.native_finetune),
+        f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
+    }
+    missing = [flag for flag, on in asked.items() if on]
+    if missing:
+        parser.error(f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} (see ROADMAP.md)")
+
+
+def main(argv=None):
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    _refuse_not_ported(parser, args)
+    config = create_config()
+    for key, val in (("data_dir", args.data_dir), ("output_dir", args.output_dir),
+                     ("lr", args.lr)):
+        if val is not None:
+            config[key] = val
+    config.update(stages=args.stages, epochs_per_stage=args.epochs, batch_size=args.batch_size,
+                  uncertainty_alpha=args.uncertainty_alpha, resume=args.resume)
+
+    import torch
+
+    from ugpg_tpu_torch.data.monuseg import MoNuSegDataset, create_train_val_split
+    from ugpg_tpu_torch.io.checkpoint import has_checkpoint
+    from ugpg_tpu_torch.train.aug_trainer import AugMoNuSegTrainer, compute_pos_weight
+    from ugpg_tpu_torch.utils.preemption import PreemptionGuard
+
+    trainer = AugMoNuSegTrainer(config, dtype=torch.bfloat16 if args.bf16 else None,
+                                accum_steps=args.accum_steps, aug_quantize=args.aug_quantize,
+                                device=args.device)
+    if args.plain:
+        data_dir = config["data_dir"]
+        if not os.path.isdir(os.path.join(data_dir, "val")):
+            create_train_val_split(data_dir, val_ratio=0.2, seed=42)
+        for stage in config["stages"]:
+            res = trainer.stage_configs[stage]["resolution"]
+            trainer.train_datasets[stage] = MoNuSegDataset(data_dir, image_size=res,
+                                                           split="train", augment=True)
+            trainer.val_datasets[stage] = MoNuSegDataset(data_dir, image_size=res,
+                                                         split="val", augment=False)
+        trainer.pos_weight = compute_pos_weight(trainer.train_datasets[config["stages"][0]])
+        print(f"Auto-computed pos_weight: {trainer.pos_weight:.4f}")
+    else:
+        trainer.setup_datasets(config["data_dir"], stages=tuple(config["stages"]))
+    train_loaders, val_loaders = trainer.make_loaders(batch_size=config["batch_size"],
+                                                      num_workers=config["num_workers"])
+
+    stages = list(config["stages"])
+    if config["resume"]:
+        # whole stages with a _best and no _last are done; a _last means
+        # train_progressive continues that stage mid-way
+        out = Path(config["output_dir"])
+        for stage in list(stages):
+            best = out / f"ug_pgunet_stage{stage}_best.pth"
+            last = out / f"ug_pgunet_stage{stage}_last.pth"
+            if has_checkpoint(best) and not has_checkpoint(last):
+                trainer.load_stage_weights(stage, best)
+                stages.remove(stage)
+                print(f"Resume: stage {stage} restored from {best}")
+            else:
+                break
+        if not stages:
+            print("Resume: all requested stages already trained")
+
+    if stages:
+        try:
+            # SIGTERM -> _last checkpoint at the epoch's end and an early
+            # return; cli() then exits 75 so that a scheduler requeues
+            with PreemptionGuard() as guard:
+                trainer.train_progressive(train_loaders, val_loaders,
+                                          save_dir=config["output_dir"], stages=stages,
+                                          checkpoint_every=args.checkpoint_every,
+                                          resume=config["resume"], preemption=guard)
+        except KeyboardInterrupt:
+            print("Training interrupted by user")
+
+    cfg_path = Path(config["output_dir"]) / "config.json"
+    cfg_path.parent.mkdir(parents=True, exist_ok=True)
+    cfg_path.write_text(json.dumps(config, indent=2, default=str))
+    return trainer
+
+
+def cli(argv=None) -> int:
+    """Console entry: 75 (EX_TEMPFAIL) when the run was preempted, else 0."""
+    trainer = main(argv)
+    return EX_TEMPFAIL if getattr(trainer, "preempted", False) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(cli())

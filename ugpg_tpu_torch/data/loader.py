@@ -12,7 +12,10 @@
   ``record_stream`` keeps the caching allocator from reusing the device
   buffers while the consumer's stream may still read them.  On the CPU it
   is a plain pass-through queue.  A producer error re-raises in the
-  consumer.
+  consumer.  Closing the generator early (``close()``, or dropping it)
+  stops the producer after the batch it is reading, closes the source
+  iterator in the producer's thread and joins it, so no thread outlives
+  the loop.
 """
 
 from __future__ import annotations
@@ -129,31 +132,52 @@ def prefetch_to_device(iterator, size: int = 2, device=None, stats: dict | None 
 
     q: queue.Queue = queue.Queue(maxsize=size)
     sentinel = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
 
     def producer():
         try:
             for batch in iterator:
-                q.put(_to_device(batch, device, copy_stream) if on_cuda else batch)
+                if stop.is_set() or not put(
+                        _to_device(batch, device, copy_stream) if on_cuda else batch):
+                    return
         except BaseException as exc:  # a swallowed error would silently end the epoch early
-            q.put(_ProducerError(exc))
+            put(_ProducerError(exc))
             return
-        q.put(sentinel)
+        finally:
+            close = getattr(iterator, "close", None)
+            if close is not None:
+                close()
+        put(sentinel)
 
-    threading.Thread(target=producer, daemon=True).start()
-    while True:
-        t0 = time.perf_counter()
-        item = q.get()
-        if stats is not None:
-            stats["wait_s"] = stats.get("wait_s", 0.0) + time.perf_counter() - t0
-            stats["batches"] = stats.get("batches", 0) + (item is not sentinel)
-        if item is sentinel:
-            break
-        if isinstance(item, _ProducerError):
-            raise item.exc
-        if on_cuda:
-            consumer = torch.cuda.current_stream(device)
-            consumer.wait_event(item.event)
-            for t in item.batch:
-                t.record_stream(consumer)
-            item = item.batch
-        yield item
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            item = q.get()
+            if stats is not None:
+                stats["wait_s"] = stats.get("wait_s", 0.0) + time.perf_counter() - t0
+                stats["batches"] = stats.get("batches", 0) + (item is not sentinel)
+            if item is sentinel:
+                break
+            if isinstance(item, _ProducerError):
+                raise item.exc
+            if on_cuda:
+                consumer = torch.cuda.current_stream(device)
+                consumer.wait_event(item.event)
+                for t in item.batch:
+                    t.record_stream(consumer)
+                item = item.batch
+            yield item
+    finally:
+        stop.set()
+        thread.join()

@@ -9,6 +9,13 @@ bucket (``_BucketRouter``, a copy of ``ugpg_tpu/eval/exported.py``'s).
 
 On the GPU every DoubleConv, every Up-block upsample and the uncertainty
 map run the port's CUDA kernels (9, 4 and 1 launches per stage-4 call).
+``fold_bn=False`` serves the live-BN model in plain PyTorch instead, as
+the JAX package's live-BN ``Predictor`` runs it in XLA; the uncertainty map
+keeps its kernel.  ``stream`` overlaps the copy of batch k + 1 to the
+device with batch k's forward (``data/loader.py::prefetch_to_device``).
+
+``stage_model`` builds a checkpoint's stage model the way the serving
+paths run it, for the evaluator and the slide predictor too.
 """
 
 from __future__ import annotations
@@ -18,11 +25,12 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Sequence
+from typing import Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from ugpg_tpu_torch.data.loader import prefetch_to_device
 from ugpg_tpu_torch.device import resolve_device
 from ugpg_tpu_torch.io.checkpoint import load_checkpoint
 from ugpg_tpu_torch.models.blocks import DoubleConv
@@ -31,7 +39,7 @@ from ugpg_tpu_torch.models.pgunet import STAGE_MODELS, STAGE_RESOLUTIONS
 from ugpg_tpu_torch.ops.cuda.uncertainty import uncertainty_from_logits
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
-__all__ = ["Predictor", "BatchingServer"]
+__all__ = ["Predictor", "BatchingServer", "stage_model"]
 
 _INPUT_DTYPES = {torch.float32: np.dtype(np.float32), torch.uint8: np.dtype(np.uint8)}
 
@@ -40,6 +48,25 @@ def _resize_nhwc(images: np.ndarray, res: int) -> np.ndarray:
     """Host-side bilinear (align_corners) resize of float32 NHWC images."""
     x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32)).permute(0, 3, 1, 2)
     return resize_bilinear_align_corners(x, (res, res)).permute(0, 2, 3, 1).numpy()
+
+
+def stage_model(stage: int, state_dict: Mapping[str, torch.Tensor], device: torch.device,
+                num_classes: int = 1, dtype: torch.dtype = torch.float32,
+                fold_bn: bool = True) -> torch.nn.Module:
+    """The stage's model in eval mode on ``device``, its weights loaded
+    strictly from a reference-named ``state_dict``.  ``fold_bn=True``: BN
+    folded into the convs (``use_bn=False``), the body cast to ``dtype``,
+    every DoubleConv's weights packed once in the kernels' layout.
+    ``fold_bn=False``: the live-BN model, float32 parameters, ``dtype``
+    the compute dtype."""
+    model = STAGE_MODELS[stage](num_classes=num_classes, use_bn=not fold_bn, dtype=dtype)
+    model.load_state_dict(fold_batchnorm(state_dict) if fold_bn else state_dict, strict=True)
+    model = model.to(device).eval()
+    if fold_bn:
+        for block in model.modules():  # the kernels' weight layouts, made once
+            if isinstance(block, DoubleConv):
+                block.pack()
+    return model
 
 
 class _BucketRouter:
@@ -172,6 +199,8 @@ class Predictor(_BucketRouter):
         ``threshold``: preds are ``probs > threshold``.
         ``input_dtype``: float32 or uint8 requests (uint8 is divided by 255
         on the device).  ``compact_output``: uint8 preds, float16 maps.
+        ``fold_bn=False``: the live-BN model in plain PyTorch (float32
+        parameters, ``dtype`` the compute dtype).
         ``device``: ``cuda`` unless given; raises without CUDA."""
         _BucketRouter.__init__(self)
         self.device = resolve_device(device)
@@ -183,7 +212,6 @@ class Predictor(_BucketRouter):
             "mesh": mesh is not None,
             "shard_model": shard_model,
             "mc_dropout": bool(mc_dropout),
-            "fold_bn=False": not fold_bn,
         }
         missing = [name for name, asked in deferred.items() if asked]
         if missing:
@@ -203,18 +231,14 @@ class Predictor(_BucketRouter):
 
         self.stage, state_dict = load_checkpoint(checkpoint)
         self.resolution = STAGE_RESOLUTIONS[self.stage]
-        model = STAGE_MODELS[self.stage](num_classes=num_classes, use_bn=False, dtype=dtype)
-        model.load_state_dict(fold_batchnorm(state_dict), strict=True)
-        self.model = model.to(self.device).eval()
-        for block in self.model.modules():  # the kernels' weight layouts, made once
-            if isinstance(block, DoubleConv):
-                block.pack()
+        self.model = stage_model(self.stage, state_dict, self.device, num_classes, dtype,
+                                 fold_bn)
 
     @torch.inference_mode()
-    def _dispatch(self, bucket: int, chunk: np.ndarray):
-        # (B, H, W, 3) host images -> NCHW view of NHWC (channels_last) memory
-        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-        x = x.permute(0, 3, 1, 2).float()
+    def _forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """(B, H, W, 3) request images on the device -> NHWC (preds, probs,
+        uncertainty) on the device."""
+        x = x.permute(0, 3, 1, 2).float()  # NCHW view of NHWC (channels_last) memory
         if self.input_dtype == np.uint8:
             x = x / 255.0
         logits = self.model(x)
@@ -225,13 +249,38 @@ class Predictor(_BucketRouter):
         else:
             unc = torch.zeros_like(probs)
         outs = (preds, probs.to(self._map_dtype), unc.to(self._map_dtype))
-        return tuple(o.permute(0, 2, 3, 1).cpu().numpy() for o in outs)
+        return tuple(o.permute(0, 2, 3, 1) for o in outs)
+
+    def _dispatch(self, bucket: int, chunk: np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+        return tuple(o.cpu().numpy() for o in self._forward(x))
 
     def export(self, *args, **kwargs):
         raise NotImplementedError("Predictor.export is not ported to ugpg_tpu_torch yet")
 
-    def stream(self, *args, **kwargs):
-        raise NotImplementedError("Predictor.stream is not ported to ugpg_tpu_torch yet")
+    def stream(self, batches: Iterator[np.ndarray], prefetch: int = 2):
+        """Yield numpy (preds, probs, uncertainty) for each batch of
+        ``batches`` (any size up to the largest bucket, padded to it), with
+        the copy of the next ``prefetch`` batches to the device overlapped
+        with the current one's forward."""
+        top = self.batch_size
+        sizes = deque()  # each batch's real size, in order: the producer runs ahead
+
+        def padded():
+            for b in batches:
+                b = self._coerce(b)
+                n = b.shape[0]
+                if n > top:
+                    raise ValueError(f"stream: a batch of {n} exceeds the largest bucket {top}")
+                if n < top:
+                    b = np.concatenate([b, np.zeros((top - n, *b.shape[1:]), b.dtype)])
+                sizes.append(n)
+                yield (np.ascontiguousarray(b),)
+
+        for (device_batch,) in prefetch_to_device(padded(), size=prefetch, device=self.device):
+            outs = self._forward(torch.as_tensor(device_batch).to(self.device))
+            n = sizes.popleft()
+            yield tuple(o[:n].cpu().numpy() for o in outs)
 
 
 class BatchingServer:

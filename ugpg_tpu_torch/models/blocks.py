@@ -5,22 +5,29 @@ Modules are NCHW-logical and keep the reference torch layout's names
 ``ugpg-export-torch`` loads with strict ``load_state_dict``.
 
 ``use_bn=True``: Conv -> BatchNorm (eps 1e-5) -> ReLU in plain PyTorch,
-the layout of the parity tests and of training.  ``use_bn=False``: the
+the layout of the parity tests and of training.  A ``DoubleConv`` whose
+``compute_dtype`` is bfloat16 computes as the flax module with
+``dtype=bfloat16`` does, over float32 parameters: each conv on bf16
+inputs and weights, its bias added in bf16, the BN statistics and the
+normalisation in float32 with a bf16 result.  ``use_bn=False``: the
 BN-folded inference path (``models/folding.py``); ``DoubleConv`` runs the
 double-conv kernels and ``Up`` the 2x upsample kernel.  BN slots 1 and 4
 then hold ``nn.Identity`` so that the parameter names do not shift.
+
+``DownSample`` and ``UpSample`` are the legacy ``UNet``'s blocks.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ugpg_tpu_torch.ops.cuda.double_conv import fused_double_conv, pack_double_conv
 from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x
 from ugpg_tpu_torch.ops.resize import upsample2x_bilinear_align_corners
 
-__all__ = ["DoubleConv", "InConv", "Down", "Up", "OutConv"]
+__all__ = ["DoubleConv", "InConv", "Down", "Up", "OutConv", "DownSample", "UpSample"]
 
 BN_EPS = 1e-5
 _PACKED = ("packed_w1", "packed_b1", "packed_w2", "packed_b2")  # DoubleConv.pack's buffers
@@ -32,6 +39,7 @@ class DoubleConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, use_bn: bool = True):
         super().__init__()
         self.use_bn = use_bn
+        self.compute_dtype = torch.float32  # bfloat16: the mixed-precision path (use_bn)
 
         def norm():
             return nn.BatchNorm2d(out_channels, eps=BN_EPS) if use_bn else nn.Identity()
@@ -60,10 +68,21 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_bn:
-            return self.conv_op(x)
+            if self.compute_dtype == torch.float32:
+                return self.conv_op(x)
+            return self._forward_mixed(x)
         c1, c2 = self.conv_op[0], self.conv_op[3]
         packed = None if self.packed_w1 is None else tuple(getattr(self, n) for n in _PACKED)
         return fused_double_conv(x, c1.weight, c1.bias, c2.weight, c2.bias, packed=packed)
+
+
+    def _forward_mixed(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        x = x.to(cd)
+        for conv, bn in ((self.conv_op[0], self.conv_op[1]), (self.conv_op[3], self.conv_op[4])):
+            x = F.conv2d(x, conv.weight.to(cd), padding=1) + conv.bias.to(cd)[:, None, None]
+            x = F.relu(bn(x.float()).to(cd))
+        return x
 
 
 class InConv(nn.Module):
@@ -116,3 +135,28 @@ class OutConv(nn.Module):
         w = self.conv.weight.float().flatten(1)  # (K, C)
         y = x.float().permute(0, 2, 3, 1) @ w.t() + self.conv.bias.float()
         return y.permute(0, 3, 1, 2)
+
+
+class DownSample(nn.Module):
+    """Legacy: DoubleConv -> MaxPool(2); returns (before the pool, pooled)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = DoubleConv(in_channels, out_channels)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        down = self.conv(x)
+        return down, F.max_pool2d(down, 2)
+
+
+class UpSample(nn.Module):
+    """Legacy: ConvTranspose(k 2, stride 2, half the channels) -> concat
+    [up, skip] -> DoubleConv."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, kernel_size=2, stride=2)
+        self.conv = DoubleConv(in_channels, out_channels)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.cat([self.up(x1), x2], dim=1))

@@ -7,9 +7,15 @@ resolution.  Submodule names (``inc``, ``down1..4``, ``up1..4``,
 ``outc*``) match across stages and the reference torch layout.
 
 ``in_channels`` is the input's channel count (3, RGB, by default).
-``dtype`` is the compute dtype of the body (bfloat16 for serving); the
-heads and the summed logits stay float32.  Inputs are NCHW; the logits
-are (N, num_classes, H, W) float32.
+``dtype`` is the compute dtype of the body; the heads and the summed
+logits stay float32.  With ``use_bn=False`` (serving on folded weights)
+the body's parameters are cast to ``dtype``, as the kernels take them.
+With ``use_bn=True`` (training, live BN) the parameters stay float32 and
+every DoubleConv computes in ``dtype``, BN statistics in float32
+(``blocks.py``), as the flax stages do.  Inputs are NCHW; the logits are
+(N, num_classes, H, W) float32.
+
+``UNet`` is the legacy classic U-Net, kept for the reference's API.
 """
 
 from __future__ import annotations
@@ -17,10 +23,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ugpg_tpu_torch.models.blocks import Down, InConv, OutConv, Up
+from ugpg_tpu_torch.models.blocks import DoubleConv, Down, DownSample, InConv, OutConv, Up, UpSample
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
-__all__ = ["PGUNet1", "PGUNet2", "PGUNet3", "PGUNet4", "STAGE_MODELS", "STAGE_RESOLUTIONS"]
+__all__ = ["PGUNet1", "PGUNet2", "PGUNet3", "PGUNet4", "STAGE_MODELS", "STAGE_RESOLUTIONS",
+           "UNet"]
 
 STAGE_RESOLUTIONS = {1: 32, 2: 64, 3: 128, 4: 256}
 
@@ -31,8 +38,9 @@ def _scaled(n: int, width: float) -> int:
 
 
 class _Stage(nn.Module):
-    """Shared constructor: ``_build`` the submodules, then cast all but the
-    heads to ``dtype``."""
+    """Shared constructor: ``_build`` the submodules, then set the body's
+    dtype: cast all but the heads to ``dtype`` (``use_bn=False``), or make
+    it every DoubleConv's compute dtype (``use_bn=True``)."""
 
     def __init__(self, num_classes: int = 1, use_bn: bool = True, width: float = 1.0,
                  dtype: torch.dtype = torch.float32, in_channels: int = 3):
@@ -42,8 +50,14 @@ class _Stage(nn.Module):
         c = lambda n: _scaled(n, width)  # noqa: E731
         self._build(c, use_bn, num_classes)
         for name, child in self.named_children():
-            if not name.startswith("outc"):
+            if name.startswith("outc"):
+                continue
+            if not use_bn:
                 child.to(dtype)
+                continue
+            for block in child.modules():
+                if isinstance(block, DoubleConv):
+                    block.compute_dtype = dtype
 
     def _build(self, c, use_bn: bool, k: int) -> None:
         raise NotImplementedError
@@ -154,3 +168,33 @@ class PGUNet4(_Stage):
 
 
 STAGE_MODELS = {1: PGUNet1, 2: PGUNet2, 3: PGUNet3, 4: PGUNet4}
+
+
+class UNet(nn.Module):
+    """Legacy classic U-Net (64 -> 1024 -> 64 channels, transposed-conv
+    upsampling), float32, BN live; input sides divisible by 16."""
+
+    def __init__(self, in_channels: int = 3, num_classes: int = 1):
+        super().__init__()
+        self.down_convolution_1 = DownSample(in_channels, 64)
+        self.down_convolution_2 = DownSample(64, 128)
+        self.down_convolution_3 = DownSample(128, 256)
+        self.down_convolution_4 = DownSample(256, 512)
+        self.bottle_neck = DoubleConv(512, 1024)
+        self.up_convolution_1 = UpSample(1024, 512)
+        self.up_convolution_2 = UpSample(512, 256)
+        self.up_convolution_3 = UpSample(256, 128)
+        self.up_convolution_4 = UpSample(128, 64)
+        self.out = OutConv(64, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d1, p1 = self.down_convolution_1(x)
+        d2, p2 = self.down_convolution_2(p1)
+        d3, p3 = self.down_convolution_3(p2)
+        d4, p4 = self.down_convolution_4(p3)
+        b = self.bottle_neck(p4)
+        u1 = self.up_convolution_1(b, d4)
+        u2 = self.up_convolution_2(u1, d3)
+        u3 = self.up_convolution_3(u2, d2)
+        u4 = self.up_convolution_4(u3, d1)
+        return self.out(u4)

@@ -30,6 +30,7 @@ __all__ = [
     "rasterize_polygons_pil",
     "rasterize_polygons_native",
     "decode_png",
+    "decode_png_gray",
     "decode_tiff",
     "image_hw",
 ]
@@ -58,6 +59,7 @@ _SIGNATURES = {
         "png_info": [_P_U8, ctypes.c_int64, _P_I64, _P_I64, ctypes.POINTER(ctypes.c_int),
                      ctypes.POINTER(ctypes.c_int)],
         "png_decode_rgb8": [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int64],
+        "png_decode_gray8": [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int64],
     },
     "tiff_decode": {
         "tiff_info": [_P_U8, ctypes.c_int64, _P_I64, _P_I64, ctypes.POINTER(ctypes.c_int),
@@ -151,11 +153,18 @@ def rasterize_polygons_native(polygons, image_hw) -> np.ndarray:
 
 
 # ---------------------------------------------------------------- decoders
-# what each decoder reads; the rest of either format raises
+# each decoder: (library, C entry, PNG color type, output channels), and what
+# it reads; the rest of either format raises
+_DECODERS = {
+    "png": ("png_decode", "png_decode_rgb8", 2, 3),
+    "png_gray": ("png_decode", "png_decode_gray8", 0, 1),
+    "tiff": ("tiff_decode", "tiff_decode_rgb8", None, 3),
+}
 _PROFILES = {
-    "png_decode": "8-bit RGB (color type 2), non-interlaced PNG",
-    "tiff_decode": ("classic TIFF, first IFD, strips, chunky 8-bit gray/RGB/RGBA, compression "
-                    "none/LZW (predictor 1 or 2)/Deflate/PackBits, either byte order"),
+    "png": "8-bit RGB (color type 2), non-interlaced PNG",
+    "png_gray": "8-bit gray (color type 0), non-interlaced PNG",
+    "tiff": ("classic TIFF, first IFD, strips, chunky 8-bit gray/RGB/RGBA, compression "
+             "none/LZW (predictor 1 or 2)/Deflate/PackBits, either byte order"),
 }
 _ERRORS = {-1: "not this format (bad signature)", -2: "truncated", -3: "outside the profile",
            -4: "corrupt compressed data", -5: "bad PNG row filter", -6: "buffer too small"}
@@ -167,7 +176,8 @@ def _read(source) -> tuple[bytes, str]:
     return bytes(source), "<bytes>"
 
 
-def _info(name: str, data: bytes, label: str):
+def _info(kind: str, data: bytes, label: str):
+    name, _, color_type, _ = _DECODERS[kind]
     lib = _library(name)
     buf = np.frombuffer(data, np.uint8)
     ptr = buf.ctypes.data_as(_P_U8)
@@ -176,41 +186,46 @@ def _info(name: str, data: bytes, label: str):
     rc = info(ptr, len(data), ctypes.byref(h), ctypes.byref(w), ctypes.byref(a), ctypes.byref(b))
     if rc != 0:
         raise ValueError(f"{label}: {_ERRORS.get(rc, f'error {rc}')}; the decoder reads "
-                         f"{_PROFILES[name]}")
-    if name == "png_decode" and (a.value, b.value) != (2, 8):
+                         f"{_PROFILES[kind]}")
+    if color_type is not None and (a.value, b.value) != (color_type, 8):
         raise ValueError(f"{label}: PNG color type {a.value}, bit depth {b.value}; the decoder "
-                         f"reads {_PROFILES[name]}")
+                         f"reads {_PROFILES[kind]}")
     return buf, ptr, h.value, w.value
 
 
-def _decode(name: str, source) -> np.ndarray:
+def _decode(kind: str, source) -> np.ndarray:
     data, label = _read(source)
-    buf, ptr, h, w = _info(name, data, label)
-    out = np.empty((h, w, 3), np.uint8)
-    decode = _library(name).png_decode_rgb8 if name == "png_decode" \
-        else _library(name).tiff_decode_rgb8
-    rc = decode(ptr, len(data), out.ctypes.data_as(_P_U8), out.size)
+    buf, ptr, h, w = _info(kind, data, label)
+    name, entry, _, channels = _DECODERS[kind]
+    out = np.empty((h, w, 3) if channels == 3 else (h, w), np.uint8)
+    rc = getattr(_library(name), entry)(ptr, len(data), out.ctypes.data_as(_P_U8), out.size)
     if rc != 0:
         raise ValueError(f"{label}: {_ERRORS.get(rc, f'error {rc}')}; the decoder reads "
-                         f"{_PROFILES[name]}")
+                         f"{_PROFILES[kind]}")
     return out
 
 
 def decode_png(source) -> np.ndarray:
     """An 8-bit RGB non-interlaced PNG (a path or bytes) -> (H, W, 3)
     uint8; any other PNG raises ``ValueError``."""
-    return _decode("png_decode", source)
+    return _decode("png", source)
+
+
+def decode_png_gray(source) -> np.ndarray:
+    """An 8-bit gray (color type 0) non-interlaced PNG (a path or bytes),
+    as ``io/png.py`` writes masks, -> (H, W) uint8; any other PNG raises
+    ``ValueError``."""
+    return _decode("png_gray", source)
 
 
 def decode_tiff(source) -> np.ndarray:
     """A TIFF of the profile above (a path or bytes) -> (H, W, 3) uint8 RGB
     (gray replicated, alpha dropped); any other TIFF raises ``ValueError``."""
-    return _decode("tiff_decode", source)
+    return _decode("tiff", source)
 
 
 def image_hw(path) -> tuple[int, int]:
     """(H, W) of a PNG or TIFF from its header, without decoding."""
     data, label = _read(path)
-    name = "png_decode" if label.lower().endswith(".png") else "tiff_decode"
-    _, _, h, w = _info(name, data, label)
+    _, _, h, w = _info("png" if label.lower().endswith(".png") else "tiff", data, label)
     return h, w

@@ -4,6 +4,8 @@
 // and AugMoNuSegDataset decodes thousands of them per epoch: the per-sample
 // decode is the host side of the aug training path.  This implements exactly that profile: 8-bit, color type 2 (RGB),
 // non-interlaced, zlib-compressed (the only thing our pipeline produces).
+// png_decode_gray8 reads the same profile with color type 0 (8-bit gray),
+// as the evaluator writes its masks and uncertainty maps (io/png.py).
 // Anything else returns an error, which the Python binding raises.
 //
 // GIL note: ctypes releases the GIL for the call, so the existing threaded
@@ -83,14 +85,18 @@ int png_info(const uint8_t* data, int64_t len, int64_t* height,
     return OK;
 }
 
-// Decode an 8-bit RGB non-interlaced PNG into out (H*W*3 bytes, row-major).
-// Returns 0 on success, a negative error code otherwise.
-int png_decode_rgb8(const uint8_t* data, int64_t len, uint8_t* out,
-                    int64_t out_cap) try {
+}  // extern "C"
+
+namespace {
+
+// Decode an 8-bit non-interlaced PNG of color type 2 (bpp 3) or 0 (bpp 1)
+// into out (H*W*bpp bytes, row-major).
+int decode8(const uint8_t* data, int64_t len, uint8_t* out, int64_t out_cap,
+            int color_type, int bpp) try {
     Header h;
     int rc = parse_header(data, len, &h);
     if (rc != OK) return rc;
-    if (h.bit_depth != 8 || h.color_type != 2 || h.interlace != 0)
+    if (h.bit_depth != 8 || h.color_type != color_type || h.interlace != 0)
         return E_UNSUPPORTED;
     // sanity-cap untrusted header dimensions: a corrupt IHDR must fail
     // cleanly, never allocate unboundedly
@@ -98,7 +104,7 @@ int png_decode_rgb8(const uint8_t* data, int64_t len, uint8_t* out,
         h.width > 1u << 16 || h.height > 1u << 16)
         return E_UNSUPPORTED;
     const int64_t W = h.width, H = h.height;
-    const int64_t stride = W * 3;
+    const int64_t stride = W * bpp;
     if (out_cap < H * stride) return E_BUFSIZE;
 
     // gather the zlib stream from all IDAT chunks
@@ -130,8 +136,7 @@ int png_decode_rgb8(const uint8_t* data, int64_t len, uint8_t* out,
     inflateEnd(&zs);
     if (zrc != Z_STREAM_END || zs.avail_out != 0) return E_INFLATE;
 
-    // un-filter rows (PNG filter types 0..4), 3 bytes per pixel
-    const int bpp = 3;
+    // un-filter rows (PNG filter types 0..4), bpp bytes per pixel
     for (int64_t y = 0; y < H; ++y) {
         const uint8_t* src = raw.data() + size_t(y) * (stride + 1);
         uint8_t filter = src[0];
@@ -174,6 +179,21 @@ int png_decode_rgb8(const uint8_t* data, int64_t len, uint8_t* out,
     // never let a C++ exception (e.g. bad_alloc) cross the ctypes FFI
     // boundary — that is undefined behavior and would abort the process
     return E_INFLATE;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode an 8-bit RGB non-interlaced PNG into out (H*W*3 bytes, row-major).
+// Returns 0 on success, a negative error code otherwise.
+int png_decode_rgb8(const uint8_t* data, int64_t len, uint8_t* out, int64_t out_cap) {
+    return decode8(data, len, out, out_cap, 2, 3);
+}
+
+// Decode an 8-bit gray non-interlaced PNG into out (H*W bytes, row-major).
+int png_decode_gray8(const uint8_t* data, int64_t len, uint8_t* out, int64_t out_cap) {
+    return decode8(data, len, out, out_cap, 0, 1);
 }
 
 }  // extern "C"

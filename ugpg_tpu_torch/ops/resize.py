@@ -5,7 +5,10 @@ Counterpart of ``ugpg_tpu/ops/resize.py``: the same two-tap interpolation
 matrices (float64 weights rounded to float32), applied per spatial axis in
 float32.  Used for the request and training resizes and the multi-scale
 head upsampling; it is not a kernel in the JAX package either, so it stays
-plain PyTorch.
+plain PyTorch.  A bfloat16 tensor (the bf16 training body's Up blocks)
+takes the JAX package's bf16 path: weights rounded to bf16, float32 sums,
+the result of the first axis rounded to bf16 before the second; its
+gradient is the float32 transpose, rounded to bf16 once, as JAX's.
 
 Tensors are NCHW-logical (any memory format).
 """
@@ -74,13 +77,45 @@ def _matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_bilinear_ac_matrix(in_size, out_size)).to(device)
 
 
+class _ResizeBF16(torch.autograd.Function):
+    """The bf16 resize: forward as the JAX package's bf16 path, backward
+    its float32 custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, out_h, out_w):
+        h, w = x.shape[-2:]
+        ctx.hw = (h, w, out_h, out_w)
+        y = x.float()
+        if out_h != h:
+            wh = _matrix(h, out_h, y.device).bfloat16().float()
+            y = torch.einsum("oh,nchw->ncow", wh, y)
+            if out_w != w:
+                y = y.bfloat16().float()
+        if out_w != w:
+            y = torch.einsum("pw,nchw->nchp", _matrix(w, out_w, y.device).bfloat16().float(), y)
+        return y.bfloat16()
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, out_h, out_w = ctx.hw
+        y = g.float()
+        if out_h != h:
+            y = torch.einsum("oh,ncow->nchw", _matrix(h, out_h, y.device), y)
+        if out_w != w:
+            y = torch.einsum("pw,nchp->nchw", _matrix(w, out_w, y.device), y)
+        return y.bfloat16(), None, None
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of NCHW ``x`` to ``size`` (torch align_corners=True),
-    float32 math, result in ``x.dtype``.  Same size returns ``x``."""
+    float32 math, result in ``x.dtype`` (bfloat16: see the module's
+    docstring).  Same size returns ``x``."""
     out_h, out_w = size
     h, w = x.shape[-2:]
     if (h, w) == (out_h, out_w):
         return x
+    if x.dtype == torch.bfloat16:
+        return _ResizeBF16.apply(x, out_h, out_w)
     y = x.float()
     if out_h != h:
         y = torch.einsum("oh,nchw->ncow", _matrix(h, out_h, y.device), y)

@@ -9,6 +9,13 @@
 * weight transfer at stage entry; the best-val-Dice checkpoint per stage,
   as a reference-format ``.pth``; history, ``training_log.csv``, plots
   (with matplotlib) and the uncertainty analysis JSON
+* ``checkpoint_every=N``: a rolling ``ug_pgunet_stage{S}_last.pth``
+  (weights, optimizer state, epoch, history); ``resume=True`` continues
+  from the latest one, mid-stage; a ``PreemptionGuard`` (``preemption=``)
+  is polled at every epoch boundary, and when it is armed the loop writes
+  ``_last`` and returns with ``preempted`` set
+* ``dtype=torch.bfloat16``: bf16 compute over float32 parameters and
+  optimizer state, BN statistics in float32 (``models/blocks.py``)
 
 The loop reads the device once per epoch: the steps return device
 scalars, averaged at the epoch's end.
@@ -16,6 +23,7 @@ scalars, averaged at the epoch's end.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -27,7 +35,12 @@ from torch import nn
 
 from ugpg_tpu_torch.data.loader import prefetch_to_device
 from ugpg_tpu_torch.device import resolve_device
-from ugpg_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from ugpg_tpu_torch.io.checkpoint import (
+    has_checkpoint,
+    load_checkpoint,
+    read_checkpoint,
+    save_checkpoint,
+)
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 from ugpg_tpu_torch.progressive.transfer import transfer_weights
@@ -108,19 +121,23 @@ class UncertaintyGuidedProgressiveTrainer:
         initialisation.  ``nan_guard``: a NaN/Inf epoch loss saves a
         ``*_diverged.pth`` and raises ``TrainingDivergedError``.
         ``device``: ``cuda`` unless given; raises without CUDA.
+        ``dtype``: None or float32, or bfloat16 compute (parameters and
+        optimizer state stay float32).
 
         Options of the JAX trainer that are not ported raise
         ``NotImplementedError``: ``mesh``, ``shard_model``, ``axis_name``,
         ``checkpoint_backend`` other than ``"pth"``, ``scan_epochs``,
-        ``scan_chunk_bytes``, ``tb_logdir``, ``remat``, ``pipeline_unc`` and
-        ``dtype=torch.bfloat16``."""
+        ``scan_chunk_bytes``, ``tb_logdir``, ``remat`` and
+        ``pipeline_unc``."""
         self.device = resolve_device(device)
         not_ported(
             mesh=mesh is not None, shard_model=shard_model, axis_name=axis_name is not None,
             checkpoint_backend=checkpoint_backend != "pth", scan_epochs=scan_epochs,
             scan_chunk_bytes=scan_chunk_bytes is not None, tb_logdir=tb_logdir is not None,
-            remat=remat, pipeline_unc=bool(pipeline_unc),
-            **{"dtype=bfloat16": dtype not in (None, torch.float32)})
+            remat=remat, pipeline_unc=bool(pipeline_unc))
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be None, float32 or bfloat16, got {dtype}")
+        self.dtype = dtype or torch.float32
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.in_channels = in_channels
@@ -144,6 +161,7 @@ class UncertaintyGuidedProgressiveTrainer:
 
         self.models: dict[int, nn.Module] = {}  # built at first use
         self.current_stage = 1
+        self.preempted = False
         self.optimizer: torch.optim.Optimizer | None = None
         self._optimizer_stage: int | None = None
         self._train_steps: dict[int, Any] = {}
@@ -160,7 +178,8 @@ class UncertaintyGuidedProgressiveTrainer:
     def _model(self, stage: int) -> nn.Module:
         if stage not in self.models:
             model = STAGE_MODELS[stage](num_classes=self.num_classes, use_bn=True,
-                                        width=self.width, in_channels=self.in_channels)
+                                        width=self.width, in_channels=self.in_channels,
+                                        dtype=self.dtype)
             _init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
             self.models[stage] = model.to(self.device)
         return self.models[stage]
@@ -225,25 +244,28 @@ class UncertaintyGuidedProgressiveTrainer:
         accuracy, uncertainty mean, uncertainty std)."""
         step = self._get_train_step(stage)
         acc = []
-        batches = prefetch_to_device(iter(dataloader), size=2, device=self.device,
-                                     stats=self.loader_stats)
-        for batch_idx, batch in enumerate(batches):
-            metrics = step(batch, self.pos_weight, self.aug_generator)
-            acc.append(metrics)
-            if self.verbose and batch_idx % 10 == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                unc = f", Unc_mean: {m['uncertainty_weight_mean']:.4f}" if stage > 1 else ""
-                self._print(f"Stage {stage}, Batch {batch_idx}, Loss: {m['final_loss']:.4f}, "
-                            f"Base_Loss: {m['base_loss']:.4f}, Dice: {m['dice']:.4f}, "
-                            f"Acc: {m['accuracy']:.4f}{unc}")
+        # closed on any exit, so the prefetch thread never outlives the epoch
+        with contextlib.closing(self._prefetch(dataloader)) as batches:
+            for batch_idx, batch in enumerate(batches):
+                metrics = step(batch, self.pos_weight, self.aug_generator)
+                acc.append(metrics)
+                if self.verbose and batch_idx % 10 == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    unc = f", Unc_mean: {m['uncertainty_weight_mean']:.4f}" if stage > 1 else ""
+                    self._print(f"Stage {stage}, Batch {batch_idx}, Loss: {m['final_loss']:.4f}, "
+                                f"Base_Loss: {m['base_loss']:.4f}, Dice: {m['dice']:.4f}, "
+                                f"Acc: {m['accuracy']:.4f}{unc}")
         return self._average(acc)
 
     def validate_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
         """One validation epoch (eval-mode BN, the plain loss, no update)."""
         step = self._get_eval_step(stage)
-        batches = prefetch_to_device(iter(dataloader), size=2, device=self.device,
-                                     stats=self.loader_stats)
-        return self._average([step(batch, self.pos_weight) for batch in batches])
+        with contextlib.closing(self._prefetch(dataloader)) as batches:
+            return self._average([step(batch, self.pos_weight) for batch in batches])
+
+    def _prefetch(self, dataloader: Iterable):
+        return prefetch_to_device(iter(dataloader), size=2, device=self.device,
+                                  stats=self.loader_stats)
 
     def _checkpoint(self, path: Path, stage: int, epoch: int, **extra) -> Path:
         return save_checkpoint(
@@ -267,11 +289,24 @@ class UncertaintyGuidedProgressiveTrainer:
         validate, log a ``training_log.csv`` row, and write
         ``ug_pgunet_stage{S}_best.pth`` when the validation Dice improves;
         ``checkpoint_every=N`` also writes ``ug_pgunet_stage{S}_last.pth``
-        every N epochs.  Loaders may be dicts keyed by stage.  ``resume``
-        and ``preemption`` are not ported and raise."""
-        not_ported(resume=resume, preemption=preemption is not None)
+        every N epochs.  Loaders may be dicts keyed by stage.
+
+        ``resume=True`` restores the latest ``_last.pth`` in ``save_dir``
+        (weights, optimizer state, history; earlier stages' weights from
+        their ``_best``, else ``_last``) and continues after its epoch; the
+        stage's ``_best`` keeps gating on the Dice it recorded.  The
+        augmentation generator and the loaders' order are not restored (nor
+        are they in the JAX package).  ``preemption`` (a
+        ``utils.preemption.PreemptionGuard``) is polled at each epoch's
+        end: when armed, the loop writes ``_last``, sets ``self.preempted``
+        and returns."""
         save_path = Path(save_dir)
         save_path.mkdir(parents=True, exist_ok=True)
+        resume_stage = resume_epoch = None
+        if resume:
+            resume_stage, resume_epoch = self._find_resume_point(save_path)
+            if resume_stage is not None:
+                self._print(f"Resuming from stage {resume_stage}, epoch {resume_epoch + 1}")
         csv_log = CSVLogger(
             save_path / "training_log.csv",
             ["stage", "epoch", "train_loss", "val_loss", "train_dice", "val_dice",
@@ -279,19 +314,50 @@ class UncertaintyGuidedProgressiveTrainer:
         self._print("Starting Uncertainty-Guided Progressive Growing U-Net Training")
 
         stage_list = list(stages) if stages is not None else list(range(1, max_stages + 1))
+        self.preempted = False
         for stage in stage_list:
+            if self.preempted:
+                break
             tl = train_loader[stage] if isinstance(train_loader, dict) else train_loader
             vl = val_loader[stage] if isinstance(val_loader, dict) else val_loader
             cfg = self.stage_configs[stage]
             self._print(f"\nStage {stage} — {cfg['resolution']}x{cfg['resolution']}"
                         + (f" (uncertainty alpha={self.uncertainty_alpha})" if stage > 1 else ""))
-            if stage > 1:
-                self.transfer_weights(stage - 1, stage)
-            self.current_stage = stage
-            self.setup_optimizer(stage)
-            self.history["stage_transitions"].append(len(self.history["train_loss"]))
-            best_val_dice = 0.0
-            for epoch in range(cfg["epochs_per_stage"]):
+            start_epoch = 0
+            if resume_stage is not None:
+                if stage < resume_stage:
+                    self._print(f"Resume: skipping completed stage {stage}")
+                    continue
+                if stage == resume_stage:
+                    self.current_stage = stage
+                    self.setup_optimizer(stage)
+                    self._restore_last(save_path, stage)
+                    start_epoch = resume_epoch + 1
+                    resume_stage = None
+                    if start_epoch >= cfg["epochs_per_stage"]:
+                        continue
+                else:
+                    # the stage list skipped past the resume stage: load its
+                    # trained weights, or the transfer below and the
+                    # uncertainty source would use a fresh initialisation
+                    for suffix in ("last", "best"):
+                        ckpt = save_path / f"ug_pgunet_stage{resume_stage}_{suffix}.pth"
+                        if has_checkpoint(ckpt):
+                            self.load_stage_weights(resume_stage, ckpt)
+                            break
+                    resume_stage = None
+            if start_epoch == 0:
+                if stage > 1:
+                    self.transfer_weights(stage - 1, stage)
+                self.current_stage = stage
+                self.setup_optimizer(stage)
+                self.history["stage_transitions"].append(len(self.history["train_loss"]))
+            # mid-stage: the restored history holds this stage's transition,
+            # and the _best on disk keeps gating (0 would let a worse epoch
+            # overwrite better weights)
+            best_val_dice = (self._best_val_dice_on_disk(save_path, stage)
+                             if start_epoch > 0 else 0.0)
+            for epoch in range(start_epoch, cfg["epochs_per_stage"]):
                 t0 = time.time()
                 tr_loss, tr_base, tr_dice, tr_acc, _, _ = self.train_epoch(tl, stage)
                 va_loss, va_base, va_dice, va_acc, va_um, va_us = self.validate_epoch(vl, stage)
@@ -329,10 +395,21 @@ class UncertaintyGuidedProgressiveTrainer:
                     best_val_dice = va_dice
                     self._checkpoint(save_path / f"ug_pgunet_stage{stage}_best.pth", stage,
                                      epoch, val_dice=va_dice, train_dice=tr_dice)
-                if checkpoint_every and (epoch + 1) % checkpoint_every == 0:
+                rolled = checkpoint_every and (epoch + 1) % checkpoint_every == 0
+                stopping = preemption is not None and preemption.should_stop()
+                if rolled or stopping:
                     self._checkpoint(save_path / f"ug_pgunet_stage{stage}_last.pth", stage,
                                      epoch, val_dice=va_dice)
-        self._print("Uncertainty-guided progressive training completed!")
+                if stopping:
+                    self.preempted = True
+                    self._print(
+                        f"Preemption requested (signal {getattr(preemption, 'signum', None)}): "
+                        f"rolling checkpoint saved at stage {stage}, epoch {epoch + 1}; "
+                        "restart with resume=True to continue")
+                    break
+        self._print("Uncertainty-guided progressive training "
+                    + ("preempted — resumable from the _last checkpoint"
+                       if self.preempted else "completed!"))
         self.save_training_plots(save_path)
         return self.history
 
@@ -340,6 +417,48 @@ class UncertaintyGuidedProgressiveTrainer:
         not_ported(finetune_native=True)
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _best_val_dice_on_disk(save_path: Path, stage: int) -> float:
+        """val_dice recorded in the stage's ``_best.pth`` (0.0 if none)."""
+        path = save_path / f"ug_pgunet_stage{stage}_best.pth"
+        if not has_checkpoint(path):
+            return 0.0
+        try:
+            return float(read_checkpoint(path).get("val_dice", 0.0))
+        except (OSError, RuntimeError, ValueError):
+            return 0.0
+
+    def _find_resume_point(self, save_path: Path):
+        """The latest stage with a ``_last.pth`` -> (stage, epoch), or
+        (None, None); loads every earlier stage's weights (the frozen
+        uncertainty sources), from ``_best`` before ``_last``."""
+        for stage in (4, 3, 2, 1):
+            last = save_path / f"ug_pgunet_stage{stage}_last.pth"
+            if has_checkpoint(last):
+                break
+        else:
+            return None, None
+        epoch = int(read_checkpoint(last).get("epoch", -1))
+        for s in range(1, stage):
+            for suffix in ("best", "last"):
+                ckpt = save_path / f"ug_pgunet_stage{s}_{suffix}.pth"
+                if has_checkpoint(ckpt):
+                    self.load_stage_weights(s, ckpt)
+                    break
+        return stage, epoch
+
+    def _restore_last(self, save_path: Path, stage: int) -> None:
+        """Weights, optimizer state and history from the stage's
+        ``_last.pth``, for a mid-stage resume."""
+        obj = read_checkpoint(save_path / f"ug_pgunet_stage{stage}_last.pth")
+        self._model(stage).load_state_dict(obj["model_state_dict"], strict=True)
+        if obj.get("optimizer_state_dict") is not None:
+            self.optimizer.load_state_dict(obj["optimizer_state_dict"])
+        if isinstance(obj.get("history"), dict):
+            for k, v in obj["history"].items():
+                if k in self.history and isinstance(v, list):
+                    self.history[k] = list(v)
+
     def load_stage_weights(self, stage: int, checkpoint_path: str) -> None:
         """Load one stage's weights from a ``.pth`` (strict)."""
         _, state_dict = load_checkpoint(checkpoint_path)

@@ -4,6 +4,9 @@
 * binary uncertainty  A = 1 - 2|P - 0.5|  (1 at P = 0.5, 0 at P in {0, 1})
 * the map of a frozen previous stage, and the weighted mean
   ``mean(pixel_loss * (1 + alpha A))`` with the weights detached
+* ``UncertaintyGuidedLoss``, the reference's object over those functions
+  (both of its call styles), and ``create_uncertainty_weighted_loss_fn``,
+  a reduction-free BCE
 
 Serving computes the same map from logits in one kernel
 (``ops/cuda/uncertainty.py::uncertainty_from_logits``); the train step's
@@ -17,9 +20,11 @@ from typing import Callable
 
 import torch
 
+from ugpg_tpu_torch.ops.losses import bce_with_logits
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
-__all__ = ["binary_uncertainty", "generate_uncertainty_map", "apply_uncertainty_weighted_loss"]
+__all__ = ["binary_uncertainty", "generate_uncertainty_map", "apply_uncertainty_weighted_loss",
+           "UncertaintyGuidedLoss", "create_uncertainty_weighted_loss_fn"]
 
 
 def binary_uncertainty(probs: torch.Tensor) -> torch.Tensor:
@@ -52,3 +57,43 @@ def apply_uncertainty_weighted_loss(pixel_loss: torch.Tensor,
         return base_loss, base_loss
     weights = (1.0 + alpha * uncertainty_map).detach()
     return (pixel_loss * weights).mean(), base_loss
+
+
+class UncertaintyGuidedLoss:
+    """The reference's loss object over the functions above.  Its code
+    builds ``UncertaintyGuidedLoss(device)`` and its README
+    ``UncertaintyGuidedLoss(task_type='segmentation')``; both work.
+    ``device`` is kept for that signature: tensors carry their own."""
+
+    def __init__(self, device=None, task_type: str = "segmentation"):
+        if task_type not in ("segmentation", "classification"):
+            raise ValueError(f"unknown task_type: {task_type!r}")
+        self.device = device
+        self.task_type = task_type
+
+    def generate_uncertainty_map(self, input_current: torch.Tensor, prev_apply,
+                                 prev_resolution: int, current_resolution: int) -> torch.Tensor:
+        """``prev_apply``: the frozen previous-stage model (put in eval mode
+        here) or any callable that runs it in eval mode."""
+        if isinstance(prev_apply, torch.nn.Module):
+            prev_apply.eval()
+        return generate_uncertainty_map(prev_apply, input_current, prev_resolution,
+                                        current_resolution)
+
+    def apply_uncertainty_weighted_loss(self, loss_fn, output_current, target_current,
+                                        uncertainty_map=None, alpha: float = 1.0):
+        """``loss_fn(outputs, targets)`` -> the per-pixel loss (no
+        reduction).  Returns (final_loss, base_loss), both 0-d tensors."""
+        pixel_loss = loss_fn(output_current, target_current)
+        return apply_uncertainty_weighted_loss(pixel_loss, uncertainty_map, alpha)
+
+
+def create_uncertainty_weighted_loss_fn(base_loss_fn=None, pos_weight=None):
+    """A per-element loss: ``base_loss_fn`` itself when given, else BCE with
+    logits at ``pos_weight``."""
+    if base_loss_fn is not None:
+        return base_loss_fn
+    def loss_fn(outputs, targets):
+        return bce_with_logits(outputs, targets, pos_weight)
+
+    return loss_fn
