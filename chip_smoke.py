@@ -5,7 +5,9 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from ugpg_tpu_torch/csrc with nvcc, one
-   nvcc per source, all started together.
+   nvcc per source, all started together, and beside them csrc/double_conv.cu
+   once more with -Xptxas -v: registers and spills of each instance of the
+   float32 conv kernel (conv3x3_f32_kernel).
 3. Serving kernels: holds each against its plain PyTorch version on the
    card at the stage-4 shapes, batch 8, in bfloat16 and in float32 (TF32
    off for cuDNN and matmul).  Tolerance: max |kernel - plain| <= 1e-4
@@ -32,7 +34,8 @@
    images/s at bucket 64 in bfloat16 with a torch.profiler breakdown of
    one such call, whose double-conv device time must come from the
    tensor-core kernel (conv3x3_mma_kernel) and none from the float32
-   CUDA-core kernel, and which gives the uncertainty map's device time in
+   CUDA-core kernel (conv3x3_f32_kernel, also none by the C side's own
+   launch count), and which gives the uncertainty map's device time in
    serving.  The launch counters, reset just before, must show 9
    double-conv, 4 upsample and 1 uncertainty launches per device call.  A
    float32 GPU Predictor must agree with the same Predictor on
@@ -100,10 +103,14 @@
    Each of the three kernels against its plain version at every stage-4
    native-evaluation shape (float32, batch 1, 1008 -> 63 px) with phase
    3's tolerance.  Prints the float32 double conv's event time per stage-4
-   forward at 1008 px beside cuDNN's pair (float32, TF32 off), its plain
-   version and its FP32 bound, seconds per tile of native evaluation,
-   images/s of the stage-resolution evaluation and a torch.profiler
-   breakdown of one native-resolution forward.
+   forward at 1008 px, batch 1, and at 256 px, batch 8 (the stage-resolution
+   evaluator's shapes), per shape and in total, beside cuDNN's pair (float32,
+   TF32 off), its plain version and its FP32 bound, with each launch's BN,
+   tile, blocks, registers and spills; seconds per tile of native
+   evaluation, images/s of the stage-resolution evaluation and a
+   torch.profiler breakdown of one native-resolution forward, in which the
+   float32 conv kernel must show device time and 18 launches (and 18 by the
+   C side's count).
 11. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -119,6 +126,7 @@ import csv
 import itertools
 import json
 import math
+import re
 import signal
 import statistics
 import struct
@@ -159,6 +167,10 @@ from ugpg_tpu_torch.ops.cuda import double_conv as double_conv_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import resize2x as resize2x_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import uncertainty as uncertainty_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda.double_conv import (  # noqa: E402
+    F32_TILE,
+    f32_blocks,
+    f32_launches,
+    f32_plan,
     fused_double_conv,
     fused_double_conv_reference,
 )
@@ -211,6 +223,7 @@ KERNELS = {
                                      "ugpg_tpu/ops/pallas/uncertainty_fused.py:178"),
 }
 LOSS_KERNELS = ("uncertainty_weighted_bce_fwd", "uncertainty_weighted_bce_bwd")
+F32_KERNEL = "conv3x3_f32_kernel"  # the float32 double conv's kernel, two launches per call
 PW = 5.0  # the trainer's pos_weight
 TRAIN_BATCH = 8
 STAGE_RES = (32, 64, 128, 256)  # the four stages' resolutions in training
@@ -483,27 +496,29 @@ def check_response(outs, n):
 
 
 def profile_call(label, fn):
-    """Device time by kernel for one call of ``fn`` (torch.profiler), and
-    the share of the call's wall time the device sat idle."""
+    """Device time by kernel for one call of ``fn`` (torch.profiler), the
+    share of the call's wall time the device sat idle, and the launches by
+    kernel: -> (ms by kernel, wall ms, launches by kernel)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = {}
+    device, counts = {}, {}
     for e in prof.key_averages():
         # device-side rows (kernels, copies) carry no CPU time; the
         # profiler's own buffer request is not the program's work
         if e.cpu_time_total == 0 and e.self_device_time_total > 0 \
                 and e.key != "Activity Buffer Request":
             device[e.key] = device.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            counts[e.key] = counts.get(e.key, 0) + e.count
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:10]
     log("profile", json.dumps({
         "call": label, "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": 1 - busy / wall_ms, "top_ms": {k[:90]: v for k, v in top}}))
-    return device, wall_ms
+    return device, wall_ms, counts
 
 
 def serve(tmp: Path):
@@ -552,15 +567,18 @@ def serve(tmp: Path):
     check_response(outs, 64)
     ips = reps * 64 / dt
     log(f"serve: bucket 64 bf16: {ips:.2f} images/s ({dt / reps * 1e3:.1f} ms per call)")
-    device, wall_ms = profile_call("serve: bucket 64, 64 images", lambda: pf(big))
+    f32_before = f32_launches()
+    device, wall_ms, _ = profile_call("serve: bucket 64, 64 images", lambda: pf(big))
+    f32_calls = f32_launches() - f32_before
     # the bf16 double conv must run on the tensor-core kernel, never the
-    # float32 CUDA-core one
+    # float32 CUDA-core one (neither in the profile nor by the C side's count)
     mma_ms = sum(v for k, v in device.items() if "conv3x3_mma_kernel" in k)
-    f32_ms = sum(v for k, v in device.items() if "double_conv_f32_kernel" in k)
+    f32_ms = sum(v for k, v in device.items() if F32_KERNEL in k)
     log(f"serve: bf16 double conv (conv3x3_mma_kernel, 18 launches): {mma_ms:.3f} ms of device "
         f"time, {mma_ms / wall_ms:.1%} of the call, {mma_ms / sum(device.values()):.1%} of "
-        f"device busy; float32 CUDA-core kernel {f32_ms:.3f} ms")
-    assert mma_ms > 0 and f32_ms == 0, (mma_ms, f32_ms)
+        f"device busy; float32 CUDA-core kernel ({F32_KERNEL}) {f32_ms:.3f} ms, "
+        f"{f32_calls} launches")
+    assert mma_ms > 0 and f32_ms == 0 and f32_calls == 0, (mma_ms, f32_ms, f32_calls)
     unc_ms = sum(v for k, v in device.items() if "uncertainty_kernel" in k)
     log(f"serve: uncertainty map (uncertainty_kernel, 1 launch): {unc_ms * 1e3:.3f} us of device "
         "time in that call")
@@ -705,12 +723,12 @@ def device_ms(fn, args, names, reps=20):
     ``names`` (torch.profiler), over ``reps`` calls after a warm-up, and
     the launches of every kernel in that window, by name.  Each call
     launches one kernel of ``names``; a window that holds fewer is taken
-    once more, and logged: torch.profiler has been seen to lose a
-    window's kernels at random on an H100 (one window of 20 calls held
-    none)."""
+    again, up to three times, and logged: torch.profiler has been seen to
+    lose a window's kernels at random on an H100 (windows of 20 calls held
+    none, twice in a row)."""
     fn(*args)
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn(*args)
@@ -721,7 +739,7 @@ def device_ms(fn, args, names, reps=20):
         if sum(e.count for e in mine) >= reps:
             break
         log(f"profile: a window of {reps} calls held {json.dumps({e.key: e.count for e in rows})}; "
-            "taken once more")
+            "taken again")
     ms = sum(e.self_device_time_total for e in mine)
     return ms / 1e3 / reps, {e.key: e.count for e in rows}
 
@@ -1234,7 +1252,7 @@ def train_monuseg(tmp: Path):
             x, y, sample_monuseg_params(g, TRAIN_BATCH, quantize_angles=quantize),
             quantize_angles=quantize)
         aug_ms = time_ms(aug, (), reps=10)
-        device, _ = profile_call(f"monuseg: augmentation of one stage-4 batch, quantize_angles="
+        device, _, _ = profile_call(f"monuseg: augmentation of one stage-4 batch, quantize_angles="
                                  f"{quantize} (sampling included)", aug)
         log(f"monuseg: augmentation, quantize_angles={quantize}: {aug_ms:.3f} ms per batch of 8 "
             f"(CUDA events), {sum(device.values()):.3f} ms of device time")
@@ -1368,39 +1386,79 @@ def check_native_kernels() -> dict:
     return worst
 
 
+def start_ptxas(out_dir: Path) -> subprocess.Popen:
+    """nvcc with -Xptxas -v on csrc/double_conv.cu into a cubin under
+    ``out_dir``, started beside the build: the float32 conv kernel's
+    registers and spills."""
+    flags = [f for f in _lib.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    return subprocess.Popen([_lib._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-I", str(_lib.CSRC),
+                             "-o", str(out_dir / "double_conv.cubin"),
+                             str(_lib.CSRC / "double_conv.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_report(proc: subprocess.Popen) -> dict:
+    """Registers and spill bytes of each instance of the float32 conv
+    kernel, by its plan: "bn32", "bn64", and "_scalar" where it stages x
+    with 4-byte copies (Cin % 4 != 0)."""
+    text, _ = proc.communicate(timeout=600)
+    assert proc.returncode == 0, text[-4000:]
+    report = {}
+    for entry in text.split("Compiling entry function")[1:]:
+        kernel = re.search(F32_KERNEL + r"ILi(\d+)ELb(\d)E", entry)
+        if kernel is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        key = f"bn{32 * int(kernel.group(1))}" + ("" if kernel.group(2) == "1" else "_scalar")
+        report[key] = {"registers": int(regs.group(1)), "spill_stores": int(spill.group(1)),
+                       "spill_loads": int(spill.group(2))}
+    log("ptxas -v", F32_KERNEL, json.dumps(report))
+    assert sorted(report) == ["bn32", "bn32_scalar", "bn64", "bn64_scalar"], report
+    return report
+
+
 @tf32(False)
-def time_native_double_conv() -> dict:
-    """The float32 double conv (the CUDA-core kernel) over the 9 shapes of one
-    stage-4 forward at 1008 px, batch 1: CUDA-event time beside its plain
-    version, cuDNN's pair in float32 with TF32 off, and the bound at the
-    card's FP32 CUDA-core peak (67 TFLOP/s) or its HBM rate."""
+def time_f32_double_conv(shapes: dict, n: int, label: str, ptxas: dict) -> dict:
+    """The float32 double conv (two launches of the CUDA-core conv) over the
+    9 shapes of one stage-4 forward, batch ``n``: CUDA-event time beside its
+    plain version, cuDNN's pair in float32 with TF32 off, and the bound at
+    the card's FP32 CUDA-core peak (67 TFLOP/s) or its HBM rate; with each
+    launch's plan (BN, tile, blocks) and its kernel's registers and spills."""
     g = torch.Generator(device=DEV).manual_seed(8)
     total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "flop"), 0.0)
-    for name, (h, cin, cm, cout) in NATIVE_DOUBLE_CONVS.items():
-        args = dc_inputs(1, h, cin, cm, cout, torch.float32, g)
-        flop = 2 * h * h * 9 * (cin * cm + cm * cout)
-        nbytes = h * h * (cin + cout) * 4 + 9 * cm * (cin + cout) * 4 + 4 * (cm + cout)
+    for name, (h, cin, cm, cout) in shapes.items():
+        args = dc_inputs(n, h, cin, cm, cout, torch.float32, g)
+        flop = 2 * n * h * h * 9 * (cin * cm + cm * cout)
+        nbytes = n * h * h * (cin + cout) * 4 + 9 * cm * (cin + cout) * 4 + 4 * (cm + cout)
+        plan = []
+        for c_in, c_out in ((cin, cm), (cm, cout)):
+            bn = f32_plan(n, h, h, c_out)
+            plan.append({"bn": bn, "tile": list(F32_TILE), "blocks": f32_blocks(n, h, h, c_out, bn),
+                         **ptxas[f"bn{bn}" + ("" if c_in % 4 == 0 else "_scalar")]})
         t = {"ms": time_ms(fused_double_conv, args), "plain_ms": time_ms(
                 fused_double_conv_reference, args, reps=1, repeats=3),
              "library_ms": time_ms(library_double_conv, args),
              "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
              "ops_ms": flop / PEAK_OPS_PER_S[torch.float32] * 1e3, "flop": flop}
-        log("time native", json.dumps({"kernel": "fused_double_conv", "shape": name,
-                                       "hw": h, "dtype": "float32", **t,
-                                       "tflop_per_s": flop / t["ms"] / 1e9,
-                                       "bound_share": max(t["bytes_ms"], t["ops_ms"]) / t["ms"]}))
+        log(f"time {label}", json.dumps({"kernel": "fused_double_conv", "shape": name, "hw": h,
+                                         "batch": n, "dtype": "float32", **t,
+                                         "tflop_per_s": flop / t["ms"] / 1e9,
+                                         "bound_share": max(t["bytes_ms"], t["ops_ms"]) / t["ms"],
+                                         "launches": plan}))
         for key, value in t.items():
             total[key] += value
         del args
     torch.cuda.empty_cache()
     total["tflop_per_s"] = total["flop"] / total["ms"] / 1e9
     total["bound_share"] = max(total["bytes_ms"], total["ops_ms"]) / total["ms"]
-    log("time native total", json.dumps({"kernel": "fused_double_conv", "dtype": "float32",
-                                         "px": NATIVE_PX, **total}))
+    log(f"time {label} total", json.dumps({"kernel": "fused_double_conv", "dtype": "float32",
+                                          "px": next(iter(shapes.values()))[0], "batch": n,
+                                          **total}))
     return total
 
 
-def monuseg_command_lines(tmp: Path, root: Path):
+def monuseg_command_lines(tmp: Path, root: Path, ptxas: dict):
     """Phase 10: train with SIGTERM and --resume through the training
     command, evaluate and infer through the test command, the card against
     the CPU, the kernels at the native-evaluation shapes, and the times."""
@@ -1503,7 +1561,9 @@ def monuseg_command_lines(tmp: Path, root: Path):
     assert 0.0 < float(cpu[0].mean()) < 1.0  # the seeded model predicts both classes
 
     errors = check_native_kernels()
-    dc = time_native_double_conv()
+    dc = time_f32_double_conv(NATIVE_DOUBLE_CONVS, 1, "native", ptxas)
+    # the stage-resolution evaluator's shapes: 256 px, batch 8
+    dc_stage = time_f32_double_conv(DOUBLE_CONVS, TRAIN_BATCH, "stage", ptxas)
 
     # times: native evaluation per tile, stage-resolution evaluation images/s
     ev = MoNuSegEvaluator(model)
@@ -1525,10 +1585,33 @@ def monuseg_command_lines(tmp: Path, root: Path):
         f"forward, metrics), the padded forward alone {forward_ms:.2f} ms (CUDA events); "
         f"stage-resolution evaluation {ips:.2f} images/s (batch {TRAIN_BATCH}, {len(patches)} "
         f"{PATCH_PX} px patches, decode included)")
-    profile_call(f"eval: one native-resolution forward, {NATIVE_PX} px, float32",
-                 lambda: native_forward(ev.model, x, (16, 16)))
+    # the float32 double conv must run on its CUDA-core kernel: 18 launches
+    # per forward by the C side's count (exact), device time in the profile,
+    # and there no more than 18 launches.  torch.profiler has lost kernels
+    # on that machine (a window of one forward held 16 of the 18 twice in a
+    # row), so a window that holds fewer is taken once more and logged, and
+    # its count is held to at most 18, not to 18.
+    for attempt in range(2):
+        f32_before = f32_launches()
+        device, _, counts = profile_call(
+            f"eval: one native-resolution forward, {NATIVE_PX} px, float32",
+            lambda: native_forward(ev.model, x, (16, 16)))
+        f32_calls = f32_launches() - f32_before
+        f32_ms = sum(v for k, v in device.items() if F32_KERNEL in k)
+        f32_seen = {k[:60]: v for k, v in counts.items() if F32_KERNEL in k}
+        if sum(f32_seen.values()) == 18:
+            break
+        log(f"profile: the window held {json.dumps(f32_seen)} of 18 {F32_KERNEL} launches, "
+            f"every kernel: {json.dumps({k[:60]: v for k, v in counts.items()})}; "
+            + ("taken once more" if attempt == 0 else "not taken again"))
+    log(f"eval: float32 double conv ({F32_KERNEL}) in one native forward: {f32_ms:.3f} ms of "
+        f"device time, {f32_ms / sum(device.values()):.1%} of device busy, "
+        f"{sum(f32_seen.values())} launches in the profile, {f32_calls} by the C side's count")
+    assert f32_calls == 18 and f32_ms > 0 and 0 < sum(f32_seen.values()) <= 18, \
+        (f32_calls, f32_seen, f32_ms)
     times = {"native_s_per_tile": s_per_tile, "native_forward_ms": forward_ms,
-             "stage_res_images_per_s": ips, "double_conv_f32_1008": dc}
+             "stage_res_images_per_s": ips, "double_conv_f32_1008": dc,
+             "double_conv_f32_256": dc_stage}
     return launches, errors, times
 
 
@@ -1540,13 +1623,16 @@ def main():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    _lib.build()
-    log(f"build: {len(_lib.SOURCES)} kernels in {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    native.build()
-    log(f"build: the host C++ (rasterizers, PNG and TIFF decoders, g++) in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        ptxas_proc = start_ptxas(Path(tmp))
+        t0 = time.perf_counter()
+        _lib.build()
+        log(f"build: {len(_lib.SOURCES)} kernels in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        native.build()
+        log(f"build: the host C++ (rasterizers, PNG and TIFF decoders, g++) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        ptxas = ptxas_report(ptxas_proc)
 
     with tf32(False):  # the serving phases, as their numbers in PERF.md were taken
         errors = check_kernels()
@@ -1568,8 +1654,8 @@ def main():
     log(f"train (synthetic disks): loss launches {json.dumps(train_launches)}")
     with tempfile.TemporaryDirectory() as tmp:
         mon_launches, mon_epoch, mon_host = train_monuseg(Path(tmp))
-        cli_launches, native_errors, cli_times = monuseg_command_lines(Path(tmp),
-                                                                       Path(tmp) / "MoNuSeg")
+        cli_launches, native_errors, cli_times = monuseg_command_lines(
+            Path(tmp), Path(tmp) / "MoNuSeg", ptxas)
     launches.update(mon_launches)  # the loss kernels: MoNuSeg training
     for kernel in SERVING_KERNELS:  # and the evaluator's launches, this slice's path
         launches[kernel] += cli_launches[kernel]
@@ -1587,12 +1673,13 @@ def main():
             "library_ms": t["library_ms"],
             **{key: t[key] for key in ("device_ms", "host_us") if key in t},
         })
-        if kernel == "fused_double_conv":  # float32, one stage-4 forward at 1008 px
-            dc = cli_times["double_conv_f32_1008"]
-            rows[-1]["float32_native_1008"] = {
-                "ms": dc["ms"], "plain_ms": dc["plain_ms"], "library_ms": dc["library_ms"],
-                "bound_ms": max(dc["bytes_ms"], dc["ops_ms"]),
-                "bound_by": "bytes" if dc["bytes_ms"] >= dc["ops_ms"] else "operations"}
+        if kernel == "fused_double_conv":  # float32, one stage-4 forward
+            for key, dc in (("float32_native_1008", cli_times["double_conv_f32_1008"]),
+                            ("float32_stage_256_batch8", cli_times["double_conv_f32_256"])):
+                rows[-1][key] = {
+                    "ms": dc["ms"], "plain_ms": dc["plain_ms"], "library_ms": dc["library_ms"],
+                    "bound_ms": max(dc["bytes_ms"], dc["ops_ms"]),
+                    "bound_by": "bytes" if dc["bytes_ms"] >= dc["ops_ms"] else "operations"}
     log(f"serving: {ips:.2f} images/s, stage 4, bucket 64, bf16 on {card}")
     log(f"training: images/s at batch {TRAIN_BATCH}, epoch 2 of each stage: "
         + ", ".join(f"stage {s} {v[-1]:.2f}" for s, v in train_ips.items()) + f" on {card}")
@@ -1608,7 +1695,9 @@ def main():
         f"(forward {cli_times['native_forward_ms']:.2f} ms), stage resolution "
         f"{cli_times['stage_res_images_per_s']:.2f} images/s; float32 double conv per stage-4 "
         f"forward at {NATIVE_PX} px {dc['ms']:.3f} ms, cuDNN {dc['library_ms']:.3f} ms, bound "
-        f"{max(dc['bytes_ms'], dc['ops_ms']):.3f} ms on {card}")
+        f"{max(dc['bytes_ms'], dc['ops_ms']):.3f} ms; at 256 px, batch {TRAIN_BATCH} "
+        f"{cli_times['double_conv_f32_256']['ms']:.3f} ms, cuDNN "
+        f"{cli_times['double_conv_f32_256']['library_ms']:.3f} ms on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

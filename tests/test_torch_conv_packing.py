@@ -24,8 +24,11 @@ from ugpg_tpu.ops.pallas.double_conv import fused_double_conv as jax_fused_doubl
 from ugpg_tpu_torch.eval.serving import Predictor
 from ugpg_tpu_torch.models.blocks import DoubleConv
 from ugpg_tpu_torch.ops.cuda.double_conv import (
+    F32_MIN_BLOCKS,
     conv3x3_packed_reference,
     conv_chunk,
+    f32_blocks,
+    f32_plan,
     fused_double_conv,
     fused_double_conv_reference,
     pack_conv3x3,
@@ -109,6 +112,40 @@ def test_pack_double_conv_float32_is_hwio():
     assert b1k.dtype == b2k.dtype == torch.float32
     w1b, _, w2b, _ = pack_double_conv(tw1.bfloat16(), tb1, tw2.bfloat16(), tb2)
     assert w1b.shape == (9, 24, 32) and w2b.shape == (9, 8, 32) and w1b.dtype == torch.bfloat16
+
+
+# (H, Cin, Cm, Cout) of stage 4's nine DoubleConvs at 256 px; native
+# evaluation runs them on a 1000 px tile padded to 1008 px (H * 63 / 16)
+STAGE4 = [(256, 3, 64, 64), (128, 64, 128, 128), (64, 128, 256, 256), (32, 256, 512, 512),
+          (16, 512, 512, 512), (32, 1024, 256, 256), (64, 512, 128, 128), (128, 256, 64, 64),
+          (256, 128, 64, 64)]
+
+
+@pytest.mark.parametrize("n,scale", [(1, 63 / 16), (8, 1)], ids=["native-1008px-batch1",
+                                                                 "stage4-256px-batch8"])
+@pytest.mark.parametrize("shape", STAGE4, ids=[f"{s[0]}px-{s[1]}-{s[2]}-{s[3]}" for s in STAGE4])
+def test_float32_plan_fills_the_card(n, scale, shape):
+    # Each float32 conv launch (conv1 into Cm channels, conv2 into Cout) gets
+    # about two blocks per SM, or the largest grid the kernel's tile and
+    # block widths allow: a grid of 64 blocks for 132 SMs made the fused
+    # kernel this replaced slow at 63 px
+    h = round(shape[0] * scale)
+    for cout in shape[2:]:
+        bn = f32_plan(n, h, h, cout)
+        blocks = f32_blocks(n, h, h, cout, bn)
+        assert bn in (32, 64)
+        assert blocks >= min(F32_MIN_BLOCKS, f32_blocks(n, h, h, cout, 32)), (h, cout, bn, blocks)
+        assert blocks >= F32_MIN_BLOCKS, (h, cout, bn, blocks)  # every stage-4 shape reaches it
+        if f32_blocks(n, h, h, cout, 64) >= F32_MIN_BLOCKS:
+            assert bn == 64  # the wider slice, which stages each input tile half as often
+
+
+def test_float32_plan_picks_32_for_narrow_outputs_and_small_grids():
+    assert f32_plan(1, 1008, 1008, 64) == 64
+    assert f32_plan(8, 16, 16, 512) == 32  # 128 blocks at 64: 256 at 32
+    assert f32_plan(1, 63, 63, 512) == 64  # 32 tiles x 8 slices = 256
+    assert f32_plan(4, 256, 256, 24) == 32 and f32_plan(4, 256, 256, 8) == 32
+    assert f32_blocks(1, 63, 63, 512, 64) == 256 and f32_blocks(3, 9, 17, 136, 64) == 36
 
 
 def test_packed_reference_rejects_another_padding():

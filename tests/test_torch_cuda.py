@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from ugpg_tpu_torch.ops.cuda import _lib
+from ugpg_tpu_torch.ops.cuda import double_conv as dc
 from ugpg_tpu_torch.ops.cuda.double_conv import (
+    f32_launches,
     fused_double_conv,
     fused_double_conv_reference,
     pack_double_conv,
@@ -229,6 +231,10 @@ def _dc_inputs(device, dtype, n, h, w, cin, cm, cout):
     (2, 17, 33, 64, 512, 64),      # Cm = 512 near 16 px, H and W past a tile
     (1, 16, 16, 512, 512, 512),    # batch 1, one whole tile
     (2, 40, 24, 128, 64, 64),      # H and W not multiples of the tile
+    (1, 63, 63, 512, 512, 512),    # 63 px tails of the 8 x 16 tile, float32 BN 64
+    (2, 9, 17, 8, 16, 8),          # 1 px tails in H and W
+    (3, 63, 33, 20, 24, 24),       # batch 3, Cin = 20 (a partial K chunk), Cout = 24
+    (2, 17, 1, 64, 96, 136),       # W = 1; Cout past one BN = 64 slice, not a multiple
 ])
 def test_fused_double_conv_kernel(cuda, dtype, n, h, w, cin, cm, cout):
     x, w1, b1, w2, b2 = _dc_inputs(cuda, dtype, n, h, w, cin, cm, cout)
@@ -253,6 +259,70 @@ def test_fused_double_conv_kernel_at_native_evaluation_shapes(cuda, h, cin, cm, 
     _close(got, fused_double_conv_reference(x, w1, b1, w2, b2), torch.float32)
 
 
+def _f32_double_conv(x, w1, b1, w2, b2, bn):
+    """The float32 C entry with both launches at ``bn`` output channels
+    per block, whatever the plan would pick."""
+    n, cin, h, w = x.shape
+    cm, cout = w1.shape[0], w2.shape[0]
+    w1k, b1k, w2k, b2k = pack_double_conv(w1, b1, w2, b2)
+    mid = torch.empty((n, cm, h, w), device=x.device, memory_format=CL)
+    out = torch.empty((n, cout, h, w), device=x.device, memory_format=CL)
+    fn = _lib.function("double_conv", "ugpg_double_conv_f32", dc._ARGTYPES)
+    rc = fn(x.data_ptr(), w1k.data_ptr(), b1k.data_ptr(), mid.data_ptr(), w2k.data_ptr(),
+            b2k.data_ptr(), out.data_ptr(), n, h, w, cin, cm, cout, bn, bn, _lib.stream(x))
+    _lib.check(rc, "double_conv", "test")
+    return out
+
+
+@pytest.mark.parametrize("bn", [32, 64])
+@pytest.mark.parametrize("n,h,w,cin,cm,cout", [
+    (1, 63, 63, 512, 512, 512),    # native down4
+    (1, 126, 126, 256, 512, 512),  # native down3
+    (8, 16, 16, 512, 512, 512),    # stage-4 down4 at batch 8
+    (3, 63, 33, 20, 24, 24),       # batch 3, partial K chunk, Cout < BN
+    (2, 9, 17, 3, 64, 8),          # Cin = 3 (4-byte staging), Cout = 8, 1 px tails
+    (2, 17, 1, 64, 96, 136),       # W = 1, a ragged last channel slice
+])
+def test_float32_conv_at_each_block_width(cuda, bn, n, h, w, cin, cm, cout):
+    # both BN values the plan can pick, at each shape, through the C entry
+    args = _dc_inputs(cuda, torch.float32, n, h, w, cin, cm, cout)
+    _close(_f32_double_conv(*args, bn), fused_double_conv_reference(*args), torch.float32)
+
+
+def test_float32_double_conv_stages_x_off_16_bytes(cuda):
+    # x one float past a 16-byte boundary: Cin % 4 == 0 but the 4-byte staging
+    x, w1, b1, w2, b2 = _dc_inputs(cuda, torch.float32, 2, 19, 21, 16, 32, 16)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xs = buf[1:].view(2, 19, 21, 16).permute(0, 3, 1, 2)
+    xs.copy_(x)
+    assert xs.is_contiguous(memory_format=CL) and xs.data_ptr() % 16 == 4
+    _close(fused_double_conv(xs, w1, b1, w2, b2), fused_double_conv_reference(x, w1, b1, w2, b2),
+           torch.float32)
+
+
+def test_float32_double_conv_is_two_launches_of_its_kernel(cuda):
+    # The C side counts its launches (exact); the profiler shows that the
+    # device ran the float32 conv kernel and nothing else.  Its count is
+    # held to at most two per call: it has lost kernels from a window on an
+    # H100 (ROADMAP.md, section C).
+    # Weights packed ahead, as Predictor does: packing in the call launches
+    # the HWIO copies as well.
+    args = _dc_inputs(cuda, torch.float32, 1, 63, 63, 512, 512, 512)
+    packed = pack_double_conv(*args[1:])
+    calls = 5
+    _lib.reset_launch_counts()
+    before = f32_launches()
+    kernels = _kernels_in_profile(lambda: fused_double_conv(*args, packed=packed), calls)
+    assert f32_launches() - before == 2 * (calls + 1)
+    assert _lib.launch_counts() == {"fused_double_conv": calls + 1}
+    assert 0 < sum(kernels.values()) <= 2 * calls, kernels
+    assert all("conv3x3_f32_kernel" in k for k in kernels), kernels
+    bf = [t.bfloat16() if t.dtype == torch.float32 and t.dim() > 1 else t for t in args]
+    before = f32_launches()
+    fused_double_conv(bf[0].contiguous(memory_format=CL), *bf[1:])
+    assert f32_launches() == before  # bf16 never takes the float32 kernel
+
+
 @pytest.mark.parametrize("c,h", NATIVE_UPSAMPLES)
 def test_upsample2x_kernel_at_native_evaluation_shapes(cuda, c, h):
     x = torch.randn(1, c, h, h, device=cuda).contiguous(memory_format=CL)
@@ -264,14 +334,16 @@ def test_uncertainty_kernel_at_the_native_evaluation_shape(cuda):
     _close(uncertainty_from_logits(x), uncertainty_from_logits_reference(x), torch.float32)
 
 
-def test_bf16_kernels_repeat_to_the_same_bits(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_kernels_repeat_to_the_same_bits(cuda, dtype):
     # no atomics: a repeated call gives the same bits; packing ahead of the
-    # call (as Predictor does) gives the same bits as packing in it
-    args = _dc_inputs(cuda, torch.bfloat16, 2, 40, 24, 128, 64, 64)
+    # call (as Predictor does) gives the same bits as packing in it.  Both
+    # dtypes, despite the name (kept from when only bf16 was checked)
+    args = _dc_inputs(cuda, dtype, 2, 40, 24, 128, 64, 64)
     first = fused_double_conv(*args)
     assert torch.equal(first, fused_double_conv(*args))
     assert torch.equal(first, fused_double_conv(*args, packed=pack_double_conv(*args[1:])))
-    x = torch.randn(4, 64, 32, 32, device=cuda).bfloat16().contiguous(memory_format=CL)
+    x = torch.randn(4, 64, 32, 32, device=cuda).to(dtype).contiguous(memory_format=CL)
     assert torch.equal(upsample2x(x), upsample2x(x))
 
 

@@ -48,19 +48,59 @@
 //   (9, Cout, Cpad) bf16, tap-major, Cin zero-padded to a multiple of KC.
 //   Next step (ROADMAP.md queue B): wgmma with B loaded by TMA.
 //
-// float32: double_conv_f32_kernel, on the CUDA cores in float32 FMA, exact
-//   enough to match the CPU to 1e-4, which TF32 would not.  A block owns
-//   one image's TH x TW output tile (8 x 16, or 8 x 8 when the middle tile
-//   would not fit), stages the input tile with a 2-px
-//   halo in chunks of CC channels, computes the (TH+2) x (TW+2) x Cm middle
-//   tile into shared memory, zero where it lies outside the image, and
-//   runs conv2 from shared memory.  Weights arrive as (3, 3, Cin, Cout).
+// float32: conv3x3_f32_kernel, an implicit GEMM on the CUDA cores in
+//   float32 FMA (no TF32, which would not match the CPU to 1e-4), launched
+//   twice per DoubleConv like the bf16 path: conv1 into a float32 middle
+//   tensor, then conv2, whose own zero padding makes the middle positions
+//   outside the image zero.  Bound: operations, 2 * 9 * (Cin*Cm + Cm*Cout)
+//   per pixel against the FP32 CUDA cores' 67 TFLOP/s (958.8 GFLOP, 14.31 ms
+//   per stage-4 forward at 1008 px); the middle round trip adds 8 bytes x Cm
+//   per pixel (about 1.7 GB, 0.52 ms at 3.35 TB/s, per such forward).
+//   What the design does about the fused kernel it replaces:
+//   - No Cm-wide middle tile in shared memory, so nothing ties a block to
+//     one per SM: a stage of the K ring is 24.5 KB (BN = 64), and at 166
+//     registers (BN = 64; 123 at 32) with no spills three 128-thread blocks
+//     share an SM.
+//   - The grid is (pixel tiles, Cout / BN, N): it splits over output
+//     channels, so at batch 1 the 63 px, Cm = 512 shape still has 256
+//     blocks.  BN is 64, or 32 where 64 would leave fewer than 256 blocks
+//     (ops/cuda/double_conv.py::f32_plan); no split-K, so no atomics and
+//     a repeat gives the same bits.
+//   - No recomputed halo and no idle lanes: every lane owns 8 output pixels
+//     (8 consecutive columns of one row of the 8 x 16 tile) x 4 * NV
+//     channels (NV = BN / 32 float4 vectors, v*32 + cg*4 ... + 3), all
+//     inside the tile.
+//   - Weights come from shared memory, and reuse is high: per channel and
+//     tap row dy a lane reads 10 input values once and uses them for the 3
+//     dx taps (a register shift, no im2col), and per tap one float4 of
+//     weights per vector feeds 8 pixels: 192 FMAs per 10 scalar and 6
+//     float4 shared loads at BN = 64.
+//   - Staging overlaps compute: each chunk of KC = 8 input channels (the
+//     haloed 10 x 18 x KC input tile and its 9 x KC x BN weights) is copied
+//     with 16-byte cp.async into a ring of 3 stages; zero-fill (source size
+//     0) makes the padding outside the image and past Cin.  Cin % 4 != 0
+//     (the 3-channel input) or an x off 16 bytes stages with 4-byte
+//     cp.async.
+//   - Bank conflicts: the input tile is pixel-major (KC floats per pixel)
+//     with a row pitch of 19 pixels, so the four rows a warp reads at once
+//     start 152 floats apart, on banks 0, 24, 16 and 8 (the 8 lanes of one
+//     row broadcast); the 8 channel groups of a warp read 8 consecutive
+//     float4 of a weight row (128 bytes).  That is the bank arithmetic; no
+//     profiler counts conflicts on the H100 machine, but a pitch of 18,
+//     whose four rows share two banks, timed the same within 0.3% over the
+//     native shapes: the input reads are 10 of about 208 instructions per
+//     (channel, dy), and the issue slots, not the banks, bound the loop.
+//   Epilogue: float32 bias and ReLU from registers, written as 16-byte
+//   vectors along channels (NHWC); the ragged pixel edge and the channel
+//   edge (Cout % 4 == 0) are masked.  Weights arrive as HWIO (3, 3, Cin,
+//   Cout): tap-major, output channels innermost, as the B tile is read.
+
+#include <atomic>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr size_t SMEM_LIMIT = 232448;  // 227 KB: the most a block may use on sm_90
 constexpr int kMaxDevices = 64;
 
 // Sets a kernel's dynamic shared memory limit once per device.  Racing
@@ -82,180 +122,190 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool (&done)[kMaxDevices]) {
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 inline bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
+// ======================================================= cp.async, both dtypes
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // ======================================================= float32, CUDA cores
 namespace f32 {
 
-constexpr int TH = 8;          // output tile rows
-constexpr int THREADS = 256;   // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int CG = WARPS * 8;  // channels per pass: 8 per warp
-constexpr int CC = 16;         // input channels staged per chunk
+constexpr int TH = 8, TW = 16;               // output tile
+constexpr int HH = TH + 2, HW = TW + 2;      // input tile with its 1-px halo
+constexpr int PITCH = HW + 1;                // staged pixels per tile row: odd, for the banks
+constexpr int KC = 8;                        // input channels per K chunk
+constexpr int STAGES = 3;
+constexpr int THREADS = 128;                 // 4 warps: 2 (rows 0-3, 4-7) x 2 (columns 0-7, 8-15)
+constexpr int PX = 8;                        // pixels per lane: consecutive columns of one row
+constexpr int A_FLOATS = HH * PITCH * KC;    // [HH][PITCH][KC]
 
-template <int TW>
-struct Tile {
-  static constexpr int MH = TH + 2, MW = TW + 2, MP = MH * MW;  // middle tile
-  static constexpr int XH = TH + 4, XW = TW + 4, XP = XH * XW;  // input tile, 2-px halo
-  static constexpr int P1 = (MP + 31) / 32;                     // middle positions per lane
-  static constexpr int P2 = TH * TW / 32;                       // output positions per lane
-  static size_t mid_bytes(int cm) { return ((size_t)cm * MP * sizeof(float) + 15) / 16 * 16; }
-  static size_t smem_bytes(int cm) { return mid_bytes(cm) + (size_t)CC * XP * sizeof(float); }
+template <int NV>  // float4 channel vectors per lane; BN = 32 * NV output channels per block
+struct Cfg {
+  static constexpr int BN = 32 * NV;
+  static constexpr int B_FLOATS = 9 * KC * BN;  // [tap][KC][BN]
+  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+  static constexpr int SMEM = STAGES * STAGE_FLOATS * 4;
 };
 
-// x: (N, H, W, Cin); w1: (3, 3, Cin, Cm); w2: (3, 3, Cm, Cout); out: (N, H, W, Cout).
-// Cm and Cout are multiples of 8.  Grid: (tiles, N).
-template <int TW>
-__global__ void __launch_bounds__(THREADS)
-    double_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                           const float* __restrict__ b1, const float* __restrict__ w2,
-                           const float* __restrict__ b2, float* __restrict__ out, int H, int W,
-                           int Cin, int Cm, int Cout, int tiles_w, size_t mid_bytes) {
-  using G = Tile<TW>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* mid = reinterpret_cast<float*>(smem);                // [Cm][MP]
-  float* xs = reinterpret_cast<float*>(smem + mid_bytes);     // [CC][XP]
+std::atomic<unsigned> launches{0};  // conv3x3_f32_kernel launches, for the tests
 
-  const int64_t n = blockIdx.y;
-  const int ty0 = (blockIdx.x / tiles_w) * TH;
-  const int tx0 = (blockIdx.x % tiles_w) * TW;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* xn = x + n * H * W * Cin;
+// x: (N, H, W, Cin); w: (3, 3, Cin, Cout); bias: (Cout); y: (N, H, W, Cout).
+// Cout % 4 == 0; w and y 16-byte aligned; VEC: Cin % 4 == 0 and x 16-byte
+// aligned.  Grid: (tiles, Cout slices of BN, N).
+template <int NV, bool VEC>
+__global__ void __launch_bounds__(THREADS, 3)
+    conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ bias, float* __restrict__ y, int H, int W,
+                       int Cin, int Cout, int tiles_w) {
+  using C = Cfg<NV>;
+  constexpr int BV = C::BN / 4;  // float4 per weight row
+  extern __shared__ __align__(16) float fsmem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cg = lane & 7;                           // channels v*32 + cg*4 ... + 3
+  const int row = (warp & 1) * 4 + (lane >> 3);      // output row within the tile
+  const int col0 = (warp >> 1) * PX;                 // first of the lane's 8 columns
+  const int ty0 = (blockIdx.x / tiles_w) * TH, tx0 = (blockIdx.x % tiles_w) * TW;
+  const int n0 = blockIdx.y * C::BN;
+  const int64_t img = blockIdx.z;
+  const float* xn = x + img * H * W * Cin;
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(fsmem);
+  const int chunks = (Cin + KC - 1) / KC;
 
-  // ---- conv1 over the middle tile ------------------------------------
-  int xoff[G::P1];  // input-tile offset of this lane's middle positions
+  // Stage chunk `chunk` (input channels chunk*KC ...) into buffer `stage`.
+  auto load_chunk = [&](int chunk, int stage) {
+    const int c0 = chunk * KC;
+    const uint32_t sa = sbase + stage * C::STAGE_FLOATS * 4, sb = sa + A_FLOATS * 4;
+    constexpr int PER_PIXEL = VEC ? KC / 4 : KC;  // copies per staged pixel
+    for (int i = tid; i < HH * HW * PER_PIXEL; i += THREADS) {
+      const int p = i / PER_PIXEL, q = i % PER_PIXEL;
+      const int r = p / HW, c = p % HW;
+      const int gy = ty0 - 1 + r, gx = tx0 - 1 + c;
+      const int ch = c0 + (VEC ? q * 4 : q);
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && ch < Cin;
+      const float* src = ok ? xn + ((int64_t)gy * W + gx) * Cin + ch : x;
+      const uint32_t dst = sa + ((r * PITCH + c) * KC + (VEC ? q * 4 : q)) * 4;
+      if constexpr (VEC)
+        cp_async16(dst, src, ok ? 16 : 0);
+      else
+        cp_async4(dst, src, ok ? 4 : 0);
+    }
+    for (int i = tid; i < 9 * KC * BV; i += THREADS) {
+      const int r = i / BV, v = i % BV;  // r = tap * KC + channel within the chunk
+      const int ch = c0 + r % KC, n = n0 + v * 4;
+      const bool ok = ch < Cin && n < Cout;
+      const float* src = ok ? w + ((int64_t)(r / KC) * Cin + ch) * Cout + n : w;
+      cp_async16(sb + (r * C::BN + v * 4) * 4, src, ok ? 16 : 0);
+    }
+  };
+
+  float acc[PX][4 * NV];
 #pragma unroll
-  for (int i = 0; i < G::P1; ++i) {
-    const int p = min(lane + 32 * i, G::MP - 1);  // lanes past MP compute a copy, never stored
-    xoff[i] = (p / G::MW) * G::XW + p % G::MW;
+  for (int j = 0; j < PX; ++j)
+#pragma unroll
+    for (int k = 0; k < 4 * NV; ++k) acc[j][k] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < chunks) load_chunk(s, s);
+    cp_async_commit();
   }
-  for (int cm0 = 0; cm0 < Cm; cm0 += CG) {
-    const int cmw = cm0 + warp * 8;  // this warp's 8 middle channels
-    const bool active = cmw < Cm;
-    float acc[G::P1][8];
-#pragma unroll
-    for (int i = 0; i < G::P1; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int k = 0; k < chunks; ++k) {
+    cp_async_wait<STAGES - 2>();  // chunk k has landed (this thread's copies)
+    __syncthreads();              // ... everyone's, and chunk k-1 is consumed
+    if (k + STAGES - 1 < chunks) load_chunk(k + STAGES - 1, (k + STAGES - 1) % STAGES);
+    cp_async_commit();
 
-    for (int ci0 = 0; ci0 < Cin; ci0 += CC) {
-      const int cc = min(CC, Cin - ci0);
-      __syncthreads();  // the previous chunk is consumed
-      for (int idx = threadIdx.x; idx < G::XP * cc; idx += THREADS) {
-        const int q = idx / cc, c = idx - q * cc;
-        const int iy = ty0 - 2 + q / G::XW, ix = tx0 - 2 + q % G::XW;
-        float v = 0.0f;
-        if (iy >= 0 && iy < H && ix >= 0 && ix < W) v = xn[((int64_t)iy * W + ix) * Cin + ci0 + c];
-        xs[c * G::XP + q] = v;
-      }
-      __syncthreads();
-      if (active) {
-        for (int c = 0; c < cc; ++c) {
-          const float* xc = xs + c * G::XP;
-          const float* wc = w1 + (int64_t)(ci0 + c) * Cm + cmw;
+    const float* as = fsmem + (k % STAGES) * C::STAGE_FLOATS + (row * PITCH + col0) * KC;
+    const float4* bs = reinterpret_cast<const float4*>(fsmem + (k % STAGES) * C::STAGE_FLOATS +
+                                                       A_FLOATS) + cg;
+    // c stays a loop: unrolled, the compiler hoists the chunk's shared loads,
+    // reaches 168 registers and spills 208 bytes: 25 TFLOP/s on the H100
+    // against 40 as a loop
+#pragma unroll 1
+    for (int c = 0; c < KC; ++c)
 #pragma unroll
-          for (int tap = 0; tap < 9; ++tap) {
-            float wv[8];
-            ugpg::load8(wc + (int64_t)tap * Cin * Cm, wv);
-            const int d = (tap / 3) * G::XW + tap % 3;
+      for (int dy = 0; dy < 3; ++dy) {
+        float a[PX + 2];  // columns col0-1 ... col0+8 of input row row+dy-1, channel c
 #pragma unroll
-            for (int i = 0; i < G::P1; ++i) {
-              const float v = xc[xoff[i] + d];
+        for (int j = 0; j < PX + 2; ++j) a[j] = as[(dy * PITCH + j) * KC + c];
 #pragma unroll
-              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(v, wv[j], acc[i][j]);
+        for (int dx = 0; dx < 3; ++dx) {
+          float4 b[NV];
+#pragma unroll
+          for (int v = 0; v < NV; ++v) b[v] = bs[((dy * 3 + dx) * KC + c) * BV + v * 8];
+#pragma unroll
+          for (int j = 0; j < PX; ++j)
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+              acc[j][4 * v + 0] = fmaf(a[j + dx], b[v].x, acc[j][4 * v + 0]);
+              acc[j][4 * v + 1] = fmaf(a[j + dx], b[v].y, acc[j][4 * v + 1]);
+              acc[j][4 * v + 2] = fmaf(a[j + dx], b[v].z, acc[j][4 * v + 2]);
+              acc[j][4 * v + 3] = fmaf(a[j + dx], b[v].w, acc[j][4 * v + 3]);
             }
-          }
         }
       }
-    }
-    if (active) {
-      float bv[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = b1[cmw + j];
-#pragma unroll
-      for (int i = 0; i < G::P1; ++i) {
-        const int p = lane + 32 * i;
-        if (p < G::MP) {
-          const int gy = ty0 - 1 + p / G::MW, gx = tx0 - 1 + p % G::MW;
-          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            mid[(cmw + j) * G::MP + p] = inside ? fmaxf(acc[i][j] + bv[j], 0.0f) : 0.0f;
-        }
-      }
-    }
   }
-  __syncthreads();
+  cp_async_wait<0>();  // only empty groups remain; leave none behind
 
-  // ---- conv2 from the middle tile --------------------------------------
-  int moff[G::P2];  // middle-tile offset of this lane's output positions
+  const int oy = ty0 + row;
+  if (oy >= H) return;
 #pragma unroll
-  for (int i = 0; i < G::P2; ++i) {
-    const int p = lane + 32 * i;
-    moff[i] = (p / TW) * G::MW + p % TW;
-  }
-  for (int co0 = 0; co0 < Cout; co0 += CG) {
-    const int cow = co0 + warp * 8;  // this warp's 8 output channels
-    if (cow >= Cout) break;          // warp-uniform; no barrier follows
-    float acc[G::P2][8];
+  for (int v = 0; v < NV; ++v) {
+    const int n = n0 + v * 32 + cg * 4;
+    if (n >= Cout) continue;  // Cout % 4 == 0: the whole vector or none of it
+    const float b0 = bias[n], b1 = bias[n + 1], b2 = bias[n + 2], b3 = bias[n + 3];
 #pragma unroll
-    for (int i = 0; i < G::P2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-    for (int c = 0; c < Cm; ++c) {
-      const float* mc = mid + c * G::MP;
-      const float* wc = w2 + (int64_t)c * Cout + cow;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        float wv[8];
-        ugpg::load8(wc + (int64_t)tap * Cm * Cout, wv);
-        const int d = (tap / 3) * G::MW + tap % 3;
-#pragma unroll
-        for (int i = 0; i < G::P2; ++i) {
-          const float v = mc[moff[i] + d];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(v, wv[j], acc[i][j]);
-        }
-      }
-    }
-    float bv[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) bv[j] = b2[cow + j];
-#pragma unroll
-    for (int i = 0; i < G::P2; ++i) {
-      const int p = lane + 32 * i;
-      const int oy = ty0 + p / TW, ox = tx0 + p % TW;
-      if (oy < H && ox < W) {
-        float v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = fmaxf(acc[i][j] + bv[j], 0.0f);
-        ugpg::store8(out + ((n * H + oy) * W + ox) * Cout + cow, v);
-      }
+    for (int j = 0; j < PX; ++j) {
+      const int ox = tx0 + col0 + j;
+      if (ox < W)
+        *reinterpret_cast<float4*>(y + ((img * H + oy) * W + ox) * Cout + n) = make_float4(
+            fmaxf(acc[j][4 * v + 0] + b0, 0.0f), fmaxf(acc[j][4 * v + 1] + b1, 0.0f),
+            fmaxf(acc[j][4 * v + 2] + b2, 0.0f), fmaxf(acc[j][4 * v + 3] + b3, 0.0f));
     }
   }
 }
 
-template <int TW>
-cudaError_t launch(const float* x, const float* w1, const float* b1, const float* w2,
-                   const float* b2, float* out, int N, int H, int W, int Cin, int Cm, int Cout,
-                   cudaStream_t s) {
+template <int NV, bool VEC>
+cudaError_t launch(const float* x, const float* w, const float* b, float* y, int N, int H, int W,
+                   int Cin, int Cout, cudaStream_t s) {
   static bool done[kMaxDevices] = {};
-  cudaError_t e = allow_smem(double_conv_f32_kernel<TW>, SMEM_LIMIT, done);
+  cudaError_t e = allow_smem(conv3x3_f32_kernel<NV, VEC>, Cfg<NV>::SMEM, done);
   if (e != cudaSuccess) return e;
-  const int tiles_w = cdiv(W, TW), tiles_h = cdiv(H, TH);
-  double_conv_f32_kernel<TW><<<dim3(tiles_w * tiles_h, N), THREADS, Tile<TW>::smem_bytes(Cm), s>>>(
-      x, w1, b1, w2, b2, out, H, W, Cin, Cm, Cout, tiles_w, Tile<TW>::mid_bytes(Cm));
-  return cudaGetLastError();
+  const int tiles_w = cdiv(W, TW);
+  const int64_t tiles = (int64_t)tiles_w * cdiv(H, TH);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  conv3x3_f32_kernel<NV, VEC><<<dim3((unsigned)tiles, cdiv(Cout, Cfg<NV>::BN), N), THREADS,
+                                Cfg<NV>::SMEM, s>>>(x, w, b, y, H, W, Cin, Cout, tiles_w);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++launches;
+  return e;
 }
 
-cudaError_t double_conv(const float* x, const float* w1, const float* b1, const float* w2,
-                        const float* b2, float* out, int N, int H, int W, int Cin, int Cm,
-                        int Cout, cudaStream_t s) {
-  // the wider tile when the image is wider than 8 and its middle tile fits
-  if (W > 8 && Tile<16>::smem_bytes(Cm) <= SMEM_LIMIT)
-    return launch<16>(x, w1, b1, w2, b2, out, N, H, W, Cin, Cm, Cout, s);
-  if (Tile<8>::smem_bytes(Cm) <= SMEM_LIMIT)
-    return launch<8>(x, w1, b1, w2, b2, out, N, H, W, Cin, Cm, Cout, s);
-  return cudaErrorInvalidValue;  // the middle tile does not fit in shared memory
+// One conv3x3 + bias + ReLU; bn is the plan's output channels per block.
+cudaError_t conv3x3(const void* x, const void* w, const float* b, void* y, int N, int H, int W,
+                    int Cin, int Cout, int bn, cudaStream_t s) {
+  if (Cout % 4 || N < 1 || N > 65535 || Cin < 1 || (bn != 32 && bn != 64))
+    return cudaErrorInvalidValue;
+  if (misaligned(w) || misaligned(y)) return cudaErrorMisalignedAddress;
+  const bool vec = Cin % 4 == 0 && !misaligned(x);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* yf = static_cast<float*>(y);
+  if (bn == 32)
+    return vec ? launch<1, true>(xf, wf, b, yf, N, H, W, Cin, Cout, s)
+               : launch<1, false>(xf, wf, b, yf, N, H, W, Cin, Cout, s);
+  return vec ? launch<2, true>(xf, wf, b, yf, N, H, W, Cin, Cout, s)
+             : launch<2, false>(xf, wf, b, yf, N, H, W, Cin, Cout, s);
 }
 
 }  // namespace f32
@@ -294,15 +344,6 @@ __device__ __forceinline__ uint32_t swz(int row, int col) {
   return (uint32_t)(row * (KC * 2) + ((col ^ ((row / ROWS_PER_LINE) % COLS)) << 4));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -492,16 +533,22 @@ cudaError_t conv3x3(const void* x, const void* w, const float* b, void* y, int N
 
 }  // namespace
 
-// float32.  x: (N, H, W, Cin) dense NHWC; w1: (3, 3, Cin, Cm) and w2:
-// (3, 3, Cm, Cout) dense HWIO; b1, b2 float32; out: (N, H, W, Cout).
-extern "C" int ugpg_double_conv_f32(const void* x, const void* w1, const float* b1,
+// float32: two launches of the CUDA-core conv.  x: (N, H, W, Cin) dense
+// NHWC; w1: (3, 3, Cin, Cm) and w2: (3, 3, Cm, Cout) dense HWIO; b1, b2
+// float32; mid: (N, H, W, Cm) scratch; out: (N, H, W, Cout); bn1, bn2: the
+// output channels per block of each launch (32 or 64).
+extern "C" int ugpg_double_conv_f32(const void* x, const void* w1, const float* b1, void* mid,
                                     const void* w2, const float* b2, void* out, int N, int H,
-                                    int W, int Cin, int Cm, int Cout, void* stream) {
-  if (Cm % 8 || Cout % 8 || N < 1 || N > 65535) return (int)cudaErrorInvalidValue;
-  return (int)f32::double_conv(static_cast<const float*>(x), static_cast<const float*>(w1), b1,
-                               static_cast<const float*>(w2), b2, static_cast<float*>(out), N,
-                               H, W, Cin, Cm, Cout, static_cast<cudaStream_t>(stream));
+                                    int W, int Cin, int Cm, int Cout, int bn1, int bn2,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = f32::conv3x3(x, w1, b1, mid, N, H, W, Cin, Cm, bn1, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)f32::conv3x3(mid, w2, b2, out, N, H, W, Cm, Cout, bn2, s);
 }
+
+// Launches of conv3x3_f32_kernel in this process so far, modulo 2^31.
+extern "C" int ugpg_conv3x3_f32_launches() { return (int)(f32::launches.load() & 0x7fffffffu); }
 
 // bfloat16: two launches of the tensor-core conv.  x: (N, H, W, Cin) dense
 // NHWC; w1: (9, Cm, Cpad1) and w2: (9, Cout, Cpad2) packed (Cpad = Cin or

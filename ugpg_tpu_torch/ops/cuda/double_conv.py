@@ -5,8 +5,9 @@ Counterpart of ``ugpg_tpu/ops/pallas/double_conv.py::fused_double_conv``.
 for CUDA tensors and takes the plain version,
 ``fused_double_conv_reference``, only for CPU tensors.  bfloat16 runs the
 tensor-core conv twice (conv1 into a bf16 scratch tensor, then conv2);
-float32 runs the CUDA-core kernel, which keeps the middle activation in
-shared memory and matches the CPU to 1e-4.
+float32 runs the CUDA-core conv (an implicit GEMM in float32 FMA, which
+matches the CPU to 1e-4) twice the same way, into a float32 middle tensor.
+``f32_plan`` picks each float32 launch's output channels per block.
 
 Tensors follow PyTorch's conventions: ``x`` is (N, Cin, H, W), stored
 ``torch.channels_last`` on the GPU (NHWC memory, as the kernels read it);
@@ -30,7 +31,12 @@ import torch.nn.functional as F
 from ugpg_tpu_torch.ops.cuda import _lib
 
 __all__ = [
+    "F32_TILE",
+    "F32_MIN_BLOCKS",
     "conv_chunk",
+    "f32_blocks",
+    "f32_launches",
+    "f32_plan",
     "pack_conv3x3",
     "pack_double_conv",
     "conv3x3_packed_reference",
@@ -39,8 +45,25 @@ __all__ = [
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES_F32 = (_P,) * 6 + (_I,) * 6 + (_P,)
-_ARGTYPES_BF16 = (_P,) * 7 + (_I,) * 8 + (_P,)
+_ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
+
+F32_TILE = (8, 16)  # the float32 conv's output tile: rows, columns
+F32_MIN_BLOCKS = 256  # about two blocks per SM on the H100's 132
+
+
+def f32_blocks(n: int, h: int, w: int, cout: int, bn: int) -> int:
+    """Blocks of one float32 conv launch: (pixel tiles, Cout / bn, N)."""
+    th, tw = F32_TILE
+    return -(-h // th) * -(-w // tw) * -(-cout // bn) * n
+
+
+def f32_plan(n: int, h: int, w: int, cout: int) -> int:
+    """Output channels per block (BN) of one float32 conv: 64, or 32 when
+    ``cout`` <= 32 or when 64 would leave the grid under
+    ``F32_MIN_BLOCKS`` blocks (32 doubles it where ``cout`` > 32)."""
+    if cout > 32 and f32_blocks(n, h, w, cout, 64) >= F32_MIN_BLOCKS:
+        return 64
+    return 32
 
 
 def conv_chunk(cin: int) -> int:
@@ -53,6 +76,12 @@ def _padded(cin: int) -> int:
     """``cin`` rounded up to a multiple of ``conv_chunk(cin)``."""
     kc = conv_chunk(cin)
     return -(-cin // kc) * kc
+
+
+def f32_launches() -> int:
+    """Launches of the float32 conv kernel in this process so far, modulo
+    2^31: the C side's own count, two per float32 ``fused_double_conv``."""
+    return _lib.function("double_conv", "ugpg_conv3x3_f32_launches", ())()
 
 
 def pack_conv3x3(w: torch.Tensor) -> torch.Tensor:
@@ -143,18 +172,16 @@ def fused_double_conv(x, w1, b1, w2, b2, packed=None) -> torch.Tensor:
             t.dtype != d or t.device != x.device or not t.is_contiguous()
             for t, d in zip((w1k, b1f, w2k, b2f), (x.dtype, torch.float32) * 2)):
         raise ValueError("fused_double_conv: packed weights do not match pack_double_conv")
+    mid = torch.empty((n, cm, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    if bf16:
+        symbol, k1, k2 = "ugpg_double_conv_bf16", conv_chunk(cin), conv_chunk(cm)
+    else:
+        symbol, k1, k2 = "ugpg_double_conv_f32", f32_plan(n, h, w, cm), f32_plan(n, h, w, cout)
+    fn = _lib.function("double_conv", symbol, _ARGTYPES)
     with torch.cuda.device(x.device):
-        if bf16:
-            mid = torch.empty((n, cm, h, w), dtype=x.dtype, device=x.device,
-                              memory_format=torch.channels_last)
-            fn = _lib.function("double_conv", "ugpg_double_conv_bf16", _ARGTYPES_BF16)
-            rc = fn(x.data_ptr(), w1k.data_ptr(), b1f.data_ptr(), mid.data_ptr(),
-                    w2k.data_ptr(), b2f.data_ptr(), out.data_ptr(), n, h, w, cin, cm, cout,
-                    conv_chunk(cin), conv_chunk(cm), _lib.stream(x))
-        else:
-            fn = _lib.function("double_conv", "ugpg_double_conv_f32", _ARGTYPES_F32)
-            rc = fn(x.data_ptr(), w1k.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
-                    b2f.data_ptr(), out.data_ptr(), n, h, w, cin, cm, cout, _lib.stream(x))
+        rc = fn(x.data_ptr(), w1k.data_ptr(), b1f.data_ptr(), mid.data_ptr(), w2k.data_ptr(),
+                b2f.data_ptr(), out.data_ptr(), n, h, w, cin, cm, cout, k1, k2, _lib.stream(x))
     _lib.check(rc, "double_conv", "fused_double_conv")
     _lib.count("fused_double_conv")
     return out
