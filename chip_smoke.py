@@ -63,7 +63,7 @@
    step.
 8. One stage-4 step, fused vs plain loss, from the same weights and batch;
    one stage-2 step at width 0.25 on the card vs on the CPU.
-9. Trains on MoNuSeg, the main path of this slice.  The script writes a
+9. Trains on MoNuSeg, segmentation's main path.  The script writes a
    MoNuSeg tree with the standard library (struct, zlib), no PIL: 32
    patches of 256 px (PNG, about 30 polygon nuclei each, in train/aug) and
    four 1000 x 1000 Deflate TIFF tiles of about 400 nuclei (two in train,
@@ -111,7 +111,36 @@
    torch.profiler breakdown of one native-resolution forward, in which the
    float32 conv kernel must show device time and 18 launches (and 18 by the
    C side's count).
-11. Prints a "kernels" JSON line, then as its last line
+11. Herlev classification, the classification workload's main path.  The
+   script writes a Herlev tree with struct: the 7 class folders, 12 BMPs
+   each, 64-512 px a side with odd widths, 24-bit bottom-up, some 32-bit
+   and some top-down; the port's decoder must return every written pixel.  Trains
+   with `python -m ugpg_tpu_torch.cli.train_herlev` in a child (stages
+   1-4, --epochs 2, --batch_size 16, float32, the in-memory 70/20/10
+   split) and sends it SIGTERM at its first "Stage 2, Batch" line: exit 75
+   and herlev_stage2_last.pth at stage 2, epoch 1; then the same command
+   with --resume in this process: exit 0, a _best.pth per stage, each
+   (stage, epoch) once in training_log.csv and the history, finite
+   losses, stage >= 2 uncertainty-weight means above 1 and no loss-kernel
+   launch.  Train images/s per stage at batch 16 (the train split read 8
+   times an epoch, 28 steps; three timed epochs after a warm one, each
+   epoch's rate and their spread; the loader alone over one epoch; the
+   step alone on one batch) and a profile of one stage-4 train step.  test_herlev on the
+   stage-4 _best.pth (the test split, then --predict): finite metrics, and
+   the counters, reset just before, showing 4 double-conv calls per
+   forward, 8 conv3x3_f32_kernel launches by the C side's count and no
+   plain-version call.  The classification Predictor (buckets 1, 8, 64)
+   on a seeded full-width stage-4 checkpoint in bf16, uint8 and float32
+   and with mc_dropout=8: requests of 1, 5, 8, 11 images, 16 concurrent
+   BatchingServer submits, float32 card vs CPU (probabilities 1e-4,
+   labels equal away from ties), images/s at bucket 64 in bf16 with a
+   profile whose double-conv time is conv3x3_mma_kernel's, bucket-1
+   latency over 50 requests, 4 double-conv launches per device call.  The
+   double conv against its plain version at every classifier shape in
+   bf16 and float32 (and stage 1's at batch 1), and one stage-4
+   classifier forward's double convs timed at bucket 64 in bf16 and batch
+   16 in float32 beside cuDNN's pair and the bound.
+12. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -155,12 +184,18 @@ from ugpg_tpu_torch.data.loader import DataLoader, prefetch_to_device  # noqa: E
 from ugpg_tpu_torch.data.monuseg import load_rgb, resize_image, resize_mask  # noqa: E402
 from ugpg_tpu_torch.data.rasterize import parse_polygons, rasterize_polygons  # noqa: E402
 from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset  # noqa: E402
-from ugpg_tpu_torch.cli import test_monuseg  # noqa: E402
+from ugpg_tpu_torch.cli import test_herlev, test_monuseg, train_herlev  # noqa: E402
+from ugpg_tpu_torch.data.herlev import CLASS_NAMES, HerlevDataset  # noqa: E402
 from ugpg_tpu_torch.data.monuseg import AugMoNuSegDataset, MoNuSegDataset  # noqa: E402
 from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator  # noqa: E402
 from ugpg_tpu_torch.eval.serving import BatchingServer, Predictor  # noqa: E402
 from ugpg_tpu_torch.eval.slide import SlidePredictor, native_forward  # noqa: E402
-from ugpg_tpu_torch.io.checkpoint import read_checkpoint  # noqa: E402
+from ugpg_tpu_torch.io.checkpoint import full_classifier_state_dict, read_checkpoint  # noqa: E402
+from ugpg_tpu_torch.models.classifier import (  # noqa: E402
+    CLS_STAGE_RESOLUTIONS,
+    ENCODER_SPECS,
+    HerlevClassificationModel,
+)
 from ugpg_tpu_torch.models.pgunet import PGUNet4  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import double_conv as double_conv_mod  # noqa: E402
@@ -186,6 +221,8 @@ from ugpg_tpu_torch.ops.cuda.uncertainty_bce import (  # noqa: E402
     uncertainty_weighted_bce_reference,
 )
 from ugpg_tpu_torch.train.aug_trainer import AugMoNuSegTrainer  # noqa: E402
+from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer  # noqa: E402
+from ugpg_tpu_torch.train.cls_trainer import create_config as create_herlev_config  # noqa: E402
 from ugpg_tpu_torch.train.optim import torch_rmsprop  # noqa: E402
 from ugpg_tpu_torch.train.seg_trainer import (  # noqa: E402
     DEFAULT_STAGE_CONFIGS,
@@ -1127,7 +1164,7 @@ def check_augment_card_vs_cpu(images: torch.Tensor, masks: torch.Tensor) -> None
 
 
 def train_monuseg(tmp: Path):
-    """This slice's main path: AugMoNuSegTrainer on a MoNuSeg tree the script
+    """MoNuSeg training: AugMoNuSegTrainer on a MoNuSeg tree the script
     writes, full width, fused loss, augmentation on the card, stages 1-4 at
     1 epoch each, then one stage-2 epoch with 8 grid angles."""
     root = tmp / "MoNuSeg"
@@ -1326,15 +1363,15 @@ class _OneTile:
 
 
 @contextlib.contextmanager
-def counting_forwards_and_plain_calls():
-    """Counts PGUNet4 forwards and every call of the three serving kernels'
-    plain versions while inside."""
+def counting_forwards_and_plain_calls(model_cls=PGUNet4):
+    """Counts ``model_cls`` forwards and every call of the three serving
+    kernels' plain versions while inside."""
     counts = {"forwards": 0, "plain": 0}
-    forward = PGUNet4.forward
+    forward = model_cls.forward
 
-    def counted_forward(self, x):
+    def counted_forward(self, *args, **kwargs):
         counts["forwards"] += 1
-        return forward(self, x)
+        return forward(self, *args, **kwargs)
 
     plains = [(double_conv_mod, "fused_double_conv_reference"),
               (resize2x_mod, "upsample2x_reference"),
@@ -1347,13 +1384,13 @@ def counting_forwards_and_plain_calls():
             return fn(*args, **kwargs)
         return wrapper
 
-    PGUNet4.forward = counted_forward
+    model_cls.forward = counted_forward
     for (mod, name), fn in zip(plains, saved):
         setattr(mod, name, counted(fn))
     try:
         yield counts
     finally:
-        PGUNet4.forward = forward
+        model_cls.forward = forward
         for (mod, name), fn in zip(plains, saved):
             setattr(mod, name, fn)
 
@@ -1419,40 +1456,45 @@ def ptxas_report(proc: subprocess.Popen) -> dict:
 
 
 @tf32(False)
-def time_f32_double_conv(shapes: dict, n: int, label: str, ptxas: dict) -> dict:
-    """The float32 double conv (two launches of the CUDA-core conv) over the
-    9 shapes of one stage-4 forward, batch ``n``: CUDA-event time beside its
-    plain version, cuDNN's pair in float32 with TF32 off, and the bound at
-    the card's FP32 CUDA-core peak (67 TFLOP/s) or its HBM rate; with each
-    launch's plan (BN, tile, blocks) and its kernel's registers and spills."""
+def time_double_conv(shapes: dict, n: int, label: str, ptxas: dict,
+                     dtype: torch.dtype = torch.float32) -> dict:
+    """The double conv (two launches of its conv kernel) over the shapes of
+    one forward, batch ``n``, in ``dtype``: CUDA-event time beside its plain
+    version, cuDNN's pair (TF32 off) and the bound at the card's peak for
+    the dtype (bf16 tensor cores 989, FP32 CUDA cores 67 TFLOP/s) or its
+    HBM rate; in float32 with each launch's plan (BN, tile, blocks) and its
+    kernel's registers and spills."""
     g = torch.Generator(device=DEV).manual_seed(8)
     total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "flop"), 0.0)
     for name, (h, cin, cm, cout) in shapes.items():
-        args = dc_inputs(n, h, cin, cm, cout, torch.float32, g)
+        args = dc_inputs(n, h, cin, cm, cout, dtype, g)
         flop = 2 * n * h * h * 9 * (cin * cm + cm * cout)
-        nbytes = n * h * h * (cin + cout) * 4 + 9 * cm * (cin + cout) * 4 + 4 * (cm + cout)
+        sz = dtype.itemsize
+        nbytes = n * h * h * (cin + cout) * sz + 9 * cm * (cin + cout) * sz + 4 * (cm + cout)
         plan = []
-        for c_in, c_out in ((cin, cm), (cm, cout)):
-            bn = f32_plan(n, h, h, c_out)
-            plan.append({"bn": bn, "tile": list(F32_TILE), "blocks": f32_blocks(n, h, h, c_out, bn),
-                         **ptxas[f"bn{bn}" + ("" if c_in % 4 == 0 else "_scalar")]})
+        if dtype == torch.float32:
+            for c_in, c_out in ((cin, cm), (cm, cout)):
+                bn = f32_plan(n, h, h, c_out)
+                plan.append({"bn": bn, "tile": list(F32_TILE),
+                             "blocks": f32_blocks(n, h, h, c_out, bn),
+                             **ptxas[f"bn{bn}" + ("" if c_in % 4 == 0 else "_scalar")]})
         t = {"ms": time_ms(fused_double_conv, args), "plain_ms": time_ms(
                 fused_double_conv_reference, args, reps=1, repeats=3),
              "library_ms": time_ms(library_double_conv, args),
              "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-             "ops_ms": flop / PEAK_OPS_PER_S[torch.float32] * 1e3, "flop": flop}
+             "ops_ms": flop / PEAK_OPS_PER_S[dtype] * 1e3, "flop": flop}
         log(f"time {label}", json.dumps({"kernel": "fused_double_conv", "shape": name, "hw": h,
-                                         "batch": n, "dtype": "float32", **t,
+                                         "batch": n, "dtype": str(dtype)[6:], **t,
                                          "tflop_per_s": flop / t["ms"] / 1e9,
                                          "bound_share": max(t["bytes_ms"], t["ops_ms"]) / t["ms"],
-                                         "launches": plan}))
+                                         **({"launches": plan} if plan else {})}))
         for key, value in t.items():
             total[key] += value
         del args
     torch.cuda.empty_cache()
     total["tflop_per_s"] = total["flop"] / total["ms"] / 1e9
     total["bound_share"] = max(total["bytes_ms"], total["ops_ms"]) / total["ms"]
-    log(f"time {label} total", json.dumps({"kernel": "fused_double_conv", "dtype": "float32",
+    log(f"time {label} total", json.dumps({"kernel": "fused_double_conv", "dtype": str(dtype)[6:],
                                           "px": next(iter(shapes.values()))[0], "batch": n,
                                           **total}))
     return total
@@ -1561,9 +1603,9 @@ def monuseg_command_lines(tmp: Path, root: Path, ptxas: dict):
     assert 0.0 < float(cpu[0].mean()) < 1.0  # the seeded model predicts both classes
 
     errors = check_native_kernels()
-    dc = time_f32_double_conv(NATIVE_DOUBLE_CONVS, 1, "native", ptxas)
+    dc = time_double_conv(NATIVE_DOUBLE_CONVS, 1, "native", ptxas)
     # the stage-resolution evaluator's shapes: 256 px, batch 8
-    dc_stage = time_f32_double_conv(DOUBLE_CONVS, TRAIN_BATCH, "stage", ptxas)
+    dc_stage = time_double_conv(DOUBLE_CONVS, TRAIN_BATCH, "stage", ptxas)
 
     # times: native evaluation per tile, stage-resolution evaluation images/s
     ev = MoNuSegEvaluator(model)
@@ -1615,6 +1657,395 @@ def monuseg_command_lines(tmp: Path, root: Path, ptxas: dict):
     return launches, errors, times
 
 
+# ---------------------------------------------------------------- Herlev classification
+HERLEV_PER_CLASS = 12
+HERLEV_BATCH = 16  # the reference's
+HERLEV_EPOCHS = 2
+HERLEV_TIMED_REPEAT = 8  # the train split (56 images) read 8 times an epoch: 28 steps
+HERLEV_TIMED_EPOCHS = 3
+HERLEV_STEP_REPEATS = 20
+SERVE_BUCKETS = (1, 8, 64)
+LATENCY_REPEATS = 50
+
+
+def cls_double_convs(stage: int) -> dict:
+    """(H, Cin, Cm, Cout) of each DoubleConv of the stage's classifier
+    encoder at its resolution, from the package's own specs."""
+    inc, downs = ENCODER_SPECS[stage]
+    px = CLS_STAGE_RESOLUTIONS[stage]
+    out, c = {"inc": (px, 3, inc, inc)}, inc
+    for name, width in downs:
+        px //= 2
+        out[name] = (px, c, width, width)
+        c = width
+    return out
+
+
+def bmp_bytes(img: np.ndarray, bits: int = 24, top_down: bool = False) -> bytes:
+    """An uncompressed BI_RGB BMP of an (H, W, 3) uint8 image, rows padded
+    to 4 bytes; 32-bit files carry an alpha byte."""
+    h, w, _ = img.shape
+    bpp = bits // 8
+    stride = (w * bpp + 3) // 4 * 4
+    px = img[::1 if top_down else -1, :, ::-1]  # rows in file order, RGB -> BGR
+    if bpp == 4:
+        px = np.concatenate([px, np.full((h, w, 1), 255, np.uint8)], 2)
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * bpp] = px.reshape(h, w * bpp)
+    data = rows.tobytes()
+    header = struct.pack("<2sIHHI", b"BM", 54 + len(data), 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bits, 0, len(data),
+                       2835, 2835, 0, 0)
+    return header + info + data
+
+
+def write_herlev_tree(root: Path, seed: int = 0) -> dict:
+    """The 7 class folders with HERLEV_PER_CLASS cell images each, 64-512 px
+    a side, odd widths; 24-bit bottom-up, every fourth file 32-bit and
+    every fourth (offset 2) top-down.  The nucleus's shade and size follow
+    the class.  -> {path: written pixels}."""
+    rng = np.random.default_rng(seed)
+    written = {}
+    for ci, name in enumerate(CLASS_NAMES):
+        d = root / name
+        d.mkdir(parents=True)
+        for i in range(HERLEV_PER_CLASS):
+            h, w = int(rng.integers(64, 513)), int(rng.integers(64, 512)) | 1
+            yy, xx = np.mgrid[:h, :w]
+            img = rng.integers(170, 235, (h, w, 3)).astype(np.int64)
+            r = min(h, w) * (0.15 + 0.03 * ci)
+            nucleus = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 < r * r
+            img[nucleus] = (40 + 20 * ci, 60, 160 - 15 * ci)
+            img = np.clip(img + rng.integers(-12, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+            path = d / f"{name}_{i:02d}.bmp"
+            path.write_bytes(bmp_bytes(img, bits=32 if i % 4 == 1 else 24,
+                                       top_down=i % 4 == 2))
+            written[path] = img
+    return written
+
+
+def herlev_train_command(root: Path, out: Path, *extra) -> list[str]:
+    return [sys.executable, "-u", "-m", "ugpg_tpu_torch.cli.train_herlev", "--data_dir",
+            str(root), "--output_dir", str(out), "--epochs", str(HERLEV_EPOCHS),
+            "--batch_size", str(HERLEV_BATCH), *extra]
+
+
+def random_classifier_checkpoint(path: Path, stage: int = 4, seed: int = 0) -> None:
+    """Full-width classifier weights from a seed (He-scaled convs and
+    linears, non-trivial BN stats) in the reference's container and key set."""
+    g = np.random.default_rng(seed)
+    sd = {}
+    for key, value in HerlevClassificationModel(stage, 7).state_dict().items():
+        shape = tuple(value.shape)
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.zeros((), dtype=torch.int64)
+            continue
+        if value.dim() in (2, 4):
+            v = g.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif key.endswith("running_var"):
+            v = 1 + 0.2 * g.random(shape)
+        elif key.endswith("weight"):  # BN scale
+            v = 1 + 0.1 * g.standard_normal(shape)
+        else:  # biases, running means
+            v = 0.1 * g.standard_normal(shape)
+        sd[key] = torch.from_numpy(np.asarray(v, np.float32))
+    torch.save({"stage": stage, "epoch": 0, "config": {"num_classes": 7},
+                "model_state_dict": full_classifier_state_dict(sd, stage)}, path)
+
+
+@tf32(False)
+def check_classifier_kernels() -> float:
+    """The double conv against its plain version at every classifier shape
+    (stages 1-4), batch 8, bf16 and float32, and at stage 1's 512 channels
+    at batch 1 (float32, BN 32), phase 3's tolerance."""
+    g = torch.Generator(device=DEV).manual_seed(9)
+    worst = 0.0
+    cases = [(stage, name, shape, dtype, CHECK_BATCH) for dtype in (torch.float32, torch.bfloat16)
+             for stage in (1, 2, 3, 4) for name, shape in cls_double_convs(stage).items()]
+    cases.append((1, "inc", cls_double_convs(1)["inc"], torch.float32, 1))
+    for stage, name, shape, dtype, n in cases:
+        args = dc_inputs(n, *shape, dtype, g)
+        got, want = fused_double_conv(*args), fused_double_conv_reference(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        rel = 1e-4 if dtype == torch.float32 else 2e-2
+        ok = got.shape == want.shape and err <= rel * max(1.0, scale)
+        log(f"check herlev stage {stage} {name:5s} {tuple(args[0].shape)} {str(dtype)[6:]:8s} "
+            f"max_abs_err={err:.3e} max|plain|={scale:.3e} -> {'ok' if ok else 'FAIL'}")
+        assert ok, (stage, name, dtype, n, err, scale)
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+        del args, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+class Repeated:
+    """A map-style dataset read ``times`` over; every read decodes and
+    resizes its file anew."""
+
+    def __init__(self, dataset, times: int):
+        self.dataset, self.times = dataset, times
+
+    def __len__(self) -> int:
+        return self.times * len(self.dataset)
+
+    def __getitem__(self, i: int):
+        return self.dataset[i % len(self.dataset)]
+
+
+def herlev_train_throughput(root: Path, class_weights: list) -> dict:
+    """Train images/s per stage at batch 16, float32 with cuDNN's default
+    TF32, from the tree through the loaders (4 threads) and the device
+    prefetch queue.  An epoch reads the train split HERLEV_TIMED_REPEAT
+    times; one warm-up epoch, then HERLEV_TIMED_EPOCHS timed ones, each
+    epoch's rate kept; then one epoch of the loader alone, the host's rate,
+    and the step alone, repeated on one host batch.  And a profile of one
+    stage-4 train step."""
+    cfg = create_herlev_config()
+    cfg.update(data_dir=str(root), class_weights=class_weights, verbose=False)
+    trainer = HerlevTrainer(cfg)
+    out = {}
+    for stage in (1, 2, 3, 4):
+        ds = Repeated(HerlevDataset(str(root), image_size=CLS_STAGE_RESOLUTIONS[stage],
+                                    split="train", verbose=False), HERLEV_TIMED_REPEAT)
+        loader = DataLoader(ds, batch_size=HERLEV_BATCH, shuffle=True, num_workers=4,
+                            seed=42 + stage)
+        trainer.setup_optimizer_scheduler(stage)
+        trainer.train_epoch(loader, stage)  # warm: cuDNN's plans, the allocator
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(HERLEV_TIMED_EPOCHS):
+            t0 = time.perf_counter()
+            tr_loss = trainer.train_epoch(loader, stage)[0]  # reads the epoch's metrics back
+            rates.append(len(ds) / (time.perf_counter() - t0))
+            assert math.isfinite(tr_loss)
+        t0 = time.perf_counter()
+        for _ in loader:
+            pass
+        loader_ips = len(ds) / (time.perf_counter() - t0)
+        batch = next(iter(loader))
+        step = trainer._get_train_step(stage)
+        step(batch, trainer.class_weights, trainer.generator)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HERLEV_STEP_REPEATS):  # one host batch, no loader running
+            step(batch, trainer.class_weights, trainer.generator)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / HERLEV_STEP_REPEATS * 1e3
+        median = statistics.median(rates)
+        out[stage] = {"images_per_s": median, "epochs": rates,
+                      "spread": (max(rates) - min(rates)) / median,
+                      "loader_images_per_s": loader_ips, "step_alone_ms": step_ms,
+                      "timed_steps": HERLEV_TIMED_EPOCHS * len(loader)}
+    profile_call(f"herlev train: one stage-4 step, batch {HERLEV_BATCH}, float32",
+                 lambda: step(batch, trainer.class_weights, trainer.generator))
+    log(f"herlev train: per stage at batch {HERLEV_BATCH}, {len(ds)} images an epoch (the "
+        f"train split {HERLEV_TIMED_REPEAT} times, decoded and resized on 4 threads), "
+        f"{HERLEV_TIMED_EPOCHS} timed epochs; the loader alone over one epoch; the step "
+        f"alone, {HERLEV_STEP_REPEATS} on one host batch: "
+        + json.dumps({s: {k: [round(x, 2) for x in v] if isinstance(v, list) else round(v, 4)
+                          for k, v in r.items()} for s, r in out.items()}))
+    return out
+
+
+def serve_herlev(tmp: Path) -> tuple[dict, dict]:
+    """The classification Predictor at full width, stage 4 (224 px):
+    requests, the micro-batcher, the card against the CPU, images/s at
+    bucket 64 in bf16 with a profile, and the bucket-1 latency."""
+    ckpt = tmp / "herlev_stage4_seeded.pth"
+    random_classifier_checkpoint(ckpt)
+    rng = np.random.default_rng(3)
+    px = CLS_STAGE_RESOLUTIONS[4]
+    images8 = rng.integers(0, 256, (64, px, px, 3), dtype=np.uint8)
+    images = images8.astype(np.float32) / 255.0
+    common = dict(task_type="classification", num_classes=7, buckets=SERVE_BUCKETS)
+
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    pb = Predictor(str(ckpt), **common)
+    p8 = Predictor(str(ckpt), input_dtype=np.uint8, **common)
+    p32 = Predictor(str(ckpt), dtype=torch.float32, **common)
+    pmc = Predictor(str(ckpt), dtype=torch.float32, mc_dropout=8, **common)
+    log(f"herlev serve: predictors built in {time.perf_counter() - t0:.2f} s")
+    for n in (1, 5, 8, 11):
+        a, b = pb(images[:n]), p8(images8[:n])
+        for labels, probs in (a, b):
+            assert labels.shape == (n,) and labels.dtype == np.int32 and probs.shape == (n, 7)
+            assert np.isfinite(probs).all() and np.allclose(probs.sum(-1), 1.0, atol=1e-5)
+            np.testing.assert_array_equal(labels, probs.argmax(-1))
+        for u, v in zip(a, b):  # x/255 on the host == on the device
+            np.testing.assert_array_equal(u, v)
+    odd = pb(images[:3, :200, :180])  # any request size: resized on the host
+    assert odd[1].shape == (3, 7)
+    log("herlev serve: requests of 1, 5, 8, 11 images (float32 and uint8) and 3 of 200 x 180 "
+        "px ok")
+
+    server = BatchingServer(pb, max_latency_ms=20.0)
+    try:
+        futures = [server.submit(im) for im in images[:16]]
+        results = [f.result(timeout=600) for f in futures]
+    finally:
+        server.close()
+    direct = pb(images[:16])
+    for i, (label, probs) in enumerate(results):
+        assert label == direct[0][i]
+        np.testing.assert_allclose(probs, direct[1][i], atol=1e-6)
+    log("herlev serve: 16 concurrent submits ok", json.dumps(server.stats()))
+
+    labels, mean, var = pmc(images[:8])
+    again = pmc(images[:8])
+    assert labels.shape == (8,) and mean.shape == (8, 7) and var.shape == (8,)
+    assert (var >= 0).all() and var.max() > 0 and np.allclose(mean.sum(-1), 1.0, atol=1e-5)
+    for u, v in zip(again, (labels, mean, var)):
+        np.testing.assert_array_equal(u, v)
+    log(f"herlev serve: mc_dropout=8, 8 images: variance {np.round(var, 6).tolist()}, equal on "
+        "a repeat")
+
+    with tf32(False):
+        g32 = p32(images[:4])
+        cpu = Predictor(str(ckpt), dtype=torch.float32, device="cpu", **common)(images[:4])
+    err = float(np.abs(g32[1] - cpu[1]).max())
+    top2 = np.sort(cpu[1], -1)[:, -2:]
+    flips = g32[0] != cpu[0]
+    log(f"herlev serve: float32 card vs CPU: max|dprob|={err:.3e}, label flips {int(flips.sum())}, "
+        f"top-2 gaps {np.round(top2[:, 1] - top2[:, 0], 5).tolist()}")
+    assert err <= 1e-4 and np.all(top2[flips, 1] - top2[flips, 0] < 1e-4)
+    bf_err = float(np.abs(pb(images[:4])[1] - cpu[1]).max())
+    log(f"herlev serve: bf16 card vs float32 CPU: max|dprob|={bf_err:.3e}")
+    assert bf_err < 5e-2
+
+    pb(images)  # warm
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pb(images)
+    dt = time.perf_counter() - t0
+    ips = reps * 64 / dt
+    log(f"herlev serve: bucket 64 bf16: {ips:.2f} images/s ({dt / reps * 1e3:.2f} ms per call)")
+    f32_before = f32_launches()
+    device, wall_ms, seen = profile_call("herlev serve: bucket 64, 64 images, bf16",
+                                         lambda: pb(images))
+    f32_calls = f32_launches() - f32_before
+    mma_ms = sum(v for k, v in device.items() if "conv3x3_mma_kernel" in k)
+    mma_seen = sum(v for k, v in seen.items() if "conv3x3_mma_kernel" in k)
+    f32_ms = sum(v for k, v in device.items() if F32_KERNEL in k)
+    log(f"herlev serve: bf16 double conv (conv3x3_mma_kernel, 8 launches a call, {mma_seen} in "
+        f"the profile): {mma_ms:.3f} ms of device time, {mma_ms / wall_ms:.1%} of the call, "
+        f"{mma_ms / sum(device.values()):.1%} of device busy; {F32_KERNEL} {f32_ms:.3f} ms, "
+        f"{f32_calls} launches")
+    assert mma_ms > 0 and f32_ms == 0 and f32_calls == 0, (mma_ms, f32_ms, f32_calls)
+
+    one = images[:1]
+    pb(one)
+    lat = []
+    for _ in range(LATENCY_REPEATS):
+        t0 = time.perf_counter()
+        pb(one)  # returns numpy: the device's work is done
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    latency = {"median_ms": statistics.median(lat), "p10_ms": lat[len(lat) // 10],
+               "p90_ms": lat[len(lat) * 9 // 10], "min_ms": lat[0], "max_ms": lat[-1],
+               "repeats": LATENCY_REPEATS}
+    log("herlev serve: bucket-1 latency, bf16, one 224 px image:", json.dumps(latency))
+
+    counts = _lib.launch_counts()
+    calls = sum(p.stats()["device_calls"] for p in (pb, p8, p32, pmc))
+    log(f"herlev serve: {calls} device calls, launches {json.dumps(counts)}")
+    assert counts == {"fused_double_conv": 4 * calls}, (counts, calls)
+    return counts, {"images_per_s": ips, "latency": latency}
+
+
+def herlev(tmp: Path, ptxas: dict):
+    """Phase 11: Herlev classification through its command lines, the
+    trainer's throughput, the evaluator, serving, and the double conv at
+    the classifier's shapes."""
+    root = tmp / "Herlev"
+    t0 = time.perf_counter()
+    written = write_herlev_tree(root)
+    for path, img in written.items():
+        np.testing.assert_array_equal(native.decode_bmp(path), img, err_msg=str(path))
+    log(f"herlev: wrote and decoded {len(written)} BMPs (7 classes, 64-512 px, 24/32-bit, "
+        f"bottom-up/top-down) in {time.perf_counter() - t0:.2f} s, every pixel as written")
+
+    out = tmp / "herlev_cli"
+    rc, text, dt = run_command(herlev_train_command(root, out), stop_at="Stage 2, Batch")
+    log(f"herlev cli: train_herlev, SIGTERM at its first 'Stage 2, Batch' line: exit {rc} after "
+        f"{dt:.1f} s")
+    log_tail("herlev cli: preempted run", text)
+    assert rc == 75, text[-4000:]
+    last = read_checkpoint(out / "herlev_stage2_last.pth")
+    assert last["stage"] == 2 and last["epoch"] == 1, (last["stage"], last["epoch"])
+    assert last["optimizer_state_dict"]["state"] and last["generator_state"] is not None
+    assert not list(out.glob("herlev_stage3*")) and not list(out.glob("herlev_stage4*"))
+
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = train_herlev.cli(["--data_dir", str(root), "--output_dir", str(out), "--epochs",
+                           str(HERLEV_EPOCHS), "--batch_size", str(HERLEV_BATCH), "--resume"])
+    torch.cuda.synchronize()
+    train_launches = _lib.launch_counts()
+    log(f"herlev cli: train_herlev --resume (in this process): exit {rc} after "
+        f"{time.perf_counter() - t0:.1f} s, launches {json.dumps(train_launches)}")
+    assert rc == 0 and not any(train_launches.get(k) for k in LOSS_KERNELS), train_launches
+    with open(out / "training_log.csv") as f:
+        rows = [(int(r["stage"]), int(r["epoch"])) for r in csv.DictReader(f)]
+    history = json.loads((out / "training_history.json").read_text())
+    log(f"herlev cli: training_log.csv (stage, epoch) rows {rows}; history",
+        json.dumps({k: [round(v, 5) if isinstance(v, float) else v for v in vs]
+                    for k, vs in history.items()}))
+    assert rows == [(s, e) for s in (1, 2, 3, 4) for e in range(1, HERLEV_EPOCHS + 1)], rows
+    assert [t["stage"] for t in history["stage_transitions"]] == [1, 2, 3, 4]
+    assert len(history["train_loss"]) == 4 * HERLEV_EPOCHS
+    for key in ("train_loss", "val_loss", "base_loss"):
+        assert np.isfinite(history[key]).all(), (key, history[key])
+    assert all(u > 1.0 for u in history["uncertainty_weights_mean"][HERLEV_EPOCHS:]), history
+    for stage in (1, 2, 3, 4):
+        assert (out / f"herlev_stage{stage}_best.pth").exists(), stage
+    config = json.loads((out / "config.json").read_text())
+
+    train_ips = herlev_train_throughput(root, config["class_weights"])
+
+    model = str(out / "herlev_stage4_best.pth")
+    res = tmp / "herlev_eval"
+    image = str(next(iter(written)))
+    _lib.reset_launch_counts()
+    f32_before = f32_launches()
+    with tf32(False), counting_forwards_and_plain_calls(HerlevClassificationModel) as calls:
+        t0 = time.perf_counter()
+        results = test_herlev.main(["--model", model, "--data_dir", str(root), "--output_dir",
+                                    str(res)])
+        predicted = test_herlev.main(["--model", model, "--data_dir", str(root), "--predict",
+                                      image])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    eval_launches = _lib.launch_counts()
+    f32_calls = f32_launches() - f32_before
+    f = calls["forwards"]
+    log(f"herlev cli: test_herlev (test split, --predict) in {dt:.1f} s: {f} stage-4 forwards, "
+        f"launches {json.dumps(eval_launches)}, {F32_KERNEL} {f32_calls} by the C side's count, "
+        f"plain-version calls {calls['plain']}; accuracy {results['accuracy']:.4f}, ROC-AUC "
+        f"{results['roc_auc']:.4f}, --predict {predicted['prediction']}")
+    assert f > 0 and calls["plain"] == 0 and f32_calls == 8 * f, (f, calls, f32_calls)
+    assert eval_launches == {"fused_double_conv": 4 * f}, (eval_launches, f)
+    assert json.loads((res / "evaluation_results.json").read_text()) == results
+    assert results["num_samples"] == 7 * (HERLEV_PER_CLASS - int(HERLEV_PER_CLASS * 0.7)
+                                          - int(HERLEV_PER_CLASS * 0.2))
+    assert np.isfinite([results["accuracy"], results["roc_auc"]]).all()
+    assert predicted["prediction"] in CLASS_NAMES
+
+    serve_launches, serving = serve_herlev(tmp)
+    worst = check_classifier_kernels()
+    shapes = cls_double_convs(4)
+    dc_bf16 = time_double_conv(shapes, TIME_BATCH, "herlev bf16", ptxas, torch.bfloat16)
+    dc_f32 = time_double_conv(shapes, HERLEV_BATCH, "herlev float32", ptxas)
+    launches = eval_launches["fused_double_conv"] + serve_launches["fused_double_conv"]
+    return launches, worst, {"train_images_per_s": train_ips, **serving,
+                             "double_conv_bf16_64": dc_bf16, "double_conv_f32_16": dc_f32}
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -1657,9 +2088,13 @@ def main():
         cli_launches, native_errors, cli_times = monuseg_command_lines(
             Path(tmp), Path(tmp) / "MoNuSeg", ptxas)
     launches.update(mon_launches)  # the loss kernels: MoNuSeg training
-    for kernel in SERVING_KERNELS:  # and the evaluator's launches, this slice's path
+    for kernel in SERVING_KERNELS:  # and the evaluator's launches
         launches[kernel] += cli_launches[kernel]
         errors[kernel] = max(errors[kernel], native_errors[kernel])
+    with tempfile.TemporaryDirectory() as tmp:
+        herlev_launches, herlev_error, herlev_times = herlev(Path(tmp), ptxas)
+    launches["fused_double_conv"] += herlev_launches  # Herlev evaluation and serving
+    errors["fused_double_conv"] = max(errors["fused_double_conv"], herlev_error)
 
     rows = []
     for kernel, (source, replaces) in KERNELS.items():
@@ -1673,9 +2108,11 @@ def main():
             "library_ms": t["library_ms"],
             **{key: t[key] for key in ("device_ms", "host_us") if key in t},
         })
-        if kernel == "fused_double_conv":  # float32, one stage-4 forward
+        if kernel == "fused_double_conv":  # one stage-4 forward's double convs
             for key, dc in (("float32_native_1008", cli_times["double_conv_f32_1008"]),
-                            ("float32_stage_256_batch8", cli_times["double_conv_f32_256"])):
+                            ("float32_stage_256_batch8", cli_times["double_conv_f32_256"]),
+                            ("herlev_bf16_224_batch64", herlev_times["double_conv_bf16_64"]),
+                            ("herlev_float32_224_batch16", herlev_times["double_conv_f32_16"])):
                 rows[-1][key] = {
                     "ms": dc["ms"], "plain_ms": dc["plain_ms"], "library_ms": dc["library_ms"],
                     "bound_ms": max(dc["bytes_ms"], dc["ops_ms"]),
@@ -1698,6 +2135,18 @@ def main():
         f"{max(dc['bytes_ms'], dc['ops_ms']):.3f} ms; at 256 px, batch {TRAIN_BATCH} "
         f"{cli_times['double_conv_f32_256']['ms']:.3f} ms, cuDNN "
         f"{cli_times['double_conv_f32_256']['library_ms']:.3f} ms on {card}")
+    hc = herlev_times
+    log(f"herlev: serving {hc['images_per_s']:.2f} images/s at bucket 64, bf16; bucket-1 latency "
+        f"median {hc['latency']['median_ms']:.3f} ms (p10 {hc['latency']['p10_ms']:.3f}, p90 "
+        f"{hc['latency']['p90_ms']:.3f}); train images/s at batch {HERLEV_BATCH} (median of "
+        f"{HERLEV_TIMED_EPOCHS} epochs; the loader alone; ms of the step alone): "
+        + ", ".join(f"stage {s} {v['images_per_s']:.2f} ({v['loader_images_per_s']:.2f}; "
+                    f"{v['step_alone_ms']:.2f} ms)"
+                    for s, v in hc["train_images_per_s"].items())
+        + f"; stage-4 double convs {hc['double_conv_bf16_64']['ms']:.3f} ms at bucket 64 bf16 "
+        f"(cuDNN {hc['double_conv_bf16_64']['library_ms']:.3f}), "
+        f"{hc['double_conv_f32_16']['ms']:.3f} ms at batch 16 float32 (cuDNN "
+        f"{hc['double_conv_f32_16']['library_ms']:.3f}) on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

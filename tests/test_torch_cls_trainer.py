@@ -1,0 +1,194 @@
+"""The port's HerlevTrainer and its training command line on the CPU, at
+the reference widths with stages 1-2 and a few images: the checkpoints and
+log a run writes (read back by the JAX package's importer), the head-only
+transfer, a pretrained frozen encoder, a run preempted at stage 2 and
+resumed that ends on the same bits as an uninterrupted one, and the
+options and flags that are not ported."""
+
+import csv
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_herlev_data import write_herlev_tree
+from ugpg_tpu.io.torch_import import import_torch_checkpoint
+from ugpg_tpu_torch.cli import train_herlev
+from ugpg_tpu_torch.data.synthetic import ArrayLoader
+from ugpg_tpu_torch.io.checkpoint import read_checkpoint, save_checkpoint
+from ugpg_tpu_torch.models.pgunet import PGUNet1
+from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer, create_config
+from ugpg_tpu_torch.utils.preemption import PreemptionGuard
+
+K = 3
+
+
+def _config(**kw):
+    cfg = create_config()
+    cfg.update(num_classes=K, stages=[1, 2], epochs_per_stage=1, verbose=False,
+               class_weights=[1.0, 2.0, 0.5])
+    cfg.update(kw)
+    return cfg
+
+
+def _loaders(n_train=4, n_val=2, seed=0):
+    """Per-stage loaders of a learnable colour task (class = the dominant
+    channel) at 32 and 64 px."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, K, n_train + n_val)
+    train, val = {}, {}
+    for stage, px in ((1, 32), (2, 64)):
+        imgs = rng.random((len(labels), px, px, 3)).astype(np.float32) * 0.3
+        for i, lab in enumerate(labels):
+            imgs[i, :, :, lab] += 0.6
+        train[stage] = ArrayLoader(imgs[:n_train], labels[:n_train], batch_size=2)
+        val[stage] = ArrayLoader(imgs[n_train:], labels[n_train:], batch_size=2)
+    return train, val
+
+
+def test_train_progressive_writes_checkpoints_and_log(tmp_path):
+    train, val = _loaders()
+    tr = HerlevTrainer(_config(), device="cpu")
+    hist = tr.train_progressive(train, val, str(tmp_path))
+    assert len(hist["train_loss"]) == 2 and np.isfinite(hist["train_loss"]).all()
+    assert hist["uncertainty_weights_mean"][0] == 0.0  # stage 1 has no previous stage
+    assert 1.0 < hist["uncertainty_weights_mean"][1] <= 2.0
+    assert [t["stage"] for t in hist["stage_transitions"]] == [1, 2]
+    with open(tmp_path / "training_log.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [(r["stage"], r["epoch"]) for r in rows] == [("1", "1"), ("2", "1")]
+    assert list(rows[0]) == ["stage", "epoch", "train_loss", "val_loss", "train_acc", "val_acc",
+                             "base_loss", "uncertainty_mean", "lr"]
+    assert float(rows[0]["lr"]) == 3e-4 and float(rows[1]["lr"]) == 1e-4
+    assert json.loads((tmp_path / "training_history.json").read_text()) == hist
+    for stage in (1, 2):
+        obj = read_checkpoint(tmp_path / f"herlev_stage{stage}_best.pth")
+        assert obj["stage"] == stage and obj["epoch"] == 1 and obj["config"]["num_classes"] == K
+        assert {"train_loss", "val_loss", "train_acc", "val_acc",
+                "optimizer_state_dict"} <= set(obj)
+        assert any(k.startswith("unet.up1.") for k in obj["model_state_dict"])  # full key set
+        variables, got = import_torch_checkpoint(str(tmp_path / f"herlev_stage{stage}_best.pth"),
+                                                 num_classes=K, task_type="classification")
+        assert got == stage
+        np.testing.assert_array_equal(
+            np.asarray(variables["params"]["fc3"]["kernel"]),
+            tr.models[stage].classifier[9].weight.detach().numpy().T)
+    tr2 = HerlevTrainer(_config(), device="cpu")
+    tr2.load_stage_weights(2, tmp_path / "herlev_stage2_best.pth")
+    for key, value in tr.models[2].state_dict().items():
+        assert torch.equal(tr2.models[2].state_dict()[key], value), key
+
+
+def test_head_transfer_copies_exactly_the_fc_tensors():
+    tr = HerlevTrainer(_config(), device="cpu")
+    with torch.no_grad():
+        for p in tr._model(1).parameters():
+            p.add_(1.0)
+    before = {k: v.clone() for k, v in tr._model(2).state_dict().items()}
+    assert tr.transfer_weights(1, 2) == 6
+    after, prev = tr.models[2].state_dict(), tr.models[1].state_dict()
+    for key, value in after.items():
+        if key.startswith("classifier."):
+            assert torch.equal(value, prev[key]), key
+        else:
+            assert torch.equal(value, before[key]), key
+
+
+def test_pretrained_unet_stays_frozen(tmp_path):
+    seg = PGUNet1()
+    torch.manual_seed(3)
+    for p in seg.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    save_checkpoint(tmp_path / "seg.pth", seg.state_dict(), stage=1, epoch=0)
+    train, val = _loaders()
+    tr = HerlevTrainer(_config(stages=[1], pretrained_unet_paths={1: str(tmp_path / "seg.pth")}),
+                       device="cpu")
+    head_before = tr.models[1].classifier[3].weight.detach().clone()
+    tr.train_progressive(train, val, str(tmp_path / "out"))
+    model = tr.models[1]
+    for name, p in model.named_parameters():
+        if name.startswith("unet."):
+            assert not p.requires_grad and p not in tr.optimizer.state
+            np.testing.assert_array_equal(p.detach().numpy(),
+                                          seg.state_dict()[name[len("unet."):]].numpy(), name)
+    assert not torch.equal(model.classifier[3].weight, head_before)
+
+
+class _StopAtPoll(PreemptionGuard):
+    """A guard armed at its ``at``-th poll (one poll per epoch)."""
+
+    def __init__(self, at: int):
+        super().__init__()
+        self.at, self.polls = at, 0
+
+    def should_stop(self) -> bool:
+        self.polls += 1
+        if self.polls == self.at:
+            self.trigger()
+        return super().should_stop()
+
+
+def test_preempted_and_resumed_run_ends_on_the_same_bits(tmp_path):
+    cfg = _config(epochs_per_stage=2, augment=True)  # the generator drives aug + dropout
+
+    def fresh():
+        tr = HerlevTrainer(cfg, device="cpu")
+        # one stage-1 epoch: its _best is its last state, the uncertainty
+        # source the uninterrupted run goes on with
+        tr.stage_configs[1]["epochs"] = 1
+        return tr
+
+    train, val = _loaders(seed=1)
+    whole = fresh()
+    ref_hist = whole.train_progressive(train, val, str(tmp_path / "whole"))
+    stopped = fresh()
+    stopped.train_progressive(train, val, str(tmp_path / "cut"), preemption=_StopAtPoll(2))
+    assert stopped.preempted
+    last = read_checkpoint(tmp_path / "cut" / "herlev_stage2_last.pth")
+    assert last["stage"] == 2 and last["epoch"] == 1 and last["optimizer_state_dict"]["state"]
+    assert not (tmp_path / "cut" / "herlev_stage3_best.pth").exists()
+    resumed = fresh()
+    hist = resumed.train_progressive(train, val, str(tmp_path / "cut"), resume=True)
+    assert not resumed.preempted
+    for key, value in whole.models[2].state_dict().items():
+        assert torch.equal(resumed.models[2].state_dict()[key], value), key
+    assert hist["train_loss"] == ref_hist["train_loss"] and len(hist["val_acc"]) == 3
+    with open(tmp_path / "cut" / "training_log.csv") as f:
+        rows = [(int(r["stage"]), int(r["epoch"])) for r in csv.DictReader(f)]
+    assert rows == [(1, 1), (2, 1), (2, 2)]
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(mesh=object()), dict(axis_name="data"), dict(checkpoint_backend="msgpack"),
+    dict(config=dict(scan_epochs=True)), dict(config=dict(scan_chunk_bytes=1 << 30)),
+    dict(config=dict(tb_logdir="tb")), dict(config=dict(remat=True)),
+    dict(config=dict(pipeline_unc=1)),
+])
+def test_trainer_options_outside_the_slice_raise(kwargs):
+    cfg = _config(**kwargs.pop("config", {}))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        HerlevTrainer(cfg, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh", "4,2"], ["--scan_epochs"], ["--scan_chunk_mb", "512"], ["--tb_logdir", "tb"],
+    ["--remat"], ["--pipeline_unc", "1"], ["--checkpoint_backend", "msgpack"],
+    ["--checkpoint_backend", "orbax"],
+])
+def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys):
+    with pytest.raises(SystemExit) as info:
+        train_herlev.cli(["--data_dir", str(tmp_path), "--device", "cpu", *flags])
+    err = capsys.readouterr().err
+    assert info.value.code == 2 and "not ported" in err and flags[0] in err
+
+
+def test_command_line_trains_stage_1(tmp_path, monkeypatch):
+    root = write_herlev_tree(tmp_path / "Herlev")
+    out = tmp_path / "out"
+    rc = train_herlev.cli(["--data_dir", str(root), "--output_dir", str(out), "--stages", "1",
+                           "--epochs", "1", "--batch_size", "4", "--device", "cpu"])
+    assert rc == 0
+    obj = read_checkpoint(out / "herlev_stage1_best.pth")
+    assert obj["config"]["num_classes"] == 7 and len(obj["config"]["class_weights"]) == 7
+    assert json.loads((out / "config.json").read_text())["stages"] == [1]

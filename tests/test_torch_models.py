@@ -21,7 +21,7 @@ from ugpg_tpu.models.pgunet import STAGE_RESOLUTIONS
 from ugpg_tpu.progressive.transfer import flatten_tree, unflatten_tree
 from ugpg_tpu_torch.io.from_jax import state_dict_from_jax
 from ugpg_tpu_torch.models.folding import fold_batchnorm
-from ugpg_tpu_torch.models.pgunet import STAGE_MODELS
+from ugpg_tpu_torch.models.pgunet import STAGE_BLOCKS, STAGE_MODELS
 
 LOGIT_TOL = 1e-4
 
@@ -77,6 +77,15 @@ def test_state_dict_from_jax_matches_export_table(stage):
         assert got[key].dtype == torch.from_numpy(np.asarray(value)).dtype, key
         np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
     _port_model(stage, got, use_bn=True)  # strict load
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3, 4])
+def test_stage_blocks_name_every_child(stage):
+    """STAGE_BLOCKS lists each stage model's blocks, as the JAX export names them."""
+    names = [name for name, _ in STAGE_MODELS[stage](width=0.0).named_children()]
+    assert list(STAGE_BLOCKS[stage]) == names
+    exported, _ = convert_variables_to_state_dict(jax_variables(stage, width=0.25, seed=stage))
+    assert {key.split(".", 1)[0] for key in exported} == set(names)
 
 
 def test_state_dict_from_jax_rejects_unmapped_leaves():

@@ -16,11 +16,18 @@ import ugpg_tpu_torch
 from ugpg_tpu_torch.cli import test_monuseg, train_monuseg
 from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset
 from ugpg_tpu_torch.device import resolve_device
+from ugpg_tpu_torch.eval.herlev import HerlevEvaluator
 from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator
 from ugpg_tpu_torch.eval.serving import Predictor
 from ugpg_tpu_torch.eval.slide import SlidePredictor
-from ugpg_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from ugpg_tpu_torch.io.checkpoint import (
+    full_classifier_state_dict,
+    load_checkpoint,
+    save_checkpoint,
+)
+from ugpg_tpu_torch.models.classifier import HerlevClassificationModel
 from ugpg_tpu_torch.models.pgunet import PGUNet1
+from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer, create_config
 from ugpg_tpu_torch.train.seg_trainer import UncertaintyGuidedProgressiveTrainer
 from ugpg_tpu_torch.utils.preemption import PreemptionGuard
 
@@ -79,15 +86,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         Predictor(str(tmp_path / "never_read.pth"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         UncertaintyGuidedProgressiveTrainer()
-    for entry in (MoNuSegEvaluator, SlidePredictor):
+    for entry in (MoNuSegEvaluator, SlidePredictor, HerlevEvaluator):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry(str(tmp_path / "never_read.pth"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        HerlevTrainer(create_config())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(task_type="classification"), dict(quantize=True), dict(mesh=object()),
-    dict(shard_model=True), dict(mc_dropout=4),
+    dict(quantize=True), dict(mesh=object()), dict(shard_model=True),
 ])
 def test_options_outside_the_slice_raise(kwargs, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -119,9 +127,22 @@ def stage1_pth(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("option", ["dtype=bfloat16", "resume", "preemption", "fold_bn=False"])
+@pytest.mark.parametrize("option", ["dtype=bfloat16", "resume", "preemption", "fold_bn=False",
+                                    "task_type=classification", "mc_dropout=4"])
 def test_options_ported_since_run(option, stage1_pth, tmp_path):
-    """The options that raised until this slice now run."""
+    """The options that raised until a later slice now run."""
+    if option in ("task_type=classification", "mc_dropout=4"):
+        path = tmp_path / "herlev_stage1_best.pth"
+        torch.manual_seed(0)
+        save_checkpoint(path, full_classifier_state_dict(
+            HerlevClassificationModel(1, 7).state_dict(), 1), stage=1, epoch=0)
+        mc = 4 if option == "mc_dropout=4" else 0
+        outs = Predictor(str(path), buckets=(2,), dtype=torch.float32, num_classes=7,
+                         task_type="classification", mc_dropout=mc, device="cpu")(
+            np.zeros((2, 40, 40, 3), np.float32))
+        assert len(outs) == (3 if mc else 2) and outs[1].shape == (2, 7)
+        np.testing.assert_allclose(outs[1].sum(-1), 1.0, atol=1e-5)
+        return
     if option == "fold_bn=False":
         preds, probs, unc = Predictor(str(stage1_pth), buckets=(1,), dtype=torch.float32,
                                       fold_bn=False, device="cpu")(np.zeros((1, 32, 32, 3)))

@@ -74,8 +74,8 @@ def test_progressive_unet_readme_kwargs_and_errors():
         m.set_stage(5)
     with pytest.raises(ValueError, match="task_type"):
         ProgressiveUNet(task_type="detection")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ProgressiveUNet(task_type="classification")
+    cls = ProgressiveUNet(num_classes=7, stage=4, task_type="classification")
+    assert cls.get_current_resolution() == 224 and cls.module().num_classes == 7
 
 
 def test_progressive_unet_transfer_weights_matches_jax():
@@ -180,8 +180,12 @@ def test_flat_names_follow_the_jax_package():
         if name != "resolve_device":
             assert name in ugpg_tpu.__all__, name
     assert ugpg_tpu_torch.ProgressiveUNet is ProgressiveUNet
+    assert set(ugpg_tpu_torch.__all__) == set(ugpg_tpu.__all__) | {"resolve_device"}
+    from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer
+
+    assert ugpg_tpu_torch.HerlevTrainer is HerlevTrainer  # classification, ported since
     with pytest.raises(AttributeError):
-        ugpg_tpu_torch.HerlevTrainer  # noqa: B018  (classification: not ported yet)
+        ugpg_tpu_torch.ServingRegistry  # noqa: B018  (not a flat name of either package)
 
 
 # ---------------------------------------------------------------- bf16 training

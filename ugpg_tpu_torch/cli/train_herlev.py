@@ -1,0 +1,156 @@
+"""Herlev classification training command line (counterpart of
+``ugpg_tpu/cli/train_herlev.py``).
+
+    python -m ugpg_tpu_torch.cli.train_herlev --data_dir DIR --output_dir OUT
+
+Takes the JAX command's flags, plus ``--device`` (default ``cuda``; ``cpu``
+runs the plain PyTorch path).  One dataset per stage at that stage's
+resolution, the train loader shuffled with seed 42 + stage; class weights
+from the stage-1 training split.  Checkpoints are reference-format
+``.pth`` files (``--checkpoint_backend pth``, the only backend, and so the
+default; the JAX command defaults to msgpack).  The flags of parts not
+ported yet (``--mesh``, ``--scan_epochs``, ``--scan_chunk_mb``,
+``--tb_logdir``, ``--remat``, ``--pipeline_unc``, another
+``--checkpoint_backend``) exit with status 2 and a "not ported" message.
+
+SIGTERM stops the run at the end of the current epoch with a
+``herlev_stage{S}_last.pth`` written, and ``cli`` exits 75 (EX_TEMPFAIL);
+rerun with ``--resume`` to continue.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+EX_TEMPFAIL = 75
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Train Progressive U-Net for Herlev cervical-cell classification "
+                    "(PyTorch/CUDA)")
+    p.add_argument("--stages", nargs="+", type=int, default=[1, 2, 3, 4])
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--binary", action="store_true",
+                   help="binary normal/abnormal classification")
+    p.add_argument("--uncertainty_alpha", type=float, default=1.0)
+    p.add_argument("--data_dir", type=str, required=False)
+    p.add_argument("--output_dir", type=str, default="./herlev_outputs")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute over float32 parameters")
+    p.add_argument("--accum_steps", type=int, default=1, metavar="K",
+                   help="gradient accumulation: each batch (size K*m) as K "
+                        "micro-batches with one optimizer update")
+    p.add_argument("--resume", action="store_true",
+                   help="resume mid-stage from the herlev_stage{S}_last.pth a "
+                        "preempted run wrote in output_dir")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (default cuda; cpu runs the plain PyTorch path)")
+    p.add_argument("--checkpoint_backend", default="pth",
+                   choices=["pth", "msgpack", "orbax", "orbax-async"],
+                   help="checkpoint format: pth, the only one ported (the JAX "
+                        "command's default is msgpack)")
+    # parts not ported yet: given, they exit with "not ported"
+    p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
+                   help="not ported: device mesh")
+    p.add_argument("--scan_epochs", action="store_true", help="not ported: epoch scans")
+    p.add_argument("--scan_chunk_mb", type=int, default=None, help="not ported: epoch scans")
+    p.add_argument("--tb_logdir", type=str, default=None, help="not ported: TensorBoard")
+    p.add_argument("--remat", action="store_true", help="not ported: rematerialisation")
+    p.add_argument("--pipeline_unc", type=int, default=0, metavar="N",
+                   help="not ported: the uncertainty pipeline")
+    return p
+
+
+def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
+    asked = {
+        "--mesh": args.mesh is not None,
+        "--scan_epochs": args.scan_epochs,
+        "--scan_chunk_mb": args.scan_chunk_mb is not None,
+        "--tb_logdir": args.tb_logdir is not None,
+        "--remat": args.remat,
+        "--pipeline_unc": bool(args.pipeline_unc),
+        f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
+    }
+    missing = [flag for flag, on in asked.items() if on]
+    if missing:
+        parser.error(f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} (see ROADMAP.md)")
+
+
+def main(argv=None):
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    _refuse_not_ported(parser, args)
+
+    import torch
+
+    from ugpg_tpu_torch.data.herlev import HerlevDataset
+    from ugpg_tpu_torch.data.loader import DataLoader
+    from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS
+    from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer, create_config
+    from ugpg_tpu_torch.utils.preemption import PreemptionGuard
+
+    config = create_config()
+    config.update(stages=args.stages, epochs_per_stage=args.epochs, batch_size=args.batch_size,
+                  binary_classification=args.binary, uncertainty_alpha=args.uncertainty_alpha,
+                  output_dir=args.output_dir, accum_steps=args.accum_steps)
+    if args.data_dir:
+        config["data_dir"] = args.data_dir
+    if config["binary_classification"]:
+        config["num_classes"] = 2
+    if not config["data_dir"]:
+        raise SystemExit("--data_dir is required")
+
+    print("=== Herlev Cervical Cell Classification Training ===")
+    print(f"Classes: {config['num_classes']}  Stages: {config['stages']}  "
+          f"Epochs/stage: {config['epochs_per_stage']}")
+
+    train_loaders, val_loaders = {}, {}
+    class_weights = None
+    for stage in range(1, 5):
+        size = CLS_STAGE_RESOLUTIONS[stage]
+        tr_ds = HerlevDataset(config["data_dir"], image_size=size, split="train", augment=True,
+                              binary_classification=config["binary_classification"],
+                              target_split_ratio=config["split_ratios"], verbose=(stage == 1))
+        va_ds = HerlevDataset(config["data_dir"], image_size=size, split="val", augment=False,
+                              binary_classification=config["binary_classification"],
+                              target_split_ratio=config["split_ratios"], verbose=False)
+        train_loaders[stage] = DataLoader(tr_ds, batch_size=config["batch_size"], shuffle=True,
+                                          num_workers=config["num_workers"], seed=42 + stage)
+        val_loaders[stage] = DataLoader(va_ds, batch_size=config["batch_size"],
+                                        num_workers=config["num_workers"])
+        if class_weights is None:
+            class_weights = tr_ds.get_class_weights().tolist()
+    if config.get("class_weights") is None:
+        config["class_weights"] = class_weights
+        print(f"Computed class weights: {[round(w, 3) for w in class_weights]}")
+
+    trainer = HerlevTrainer(config, dtype=torch.bfloat16 if args.bf16 else None,
+                            device=args.device)
+    try:
+        # SIGTERM -> herlev_stage{S}_last.pth and an early return; cli()
+        # then exits 75 so that a scheduler requeues
+        with PreemptionGuard() as guard:
+            trainer.train_progressive(train_loaders, val_loaders, config["output_dir"],
+                                      preemption=guard, resume=args.resume)
+        cfg_path = os.path.join(config["output_dir"], "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(config, f, indent=2, default=str)
+        print(f"Configuration saved to: {cfg_path}")
+    except KeyboardInterrupt:
+        print("Training interrupted by user")
+    return trainer
+
+
+def cli(argv=None) -> int:
+    """Console entry: 75 (EX_TEMPFAIL) when the run was preempted, else 0."""
+    trainer = main(argv)
+    return EX_TEMPFAIL if getattr(trainer, "preempted", False) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(cli())

@@ -1,13 +1,18 @@
-"""MoNuSeg train augmentation on the device, in torch (counterpart of the
-MoNuSeg half of ``ugpg_tpu/data/augment.py``).
+"""Train augmentation on the device, in torch (counterpart of
+``ugpg_tpu/data/augment.py``).
 
-Per sample and jointly on image and mask: hflip p .5, then vflip p .5,
-then a rotation U(-90, 90) degrees about the frame's center (bilinear
-image taps, nearest mask taps, zero fill), then colour jitter with
-p .8 (brightness, contrast, saturation +-0.2, hue +-0.05, torchvision's
-order, the hue through an HSV round trip).  ``quantize_angles=N`` draws the
-angle from N grid angles and rotates with the Paeth shears of
-``ops/rotate.py`` instead.
+MoNuSeg, per sample and jointly on image and mask: hflip p .5, then vflip
+p .5, then a rotation U(-90, 90) degrees about the frame's center
+(bilinear image taps, nearest mask taps, zero fill), then colour jitter
+with p .8 (brightness, contrast, saturation +-0.2, hue +-0.05,
+torchvision's order, the hue through an HSV round trip).
+``quantize_angles=N`` draws the angle from N grid angles and rotates with
+the Paeth shears of ``ops/rotate.py`` instead.
+
+Herlev, per image: the flips, a rotation U(-15, 15), colour jitter always
+(+-0.2 each, hue +-0.1), then torchvision's RandomAffine with translation
+U(-0.1, 0.1) of the width and height and scale U(0.9, 1.1) (bilinear,
+zero fill), on un-normalised [0, 1] RGB; ``imagenet_normalize`` follows.
 
 Every random op is split in two: ``sample_*`` draws its parameters from an
 explicit ``torch.Generator`` (on the device of the batch), and the
@@ -36,6 +41,11 @@ __all__ = [
     "random_rotate",
     "color_jitter",
     "augment_monuseg_batch",
+    "affine_matrices",
+    "sample_herlev_params",
+    "apply_herlev_params",
+    "augment_herlev_batch",
+    "imagenet_normalize",
 ]
 
 _GRAY = (0.299, 0.587, 0.114)
@@ -58,6 +68,21 @@ def rotation_matrices(angles_deg: torch.Tensor) -> torch.Tensor:
     c, s = torch.cos(rad).float(), torch.sin(rad).float()
     z = torch.zeros_like(c)
     return torch.stack([torch.stack([c, -s, z], -1), torch.stack([s, c, z], -1)], -2)
+
+
+def affine_matrices(angles_deg: torch.Tensor, translate: torch.Tensor,
+                    scales: torch.Tensor) -> torch.Tensor:
+    """(B, 2, 3) float32 inverse matrices of rotate(angle), scale and
+    translate (B, 2) in pixels (torchvision's RandomAffine composition):
+    output coordinates -> source coordinates.  cos and sin as in
+    ``rotation_matrices``."""
+    rad = torch.deg2rad(angles_deg.to(torch.float32)).double()
+    c, s = torch.cos(rad).float(), torch.sin(rad).float()
+    inv = 1.0 / scales.to(torch.float32)
+    m00, m01, m10, m11 = c * inv, -s * inv, s * inv, c * inv
+    tx, ty = translate[:, 0].to(torch.float32), translate[:, 1].to(torch.float32)
+    return torch.stack([torch.stack([m00, m01, -(m00 * tx + m01 * ty)], -1),
+                        torch.stack([m10, m11, -(m10 * tx + m11 * ty)], -1)], -2)
 
 
 def _source_coords(matrices: torch.Tensor, h: int, w: int):
@@ -256,3 +281,47 @@ def augment_monuseg_batch(generator: torch.Generator, images: torch.Tensor, mask
     jitter p .8."""
     params = sample_monuseg_params(generator, images.shape[0], max_deg, quantize_angles)
     return apply_monuseg_params(images, masks, params, max_deg, quantize_angles)
+
+
+# ---------------------------------------------------------------- Herlev
+def sample_herlev_params(generator: torch.Generator, batch: int, height: int,
+                         width: int) -> dict:
+    """Every parameter of one Herlev augmentation of a batch of
+    ``height`` x ``width`` images: ``do_h``, ``do_v``, ``angle`` (+-15),
+    the jitter's (always applied) and the affine's ``translate`` (B, 2) in
+    pixels and ``scale``."""
+    do_h, do_v = sample_flips(generator, batch)
+    params = {"do_h": do_h, "do_v": do_v, "angle": sample_angles(generator, batch, 15.0)}
+    params.update(sample_jitter(generator, batch, 0.2, 0.2, 0.2, 0.1, prob=1.0))
+    frac = _uniform(generator, (batch, 2), -0.1, 0.1)
+    params["translate"] = frac * torch.tensor([width, height], dtype=torch.float32,
+                                              device=frac.device)
+    params["scale"] = _uniform(generator, batch, 0.9, 1.1)
+    return params
+
+
+def apply_herlev_params(images: torch.Tensor, params: dict) -> torch.Tensor:
+    """The Herlev augmentation of ``sample_herlev_params``'s draw."""
+    images = flip(images, params["do_h"], params["do_v"])
+    images = rotate(images, params["angle"])
+    images = jitter(images, params["brightness"], params["contrast"], params["saturation"],
+                    params["hue"], params["apply"])
+    zero = torch.zeros_like(params["scale"])
+    return affine_sample(images, affine_matrices(zero, params["translate"], params["scale"]))
+
+
+def augment_herlev_batch(generator: torch.Generator, images: torch.Tensor) -> torch.Tensor:
+    """Herlev train augmentation of a (B, 3, H, W) batch."""
+    b, _, h, w = images.shape
+    return apply_herlev_params(images, sample_herlev_params(generator, b, h, w))
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def imagenet_normalize(images: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / std per channel of a (B, 3, H, W) batch."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)[:, None, None]
+    std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)[:, None, None]
+    return (images - mean) / std

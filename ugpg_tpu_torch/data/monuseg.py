@@ -38,15 +38,17 @@ _IMG_EXTS = (".tif", ".tiff", ".png")
 
 
 def load_rgb(img_path: str) -> np.ndarray:
-    """Decode a ``.png``, ``.tif`` or ``.tiff`` image to (H, W, 3) uint8;
-    any other extension raises ``ValueError``."""
+    """Decode a ``.png``, ``.tif``, ``.tiff`` or ``.bmp`` image to (H, W, 3)
+    uint8; any other extension raises ``ValueError``."""
     low = str(img_path).lower()
     if low.endswith(".png"):
         return native.decode_png(img_path)
     if low.endswith((".tif", ".tiff")):
         return native.decode_tiff(img_path)
+    if low.endswith(".bmp"):
+        return native.decode_bmp(img_path)
     raise ValueError(f"{img_path}: no decoder for this extension (the port reads "
-                     f"{', '.join(_IMG_EXTS)})")
+                     f"{', '.join(_IMG_EXTS)}, .bmp)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,15 +74,15 @@ def resize_mask(mask: np.ndarray, size: int) -> np.ndarray:
     return mask[_nearest_index(h, size)][:, _nearest_index(w, size)]
 
 
-def resize_image(image: np.ndarray, size: int) -> np.ndarray:
-    """(H, W, 3) uint8 -> (size, size, 3) uint8: bilinear with antialias on
-    uint8 ``channels_last`` on the CPU, within one gray level of PIL's
-    ``BILINEAR``."""
-    h, w = image.shape[:2]
-    if (h, w) == (size, size):
+def resize_image(image: np.ndarray, size: int | tuple[int, int]) -> np.ndarray:
+    """(H, W, 3) uint8 -> (size, size, 3) uint8, or (h, w, 3) for a
+    ``size`` of (h, w): bilinear with antialias on uint8 ``channels_last``
+    on the CPU, within one gray level of PIL's ``BILINEAR``."""
+    hw = (size, size) if isinstance(size, int) else tuple(size)
+    if image.shape[:2] == hw:
         return image
     x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None]
-    out = F.interpolate(x.contiguous(memory_format=torch.channels_last), size=(size, size),
+    out = F.interpolate(x.contiguous(memory_format=torch.channels_last), size=hw,
                         mode="bilinear", antialias=True, align_corners=False)
     return out[0].permute(1, 2, 0).numpy()
 

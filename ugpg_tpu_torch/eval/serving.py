@@ -1,21 +1,25 @@
 """Serving: a bucketed ``Predictor`` and the ``BatchingServer`` micro-batcher.
 
-Counterpart of ``ugpg_tpu/eval/serving.py`` for segmentation on BN-folded
-weights.  Requests are (N, H, W, 3) numpy images, float32 in [0, 1] or
-uint8; responses are numpy (preds, probs, uncertainty) maps of shape
-(N, res, res, K).  Ragged batches route to the smallest bucket that fits,
-padding is stripped, and larger requests run in chunks of the largest
-bucket (``_BucketRouter``, a copy of ``ugpg_tpu/eval/exported.py``'s).
+Counterpart of ``ugpg_tpu/eval/serving.py``, on BN-folded weights.
+Requests are (N, H, W, 3) numpy images, float32 in [0, 1] or uint8.
+Segmentation responses are numpy (preds, probs, uncertainty) maps of shape
+(N, res, res, K); classification ones are (labels (N,) int32, probs (N, K)
+float32), with ``mc_dropout=N`` a third output, the predictive variance
+(N,).  Ragged batches route to the smallest bucket that fits, padding is
+stripped, and larger requests run in chunks of the largest bucket
+(``_BucketRouter``, a copy of ``ugpg_tpu/eval/exported.py``'s).
 
 On the GPU every DoubleConv, every Up-block upsample and the uncertainty
-map run the port's CUDA kernels (9, 4 and 1 launches per stage-4 call).
+map run the port's CUDA kernels (9, 4 and 1 launches per stage-4
+segmentation call; 4 double convs per stage-4 classifier call).
 ``fold_bn=False`` serves the live-BN model in plain PyTorch instead, as
 the JAX package's live-BN ``Predictor`` runs it in XLA; the uncertainty map
 keeps its kernel.  ``stream`` overlaps the copy of batch k + 1 to the
 device with batch k's forward (``data/loader.py::prefetch_to_device``).
 
-``stage_model`` builds a checkpoint's stage model the way the serving
-paths run it, for the evaluator and the slide predictor too.
+``stage_model`` and ``classifier_model`` build a checkpoint's model the
+way the serving paths run it, for the evaluators and the slide predictor
+too.
 """
 
 from __future__ import annotations
@@ -32,14 +36,16 @@ import torch
 
 from ugpg_tpu_torch.data.loader import prefetch_to_device
 from ugpg_tpu_torch.device import resolve_device
-from ugpg_tpu_torch.io.checkpoint import load_checkpoint
+from ugpg_tpu_torch.io.checkpoint import classifier_state_dict, load_checkpoint
 from ugpg_tpu_torch.models.blocks import DoubleConv
+from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS, HerlevClassificationModel
 from ugpg_tpu_torch.models.folding import fold_batchnorm
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS, STAGE_RESOLUTIONS
 from ugpg_tpu_torch.ops.cuda.uncertainty import uncertainty_from_logits
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from ugpg_tpu_torch.uncertainty import mc_dropout_uncertainty
 
-__all__ = ["Predictor", "BatchingServer", "stage_model"]
+__all__ = ["Predictor", "BatchingServer", "stage_model", "classifier_model"]
 
 _INPUT_DTYPES = {torch.float32: np.dtype(np.float32), torch.uint8: np.dtype(np.uint8)}
 
@@ -60,6 +66,20 @@ def stage_model(stage: int, state_dict: Mapping[str, torch.Tensor], device: torc
     ``fold_bn=False``: the live-BN model, float32 parameters, ``dtype``
     the compute dtype."""
     model = STAGE_MODELS[stage](num_classes=num_classes, use_bn=not fold_bn, dtype=dtype)
+    return _served(model, state_dict, device, fold_bn)
+
+
+def classifier_model(stage: int, state_dict: Mapping[str, torch.Tensor], device: torch.device,
+                     num_classes: int = 7, dtype: torch.dtype = torch.float32,
+                     fold_bn: bool = True) -> HerlevClassificationModel:
+    """The stage's Herlev classifier as ``stage_model`` builds a segmentation
+    stage, from a reference classifier ``state_dict`` (its decoder keys
+    dropped, ``io/checkpoint.py::classifier_state_dict``)."""
+    model = HerlevClassificationModel(stage, num_classes, use_bn=not fold_bn, dtype=dtype)
+    return _served(model, classifier_state_dict(state_dict, stage), device, fold_bn)
+
+
+def _served(model: torch.nn.Module, state_dict, device: torch.device, fold_bn: bool):
     model.load_state_dict(fold_batchnorm(state_dict) if fold_bn else state_dict, strict=True)
     model = model.to(device).eval()
     if fold_bn:
@@ -168,11 +188,15 @@ class _BucketRouter:
 
 
 class Predictor(_BucketRouter):
-    """Bucketed segmentation predictor on BN-folded weights.
+    """Bucketed predictor on BN-folded weights.
 
     Example:
         p = Predictor("ug_pgunet_stage4_best.pth", buckets=(1, 8, 64))
         preds, probs, unc = p(images)          # any leading batch size
+
+        c = Predictor("herlev_stage4_best.pth", task_type="classification",
+                      num_classes=7)
+        labels, probs = c(images)
     """
 
     def __init__(
@@ -192,27 +216,43 @@ class Predictor(_BucketRouter):
         mesh=None,
         shard_model: bool = False,
         mc_dropout: int = 0,
+        mc_seed: int = 0,
         device: str | torch.device | None = None,
     ):
         """``checkpoint``: a reference-format ``.pth`` (``ugpg-export-torch``).
         ``dtype``: compute dtype of the network body (heads stay float32).
         ``threshold``: preds are ``probs > threshold``.
         ``input_dtype``: float32 or uint8 requests (uint8 is divided by 255
-        on the device).  ``compact_output``: uint8 preds, float16 maps.
-        ``fold_bn=False``: the live-BN model in plain PyTorch (float32
-        parameters, ``dtype`` the compute dtype).
+        on the device).  ``compact_output`` (segmentation): uint8 preds,
+        float16 maps.  ``fold_bn=False``: the live-BN model in plain
+        PyTorch (float32 parameters, ``dtype`` the compute dtype).
+        ``task_type="classification"``: a Herlev classifier checkpoint
+        with ``num_classes`` classes; responses (labels, probs).
+        ``mc_dropout=N`` (classification): the encoder runs once and the
+        head N times with dropout active, BN in eval mode; labels and
+        probs come from the mean, and a third output is the variance
+        averaged over classes.  The masks come from a generator seeded by
+        ``mc_seed`` at every call, so equal requests get equal responses.
         ``device``: ``cuda`` unless given; raises without CUDA."""
         _BucketRouter.__init__(self)
         self.device = resolve_device(device)
         if task_type not in ("segmentation", "classification"):
             raise ValueError(f"unknown task_type: {task_type!r}")
-        deferred = {
-            "task_type='classification'": task_type == "classification",
-            "quantize": quantize,
-            "mesh": mesh is not None,
-            "shard_model": shard_model,
-            "mc_dropout": bool(mc_dropout),
-        }
+        if compact_output and task_type != "segmentation":
+            raise ValueError("compact_output=True supports segmentation only")
+        if mc_dropout:
+            if task_type != "classification":
+                raise ValueError(
+                    "mc_dropout requires task_type='classification': the PGUNet segmentation "
+                    "stages have no dropout layers (the seg uncertainty map is the "
+                    "1-2|p-0.5| output already in the response)")
+            if quantize:
+                raise ValueError("mc_dropout is not supported with quantize=True: the int8 "
+                                 "classification graph has no dropout layers")
+            if mc_dropout < 2:
+                raise ValueError(f"mc_dropout={mc_dropout}: need >= 2 stochastic passes "
+                                 "for a variance")
+        deferred = {"quantize": quantize, "mesh": mesh is not None, "shard_model": shard_model}
         missing = [name for name, asked in deferred.items() if asked]
         if missing:
             raise NotImplementedError(
@@ -225,22 +265,32 @@ class Predictor(_BucketRouter):
         self.batch_size = self.buckets[-1]
         self.threshold = float(threshold)
         self.emit_uncertainty = emit_uncertainty
+        self.mc_dropout = int(mc_dropout)
+        self.mc_seed = int(mc_seed)
         self._pred_dtype = torch.uint8 if compact_output else torch.float32
         self._map_dtype = torch.float16 if compact_output else torch.float32
-        self._n_outputs = 3
 
         self.stage, state_dict = load_checkpoint(checkpoint)
-        self.resolution = STAGE_RESOLUTIONS[self.stage]
-        self.model = stage_model(self.stage, state_dict, self.device, num_classes, dtype,
-                                 fold_bn)
+        if task_type == "classification":
+            self.resolution = CLS_STAGE_RESOLUTIONS[self.stage]
+            self.model = classifier_model(self.stage, state_dict, self.device, num_classes,
+                                          dtype, fold_bn)
+            self._n_outputs = 3 if mc_dropout else 2
+        else:
+            self.resolution = STAGE_RESOLUTIONS[self.stage]
+            self.model = stage_model(self.stage, state_dict, self.device, num_classes, dtype,
+                                     fold_bn)
+            self._n_outputs = 3
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """(B, H, W, 3) request images on the device -> NHWC (preds, probs,
-        uncertainty) on the device."""
+        uncertainty), or (labels, probs[, variance]), on the device."""
         x = x.permute(0, 3, 1, 2).float()  # NCHW view of NHWC (channels_last) memory
         if self.input_dtype == np.uint8:
             x = x / 255.0
+        if self.task_type == "classification":
+            return self._classify(x)
         logits = self.model(x)
         probs = torch.sigmoid(logits)
         preds = (probs > self.threshold).to(self._pred_dtype)
@@ -251,6 +301,19 @@ class Predictor(_BucketRouter):
         outs = (preds, probs.to(self._map_dtype), unc.to(self._map_dtype))
         return tuple(o.permute(0, 2, 3, 1) for o in outs)
 
+    def _classify(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        if not self.mc_dropout:
+            probs = torch.softmax(self.model(x).float(), dim=-1)
+            return probs.argmax(-1).to(torch.int32), probs
+        # the encoder has no dropout and its BN is in eval mode: one pass of
+        # it, then the head's N stochastic passes
+        feats = self.model.features(x)
+        generator = torch.Generator(device=self.device).manual_seed(self.mc_seed)
+        mean, var = mc_dropout_uncertainty(
+            lambda h, g: self.model.head(h, active=True, generator=g), feats, generator,
+            num_samples=self.mc_dropout, task_type="classification")
+        return mean.argmax(-1).to(torch.int32), mean, var
+
     def _dispatch(self, bucket: int, chunk: np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
         return tuple(o.cpu().numpy() for o in self._forward(x))
@@ -259,10 +322,10 @@ class Predictor(_BucketRouter):
         raise NotImplementedError("Predictor.export is not ported to ugpg_tpu_torch yet")
 
     def stream(self, batches: Iterator[np.ndarray], prefetch: int = 2):
-        """Yield numpy (preds, probs, uncertainty) for each batch of
-        ``batches`` (any size up to the largest bucket, padded to it), with
-        the copy of the next ``prefetch`` batches to the device overlapped
-        with the current one's forward."""
+        """Yield the numpy outputs (as ``__call__`` returns them) for each
+        batch of ``batches`` (any size up to the largest bucket, padded to
+        it), with the copy of the next ``prefetch`` batches to the device
+        overlapped with the current one's forward."""
         top = self.batch_size
         sizes = deque()  # each batch's real size, in order: the producer runs ahead
 

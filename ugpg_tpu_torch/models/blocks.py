@@ -27,10 +27,23 @@ from ugpg_tpu_torch.ops.cuda.double_conv import fused_double_conv, pack_double_c
 from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x
 from ugpg_tpu_torch.ops.resize import upsample2x_bilinear_align_corners
 
-__all__ = ["DoubleConv", "InConv", "Down", "Up", "OutConv", "DownSample", "UpSample"]
+__all__ = ["DoubleConv", "InConv", "Down", "Up", "OutConv", "DownSample", "UpSample",
+           "init_parameters"]
 
 BN_EPS = 1e-5
 _PACKED = ("packed_w1", "packed_b1", "packed_w2", "packed_b2")  # DoubleConv.pack's buffers
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """torch's default initialisation of every conv and linear layer
+    (kaiming-uniform weight, uniform(+-1/sqrt(fan_in)) bias), drawn from
+    ``generator``; BN layers keep their ones/zeros."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
+            bound = 1.0 / (m.weight[0].numel() ** 0.5)
+            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
 
 
 class DoubleConv(nn.Module):

@@ -26,8 +26,8 @@ from torch import nn
 from ugpg_tpu_torch.models.blocks import DoubleConv, Down, DownSample, InConv, OutConv, Up, UpSample
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
-__all__ = ["PGUNet1", "PGUNet2", "PGUNet3", "PGUNet4", "STAGE_MODELS", "STAGE_RESOLUTIONS",
-           "UNet"]
+__all__ = ["PGUNet1", "PGUNet2", "PGUNet3", "PGUNet4", "STAGE_BLOCKS", "STAGE_MODELS",
+           "STAGE_RESOLUTIONS", "UNet"]
 
 STAGE_RESOLUTIONS = {1: 32, 2: 64, 3: 128, 4: 256}
 
@@ -168,6 +168,15 @@ class PGUNet4(_Stage):
 
 
 STAGE_MODELS = {1: PGUNet1, 2: PGUNet2, 3: PGUNet3, 4: PGUNet4}
+
+# the child blocks of each stage's model, by name
+STAGE_BLOCKS = {
+    1: ("inc", "down4", "up1", "outc"),
+    2: ("inc", "down3", "down4", "up1", "up2", "outc1", "outc2"),
+    3: ("inc", "down2", "down3", "down4", "up1", "up2", "up3", "outc1", "outc2", "outc3"),
+    4: ("inc", "down1", "down2", "down3", "down4", "up1", "up2", "up3", "up4", "outc1",
+        "outc2", "outc3", "outc4"),
+}
 
 
 class UNet(nn.Module):

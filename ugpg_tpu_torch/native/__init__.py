@@ -1,7 +1,7 @@
 """ctypes bindings for the port's host C++: the polygon rasterizers and the
-PNG and TIFF decoders (copies of ``rasterize.cpp``, ``png_decode.cpp`` and
-``tiff_decode.cpp`` of the JAX package, the rasterizer extended with
-Pillow's polygon fill).
+PNG, TIFF and BMP decoders (copies of ``rasterize.cpp``, ``png_decode.cpp``,
+``tiff_decode.cpp`` and ``bmp_decode.cpp`` of the JAX package, the
+rasterizer extended with Pillow's polygon fill).
 
 Each source compiles at first use with ``g++`` into its own shared library
 under ``ugpg_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
@@ -32,6 +32,7 @@ __all__ = [
     "decode_png",
     "decode_png_gray",
     "decode_tiff",
+    "decode_bmp",
     "image_hw",
 ]
 
@@ -40,7 +41,8 @@ BUILD_DIR = _HERE.parent / "_build"
 # -ffp-contract=off: the Pillow fill must round where Pillow rounds, never
 # fuse a multiply and an add
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
-_LDFLAGS = {"rasterize": ("-lpthread",), "png_decode": ("-lz",), "tiff_decode": ("-lz",)}
+_LDFLAGS = {"rasterize": ("-lpthread",), "png_decode": ("-lz",), "tiff_decode": ("-lz",),
+            "bmp_decode": ()}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -65,6 +67,11 @@ _SIGNATURES = {
         "tiff_info": [_P_U8, ctypes.c_int64, _P_I64, _P_I64, ctypes.POINTER(ctypes.c_int),
                       ctypes.POINTER(ctypes.c_int)],
         "tiff_decode_rgb8": [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int64],
+    },
+    "bmp_decode": {
+        "bmp_info": [_P_U8, ctypes.c_int64, _P_I64, _P_I64, ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_int)],
+        "bmp_decode_rgb8": [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int64],
     },
 }
 
@@ -159,12 +166,15 @@ _DECODERS = {
     "png": ("png_decode", "png_decode_rgb8", 2, 3),
     "png_gray": ("png_decode", "png_decode_gray8", 0, 1),
     "tiff": ("tiff_decode", "tiff_decode_rgb8", None, 3),
+    "bmp": ("bmp_decode", "bmp_decode_rgb8", None, 3),
 }
 _PROFILES = {
     "png": "8-bit RGB (color type 2), non-interlaced PNG",
     "png_gray": "8-bit gray (color type 0), non-interlaced PNG",
     "tiff": ("classic TIFF, first IFD, strips, chunky 8-bit gray/RGB/RGBA, compression "
              "none/LZW (predictor 1 or 2)/Deflate/PackBits, either byte order"),
+    "bmp": ("'BM' with a BITMAPINFOHEADER or larger, 24- or 32-bit uncompressed BI_RGB, "
+            "bottom-up or top-down"),
 }
 _ERRORS = {-1: "not this format (bad signature)", -2: "truncated", -3: "outside the profile",
            -4: "corrupt compressed data", -5: "bad PNG row filter", -6: "buffer too small"}
@@ -182,7 +192,7 @@ def _info(kind: str, data: bytes, label: str):
     buf = np.frombuffer(data, np.uint8)
     ptr = buf.ctypes.data_as(_P_U8)
     h, w, a, b = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int(), ctypes.c_int()
-    info = lib.png_info if name == "png_decode" else lib.tiff_info
+    info = getattr(lib, name.replace("_decode", "_info"))
     rc = info(ptr, len(data), ctypes.byref(h), ctypes.byref(w), ctypes.byref(a), ctypes.byref(b))
     if rc != 0:
         raise ValueError(f"{label}: {_ERRORS.get(rc, f'error {rc}')}; the decoder reads "
@@ -224,8 +234,17 @@ def decode_tiff(source) -> np.ndarray:
     return _decode("tiff", source)
 
 
+def decode_bmp(source) -> np.ndarray:
+    """A BMP of the profile above (a path or bytes) -> (H, W, 3) uint8 RGB
+    (rows in top-down order, alpha dropped); any other BMP raises
+    ``ValueError``."""
+    return _decode("bmp", source)
+
+
 def image_hw(path) -> tuple[int, int]:
-    """(H, W) of a PNG or TIFF from its header, without decoding."""
+    """(H, W) of a PNG, BMP or TIFF from its header, without decoding."""
     data, label = _read(path)
-    _, _, h, w = _info("png" if label.lower().endswith(".png") else "tiff", data, label)
+    low = label.lower()
+    kind = "png" if low.endswith(".png") else "bmp" if low.endswith(".bmp") else "tiff"
+    _, _, h, w = _info(kind, data, label)
     return h, w

@@ -1,0 +1,493 @@
+"""HerlevTrainer: the progressive classification trainer (counterpart of
+``ugpg_tpu/train/cls_trainer.py``).
+
+* stage resolutions {1: 32, 2: 64, 3: 128, 4: 224}, lr 3e-4 at stage 1
+  and 1e-4 after; Adam(weight_decay 1e-4) and ``ReduceLROnPlateau(0.5,
+  patience 5)`` on the validation loss, both built anew at every stage
+* class-weighted CE; at stages > 1 every sample's CE weighted by
+  ``1 + alpha A``, A the normalised entropy of the frozen previous stage
+* head-only weight transfer between stages (``classifier.*`` on an exact
+  shape match); ``pretrained_unet_paths`` merges a segmentation ``.pth``
+  into a stage's encoder and freezes it (``freeze_subtrees``)
+* per stage the best-validation-accuracy ``herlev_stage{S}_best.pth`` with
+  the config (reference schema and key set), early stopping after 15
+  epochs without improvement, ``training_log.csv``, the history JSON, and
+  the NaN guard (``herlev_stage{S}_diverged.pth``, then
+  ``TrainingDivergedError``)
+* a ``PreemptionGuard`` polled at every epoch's end: when armed, the loop
+  writes ``herlev_stage{S}_last.pth`` (weights, optimizer and scheduler
+  state, early-stopping state, history, the generator's state) and
+  returns with ``preempted`` set; ``resume=True`` continues from it.  The
+  trainer's randomness (dropout masks, augmentation) comes from one
+  ``torch.Generator`` seeded by ``seed + 1``, which ``_last`` carries, so a
+  resumed run trains the bits an uninterrupted one trains when the loaders
+  give the same batches (a shuffling loader restarts its sequence)
+* ``dtype=torch.bfloat16``: bf16 compute over float32 parameters
+
+The loop reads the device once per epoch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+from pathlib import Path
+from typing import Any, Iterable, Mapping
+
+import numpy as np
+import torch
+
+from ugpg_tpu_torch.data.loader import prefetch_to_device
+from ugpg_tpu_torch.device import resolve_device
+from ugpg_tpu_torch.io.checkpoint import (
+    classifier_decoder_fill,
+    classifier_state_dict,
+    full_classifier_state_dict,
+    has_checkpoint,
+    read_checkpoint,
+    save_checkpoint,
+)
+from ugpg_tpu_torch.models.blocks import init_parameters
+from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS, HerlevClassificationModel
+from ugpg_tpu_torch.progressive.transfer import transfer_weights
+from ugpg_tpu_torch.train.optim import (
+    ReduceLROnPlateau,
+    freeze_subtrees,
+    get_learning_rate,
+    torch_adam,
+)
+from ugpg_tpu_torch.train.steps import (
+    CLS_METRIC_KEYS,
+    make_cls_eval_step,
+    make_cls_train_step,
+    not_ported,
+)
+from ugpg_tpu_torch.utils.anomaly import TrainingDivergedError, nonfinite_metrics
+from ugpg_tpu_torch.utils.profiling import CSVLogger
+
+__all__ = ["HerlevTrainer", "create_config"]
+
+_HEAD = "classifier."
+
+
+def create_config() -> dict:
+    """The default Herlev config (the JAX package's, paths removed)."""
+    return {
+        "data_dir": None,
+        "binary_classification": False,
+        "num_classes": 7,
+        "pretrained_unet_paths": {},
+        "batch_size": 16,
+        "epochs_per_stage": 30,
+        "stages": [1, 2, 3, 4],
+        "num_workers": 4,
+        "log_interval": 10,
+        "early_stopping_patience": 15,
+        "weight_decay": 1e-4,
+        "class_weights": None,
+        "uncertainty_alpha": 1.0,
+        "split_ratios": {"train": 0.7, "val": 0.2, "test": 0.1},
+        "output_dir": "./herlev_outputs",
+    }
+
+
+def _plain_config(config: Mapping[str, Any]) -> dict:
+    return {k: v for k, v in config.items()
+            if isinstance(v, (int, float, str, bool, list, dict, type(None)))}
+
+
+class HerlevTrainer:
+    """Progressive trainer for Herlev cervical-cell classification."""
+
+    def __init__(self, config: Mapping[str, Any], dtype: torch.dtype | None = None,
+                 axis_name: str | None = None, seed: int = 0, mesh=None,
+                 shard_model: bool = True, checkpoint_backend: str = "pth",
+                 nan_guard: bool = True, device: str | torch.device | None = None):
+        """``config``: ``create_config()``'s keys, plus ``augment`` (default
+        True), ``accum_steps`` (1) and ``verbose`` (True).  ``seed`` seeds
+        each stage's initialisation and, as ``seed + 1``, the generator of
+        dropout and augmentation.  ``dtype``: None or float32, or bfloat16
+        compute.  ``device``: ``cuda`` unless given; raises without CUDA.
+        ``shard_model`` acts with a mesh only, as in the JAX package.
+
+        Not ported, raising ``NotImplementedError``: ``mesh``,
+        ``axis_name``, a ``checkpoint_backend`` other than ``"pth"``, and
+        the config's ``scan_epochs``, ``scan_chunk_bytes``, ``tb_logdir``,
+        ``remat`` and ``pipeline_unc``."""
+        self.config = dict(config)
+        self.device = resolve_device(device)
+        cfg = self.config
+        not_ported(
+            mesh=mesh is not None, axis_name=axis_name is not None,
+            checkpoint_backend=checkpoint_backend != "pth",
+            scan_epochs=bool(cfg.get("scan_epochs")),
+            scan_chunk_bytes=cfg.get("scan_chunk_bytes") is not None,
+            tb_logdir=cfg.get("tb_logdir") is not None, remat=bool(cfg.get("remat")),
+            pipeline_unc=bool(cfg.get("pipeline_unc")))
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be None, float32 or bfloat16, got {dtype}")
+        self.dtype = dtype or torch.float32
+        self.nan_guard = nan_guard
+        self.seed = seed
+        self.num_classes = int(cfg["num_classes"])
+        epochs = cfg.get("epochs_per_stage", 30)
+        self.stage_configs = {
+            s: {"resolution": CLS_STAGE_RESOLUTIONS[s], "epochs": epochs,
+                "lr": 3e-4 if s == 1 else 1e-4}
+            for s in (1, 2, 3, 4)
+        }
+        self.uncertainty_alpha = cfg.get("uncertainty_alpha", 1.0)
+        self.verbose = cfg.get("verbose", True)
+        self._print = print if self.verbose else (lambda *a, **kw: None)
+        self.accum_steps = int(cfg.get("accum_steps", 1))
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {self.accum_steps}")
+        cw = cfg.get("class_weights")
+        self.class_weights = (None if cw is None else
+                              torch.as_tensor(cw, dtype=torch.float32, device=self.device))
+        # dropout masks and augmentation parameters (the JAX trainer's key)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+        self.models: dict[int, HerlevClassificationModel] = {}  # built at first use
+        self._frozen_stages: set[int] = set()
+        self._fills: dict[int, dict] = {}  # the decoder keys a .pth carries
+        self.current_stage = 1
+        self.preempted = False
+        self.optimizer: torch.optim.Optimizer | None = None
+        self._scheduler: ReduceLROnPlateau | None = None
+        self._train_steps: dict[int, Any] = {}
+        self._eval_steps: dict[int, Any] = {}
+        self.history: dict[str, list] = {
+            "train_loss": [], "val_loss": [],
+            "train_acc": [], "val_acc": [],
+            "uncertainty_weights_mean": [], "uncertainty_weights_std": [],
+            "base_loss": [],
+            "stage_transitions": [],
+        }
+        for s, path in (cfg.get("pretrained_unet_paths") or {}).items():
+            if path and os.path.exists(str(path)):
+                self.load_pretrained_unet(int(s), path)
+
+    # ------------------------------------------------------------------
+    def _model(self, stage: int) -> HerlevClassificationModel:
+        if stage not in self.models:
+            model = HerlevClassificationModel(stage, self.num_classes, use_bn=True,
+                                              dtype=self.dtype)
+            init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
+            self.models[stage] = model.to(self.device)
+        return self.models[stage]
+
+    def load_pretrained_unet(self, stage: int, ckpt_path) -> list[str]:
+        """Merge a segmentation ``.pth``'s matching encoder blocks into the
+        stage's ``unet`` (the name-keyed overlap merge) and freeze it."""
+        self._print(f"Loading pretrained U-Net weights from: {ckpt_path}")
+        seg = read_checkpoint(ckpt_path)["model_state_dict"]
+        model = self._model(stage)
+        merged, copied = transfer_weights({f"unet.{k}": v for k, v in seg.items()},
+                                          model.state_dict())
+        model.load_state_dict(merged, strict=True)
+        self._frozen_stages.add(stage)
+        self._print(f"  merged {len(copied)} encoder keys; encoder frozen")
+        return copied
+
+    def setup_optimizer_scheduler(self, stage: int) -> torch.optim.Optimizer:
+        """A fresh Adam and plateau scheduler for the stage; the encoder of
+        a stage with a pretrained U-Net is frozen."""
+        model = self._model(stage)
+        params = (freeze_subtrees(model, ("unet",)) if stage in self._frozen_stages
+                  else list(model.parameters()))
+        self.optimizer = torch_adam(params, self.stage_configs[stage]["lr"],
+                                    weight_decay=self.config.get("weight_decay", 1e-4))
+        self._scheduler = ReduceLROnPlateau(factor=0.5, patience=5)
+        self._train_steps.pop(stage, None)
+        return self.optimizer
+
+    def transfer_weights(self, prev_stage: int, current_stage: int) -> int:
+        """Copy the head's tensors whose shapes match; the encoder keeps its
+        own initialisation."""
+        self._print(f"Transferring weights from stage {prev_stage} to {current_stage}")
+        prev = self._model(prev_stage).state_dict()
+        cur = self._model(current_stage)
+        state = cur.state_dict()
+        copied = 0
+        for key, value in prev.items():
+            if key.startswith(_HEAD) and key in state and value.shape == state[key].shape:
+                state[key] = value.detach().clone()
+                copied += 1
+        cur.load_state_dict(state, strict=True)
+        self._print(f"  Transferred {copied} classifier tensors")
+        return copied
+
+    def _prev(self, stage: int):
+        if stage <= 1:
+            return None, None
+        return self._model(stage - 1), self.stage_configs[stage - 1]["resolution"]
+
+    def _get_train_step(self, stage: int):
+        if self.optimizer is None:
+            self.setup_optimizer_scheduler(stage)
+        if stage not in self._train_steps:
+            prev_model, prev_res = self._prev(stage)
+            self._train_steps[stage] = make_cls_train_step(
+                self._model(stage), self.optimizer, stage,
+                self.stage_configs[stage]["resolution"], self.num_classes,
+                prev_model=prev_model, prev_resolution=prev_res,
+                alpha=self.uncertainty_alpha, augment=bool(self.config.get("augment", True)),
+                normalize=True, accum_steps=self.accum_steps)
+        return self._train_steps[stage]
+
+    def _get_eval_step(self, stage: int):
+        if stage not in self._eval_steps:
+            prev_model, prev_res = self._prev(stage)
+            self._eval_steps[stage] = make_cls_eval_step(
+                self._model(stage), stage, self.stage_configs[stage]["resolution"],
+                self.num_classes, prev_model=prev_model, prev_resolution=prev_res,
+                alpha=self.uncertainty_alpha, normalize=True)
+        return self._eval_steps[stage]
+
+    @staticmethod
+    def _reduce_epoch(metrics: list[dict]) -> tuple[float, ...]:
+        """(loss, base loss, accuracy %, weight mean, weight std): one read
+        from the device for the epoch."""
+        if not metrics:
+            return (0.0,) * 5
+        host = torch.stack([torch.stack([m[k].float() for k in CLS_METRIC_KEYS])
+                            for m in metrics]).cpu().numpy().astype(np.float64)
+        col = {k: host[:, j] for j, k in enumerate(CLS_METRIC_KEYS)}
+        n = len(metrics)
+        return (float(col["final_loss"].sum() / n), float(col["base_loss"].sum() / n),
+                100.0 * float(col["correct"].sum()) / max(float(col["count"].sum()), 1.0),
+                float(col["uncertainty_weight_mean"].sum() / n),
+                float(col["uncertainty_weight_std"].sum() / n))
+
+    def _prefetch(self, dataloader: Iterable):
+        return prefetch_to_device(iter(dataloader), size=2, device=self.device)
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
+        step = self._get_train_step(stage)
+        log_every = self.config.get("log_interval", 10)
+        collected = []
+        with contextlib.closing(self._prefetch(dataloader)) as batches:
+            for batch_idx, batch in enumerate(batches):
+                m = step(batch, self.class_weights, self.generator)
+                collected.append(m)
+                if self.verbose and batch_idx % log_every == 0:
+                    self._print(f"Stage {stage}, Batch {batch_idx} "
+                                f"Loss: {float(m['final_loss']):.6f} "
+                                f"Base: {float(m['base_loss']):.6f}")
+        return self._reduce_epoch(collected)
+
+    def validate_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
+        step = self._get_eval_step(stage)
+        with contextlib.closing(self._prefetch(dataloader)) as batches:
+            return self._reduce_epoch([step(batch, self.class_weights) for batch in batches])
+
+    def _state_dict(self, stage: int) -> dict:
+        """The stage's weights with the reference's full ``unet`` key set."""
+        if stage not in self._fills:
+            self._fills[stage] = classifier_decoder_fill(stage)
+        return full_classifier_state_dict(self._model(stage).state_dict(), stage,
+                                          self._fills[stage])
+
+    def _save(self, path: Path, stage: int, epoch: int, **metadata) -> Path:
+        return save_checkpoint(path, self._state_dict(stage), stage=stage, epoch=epoch,
+                               optimizer_state_dict=self.optimizer.state_dict(),
+                               config=_plain_config(self.config), **metadata)
+
+    # ------------------------------------------------------------------
+    def train_progressive(self, train_loaders, val_loaders, save_dir: str,
+                          preemption=None, resume: bool = False) -> dict[str, list]:
+        """The stages of ``config["stages"]`` with early stopping and
+        best-accuracy checkpoints.  Loaders may be dicts keyed by stage.
+
+        ``preemption`` (``utils.preemption.PreemptionGuard``) is polled at
+        each epoch's end; when armed, the loop writes
+        ``herlev_stage{S}_last.pth`` and returns.  ``resume=True`` restores
+        the latest ``_last.pth`` in ``save_dir`` (earlier stages' weights
+        from their ``_best``, else ``_last``) and continues after its epoch."""
+        save_path = Path(save_dir)
+        save_path.mkdir(parents=True, exist_ok=True)
+        resume_stage = resume_meta = None
+        if resume:
+            resume_stage, resume_meta = self._find_resume_point(save_path)
+            if resume_stage is not None:
+                self._print(f"Resuming from stage {resume_stage}, "
+                            f"epoch {resume_meta.get('epoch', 0) + 1}")
+        csv_log = CSVLogger(save_path / "training_log.csv",
+                            ["stage", "epoch", "train_loss", "val_loss", "train_acc",
+                             "val_acc", "base_loss", "uncertainty_mean", "lr"])
+        self.preempted = False
+        for stage in self.config["stages"]:
+            if self.preempted:
+                break
+            cfg = self.stage_configs[stage]
+            start_epoch = 0
+            best_val_acc, best_val_loss = 0.0, float("inf")
+            epochs_without_improvement = 0
+            saved_any = False
+            if resume_stage is not None:
+                if stage < resume_stage:
+                    self._print(f"Resume: skipping completed stage {stage}")
+                    continue
+                if stage == resume_stage:
+                    self._print(f"\nResuming Stage {stage} - Resolution: {cfg['resolution']}")
+                    self.current_stage = stage
+                    self.setup_optimizer_scheduler(stage)
+                    self._restore_last(stage, resume_meta)
+                    # "epoch" counts completed epochs: the next one's index
+                    start_epoch = int(resume_meta.get("epoch", 0))
+                    best_val_acc = float(resume_meta.get("best_val_acc", 0.0))
+                    best_val_loss = float(resume_meta.get("best_val_loss", float("inf")))
+                    epochs_without_improvement = int(
+                        resume_meta.get("epochs_without_improvement", 0))
+                    saved_any = bool(resume_meta.get("saved_any", True))
+                    resume_stage = None
+                    if start_epoch >= cfg["epochs"]:
+                        self.history["stage_transitions"].append(
+                            {"stage": stage, "best_val_acc": best_val_acc,
+                             "best_val_loss": best_val_loss})
+                        continue
+                else:
+                    # the stage list skipped past the resume stage: its
+                    # trained weights, not a fresh initialisation, feed the
+                    # transfer and the uncertainty
+                    for suffix in ("last", "best"):
+                        ckpt = save_path / f"herlev_stage{resume_stage}_{suffix}.pth"
+                        if has_checkpoint(ckpt):
+                            self.load_stage_weights(resume_stage, ckpt)
+                            break
+                    resume_stage = None
+            if start_epoch == 0:
+                self._print(f"\nTraining Stage {stage} - Resolution: {cfg['resolution']}")
+                self.current_stage = stage
+                if stage > 1:
+                    self.transfer_weights(stage - 1, stage)
+                self.setup_optimizer_scheduler(stage)
+
+            tl = train_loaders[stage] if isinstance(train_loaders, dict) else train_loaders
+            vl = val_loaders[stage] if isinstance(val_loaders, dict) else val_loaders
+            for epoch in range(start_epoch, cfg["epochs"]):
+                tr_loss, tr_base, tr_acc, _, _ = self.train_epoch(tl, stage)
+                va_loss, va_base, va_acc, va_um, va_us = self.validate_epoch(vl, stage)
+                # the lr this epoch trained with, before the plateau step
+                epoch_lr = get_learning_rate(self.optimizer)
+                self._scheduler.step(va_loss, self.optimizer)
+
+                self.history["train_loss"].append(tr_loss)
+                self.history["val_loss"].append(va_loss)
+                self.history["train_acc"].append(tr_acc)
+                self.history["val_acc"].append(va_acc)
+                self.history["uncertainty_weights_mean"].append(va_um)
+                self.history["uncertainty_weights_std"].append(va_us)
+                self.history["base_loss"].append(va_base)
+                csv_log.log(stage=stage, epoch=epoch + 1,
+                            train_loss=round(tr_loss, 6), val_loss=round(va_loss, 6),
+                            train_acc=round(tr_acc, 4), val_acc=round(va_acc, 4),
+                            base_loss=round(va_base, 6), uncertainty_mean=round(va_um, 6),
+                            lr=epoch_lr)
+                self._print(f"Stage {stage} Epoch {epoch + 1}/{cfg['epochs']} | "
+                            f"Train {tr_loss:.4f}/{tr_acc:.2f}% | "
+                            f"Val {va_loss:.4f}/{va_acc:.2f}%")
+
+                if self.nan_guard:
+                    bad = nonfinite_metrics(train_loss=tr_loss, val_loss=va_loss)
+                    if bad:
+                        ckpt = self._save(
+                            save_path / f"herlev_stage{stage}_diverged.pth", stage, epoch + 1,
+                            diverged_metrics={k: repr(v) for k, v in bad.items()},
+                            history=self.history)
+                        raise TrainingDivergedError(stage, epoch + 1, bad, ckpt)
+
+                # strict > as the reference, but at least one checkpoint a stage
+                if va_acc > best_val_acc or not saved_any:
+                    best_val_acc = max(best_val_acc, va_acc)
+                    best_val_loss = va_loss
+                    epochs_without_improvement = 0
+                    saved_any = True
+                    self._save(save_path / f"herlev_stage{stage}_best.pth", stage, epoch + 1,
+                               train_loss=tr_loss, val_loss=va_loss, train_acc=tr_acc,
+                               val_acc=va_acc)
+                    self._print(f"New best model saved! Val Acc: {va_acc:.2f}%")
+                else:
+                    epochs_without_improvement += 1
+
+                # a pending SIGTERM is acknowledged even when early stopping
+                # fires in the same epoch
+                if preemption is not None and preemption.should_stop():
+                    self.preempted = True
+                    self._save(
+                        save_path / f"herlev_stage{stage}_last.pth", stage, epoch + 1,
+                        val_acc=va_acc, val_loss=va_loss, best_val_acc=best_val_acc,
+                        best_val_loss=best_val_loss,
+                        epochs_without_improvement=epochs_without_improvement,
+                        saved_any=saved_any,
+                        scheduler={"best": self._scheduler.best,
+                                   "num_bad_epochs": self._scheduler.num_bad_epochs},
+                        history=self.history, generator_state=self.generator.get_state())
+                    self._print(f"Preemption requested (signal "
+                                f"{getattr(preemption, 'signum', None)}): "
+                                f"herlev_stage{stage}_last saved at epoch {epoch + 1}; "
+                                "restart with resume=True (--resume) to continue")
+                    break
+
+                if epochs_without_improvement >= self.config.get("early_stopping_patience", 15):
+                    self._print(f"Early stopping after {epochs_without_improvement} "
+                                "epochs without improvement")
+                    break
+
+            self.history["stage_transitions"].append(
+                {"stage": stage, "best_val_acc": best_val_acc, "best_val_loss": best_val_loss})
+            self._print(f"Stage {stage} completed. Best Val Acc: {best_val_acc:.2f}%")
+
+        hist_path = save_path / "training_history.json"
+        hist_path.write_text(json.dumps(self.history, indent=2))
+        self._print(f"Training history saved to: {hist_path}")
+        return self.history
+
+    # ------------------------------------------------------------------
+    def load_stage_weights(self, stage: int, checkpoint_path) -> None:
+        """Load one stage's weights from a reference ``.pth`` (strict, the
+        decoder's keys dropped)."""
+        sd = read_checkpoint(checkpoint_path)["model_state_dict"]
+        self._model(stage).load_state_dict(classifier_state_dict(sd, stage), strict=True)
+        self._print(f"Loaded weights for stage {stage} from {checkpoint_path}")
+
+    def _find_resume_point(self, save_path: Path):
+        """The latest ``herlev_stage{S}_last.pth`` -> (stage, its container),
+        or (None, None); loads earlier stages' weights (the frozen
+        uncertainty sources), ``_best`` before ``_last``."""
+        stages = sorted(self.config["stages"])
+        for stage in reversed(stages):
+            last = save_path / f"herlev_stage{stage}_last.pth"
+            if has_checkpoint(last):
+                break
+        else:
+            return None, None
+        meta = read_checkpoint(last)
+        for s in (s for s in stages if s < stage):
+            for suffix in ("best", "last"):
+                ckpt = save_path / f"herlev_stage{s}_{suffix}.pth"
+                if has_checkpoint(ckpt):
+                    self.load_stage_weights(s, ckpt)
+                    break
+        return stage, meta
+
+    def _restore_last(self, stage: int, meta: Mapping) -> None:
+        """Weights, optimizer, scheduler, history and generator state from
+        the stage's ``_last.pth`` (``meta``), for a mid-stage resume."""
+        sd = classifier_state_dict(meta["model_state_dict"], stage)
+        self._model(stage).load_state_dict(sd, strict=True)
+        if meta.get("optimizer_state_dict") is not None:
+            self.optimizer.load_state_dict(meta["optimizer_state_dict"])
+        sched = meta.get("scheduler") or {}
+        if sched:
+            self._scheduler.best = float(sched.get("best", float("inf")))
+            self._scheduler.num_bad_epochs = int(sched.get("num_bad_epochs", 0))
+        if isinstance(meta.get("history"), dict):
+            for k, v in meta["history"].items():
+                if k in self.history and isinstance(v, list):
+                    self.history[k] = list(v)
+        if meta.get("generator_state") is not None:
+            self.generator.set_state(meta["generator_state"])

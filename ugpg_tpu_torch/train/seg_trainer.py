@@ -41,6 +41,7 @@ from ugpg_tpu_torch.io.checkpoint import (
     read_checkpoint,
     save_checkpoint,
 )
+from ugpg_tpu_torch.models.blocks import init_parameters
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 from ugpg_tpu_torch.progressive.transfer import transfer_weights
@@ -63,18 +64,6 @@ DEFAULT_STAGE_CONFIGS = {
     3: {"resolution": 128, "epochs_per_stage": 40, "lr": 1e-4},
     4: {"resolution": 256, "epochs_per_stage": 40, "lr": 1e-4},
 }
-
-
-@torch.no_grad()
-def _init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """torch's default initialisation of every conv (kaiming-uniform weight,
-    uniform(+-1/sqrt(fan_in)) bias), drawn from ``generator``; BN layers
-    keep their ones/zeros."""
-    for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
-            bound = 1.0 / (m.weight[0].numel() ** 0.5)
-            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
 
 
 class UncertaintyGuidedProgressiveTrainer:
@@ -180,7 +169,7 @@ class UncertaintyGuidedProgressiveTrainer:
             model = STAGE_MODELS[stage](num_classes=self.num_classes, use_bn=True,
                                         width=self.width, in_channels=self.in_channels,
                                         dtype=self.dtype)
-            _init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
+            init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
             self.models[stage] = model.to(self.device)
         return self.models[stage]
 

@@ -1,6 +1,6 @@
-"""Segmentation train and eval steps (counterpart of ``ugpg_tpu/train/steps.py``).
+"""Train and eval steps (counterpart of ``ugpg_tpu/train/steps.py``).
 
-One train step runs, per batch:
+One segmentation train step runs, per batch:
 
     resize (image bilinear align_corners, mask nearest)
     -> ``augment=True``: the MoNuSeg augmentation on the device
@@ -19,6 +19,20 @@ host goes to the model's device by a synchronous copy; one already there
 transposed to NCHW here.  The metrics come back as 0-d tensors on the
 device, so a step never waits for the device.
 
+One classification train step (``make_cls_train_step``) runs, per batch
+``(images (B, H, W, 3), labels (B,))``:
+
+    ``augment=True``: the Herlev augmentation on the device
+    -> ``normalize=True``: ImageNet normalisation -> resize (bilinear,
+       align_corners) to the stage resolution
+    -> stage > 1: the frozen previous stage in eval mode, no grad, on the
+       image resized down; per-sample weights 1 + alpha A (entropy / log K)
+    -> the current stage in train mode (BN stats, dropout from the
+       generator)
+    -> class-weighted CE (the base loss); at stage > 1 the loss is the mean
+       of the *unweighted* per-sample CE times the weights
+    -> backward -> one optimizer step -> the six metrics
+
 The JAX package's whole-epoch ``lax.scan`` programs have no counterpart in
 eager PyTorch; CUDA graphs would be theirs.
 """
@@ -30,21 +44,36 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ugpg_tpu_torch.data.augment import apply_monuseg_params, sample_monuseg_params
+from ugpg_tpu_torch.data.augment import (
+    apply_herlev_params,
+    apply_monuseg_params,
+    imagenet_normalize,
+    sample_herlev_params,
+    sample_monuseg_params,
+)
 from ugpg_tpu_torch.metrics.segmentation import dice_coefficient, get_predictions, pixel_accuracy
 from ugpg_tpu_torch.ops.cuda.uncertainty_bce import uncertainty_weighted_bce
-from ugpg_tpu_torch.ops.losses import bce_with_logits
+from ugpg_tpu_torch.ops.losses import (
+    bce_with_logits,
+    softmax_cross_entropy,
+    weighted_cross_entropy_mean,
+)
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 from ugpg_tpu_torch.uncertainty import (
     apply_uncertainty_weighted_loss,
     binary_uncertainty,
+    classification_uncertainty_weights,
     generate_uncertainty_map,
 )
 
-__all__ = ["make_seg_train_step", "make_seg_eval_step", "METRIC_KEYS", "not_ported"]
+__all__ = ["make_seg_train_step", "make_seg_eval_step", "make_cls_train_step",
+           "make_cls_eval_step", "METRIC_KEYS", "CLS_METRIC_KEYS", "not_ported"]
 
 METRIC_KEYS = ("final_loss", "base_loss", "dice", "accuracy",
                "uncertainty_weight_mean", "uncertainty_weight_std")
+# "correct" and "count" are summed over micro-batches, the others averaged
+CLS_METRIC_KEYS = ("final_loss", "base_loss", "correct", "count",
+                   "uncertainty_weight_mean", "uncertainty_weight_std")
 
 Metrics = dict[str, torch.Tensor]
 
@@ -208,5 +237,138 @@ def make_seg_eval_step(
         final, base = apply_uncertainty_weighted_loss(
             bce_with_logits(logits, y, pos_weight), unc_map, alpha)
         return _metrics(final, base, logits, y, unc_map)
+
+    return step
+
+
+# ---------------------------------------------------------------- classification
+def _cls_batch(batch, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return _nchw(batch[0], device), torch.as_tensor(batch[1]).to(device).long()
+
+
+def _cls_inputs(images: torch.Tensor, resolution: int, normalize: bool, prev_model,
+                prev_resolution, num_classes: int, alpha: float):
+    """Normalise, resize, and the previous stage's per-sample weights (or None)."""
+    if normalize:
+        images = imagenet_normalize(images)
+    x = resize_bilinear_align_corners(images, (resolution, resolution))
+    weights = None
+    if prev_model is not None:
+        with torch.no_grad():
+            prev_model.eval()
+            x_prev = resize_bilinear_align_corners(x, (prev_resolution, prev_resolution))
+            weights = classification_uncertainty_weights(prev_model(x_prev), num_classes, alpha)
+    return x, weights
+
+
+def _cls_metrics(logits, labels, class_weights, weights) -> tuple[torch.Tensor, Metrics]:
+    """(final loss, the six metrics)."""
+    base = weighted_cross_entropy_mean(logits, labels, class_weights)
+    final = base if weights is None else (softmax_cross_entropy(logits, labels) * weights).mean()
+    if weights is None:
+        unc_mean = unc_std = torch.zeros((), dtype=torch.float32, device=logits.device)
+    else:
+        unc_mean, unc_std = weights.mean(), weights.std(correction=0)
+    return final, {
+        "final_loss": final.detach(),
+        "base_loss": base.detach(),
+        "correct": (logits.detach().argmax(-1) == labels).sum().to(torch.int32),
+        "count": torch.tensor(labels.shape[0], dtype=torch.int32, device=logits.device),
+        "uncertainty_weight_mean": unc_mean,
+        "uncertainty_weight_std": unc_std,
+    }
+
+
+def make_cls_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    stage: int,
+    resolution: int,
+    num_classes: int,
+    prev_model: nn.Module | None = None,
+    prev_resolution: int | None = None,
+    alpha: float = 1.0,
+    augment: bool = False,
+    normalize: bool = False,
+    accum_steps: int = 1,
+    external_uncertainty: bool = False,
+) -> Callable[..., Metrics]:
+    """``step(batch, class_weights, generator=None) -> metrics``: one
+    update of the classifier ``model`` through ``optimizer`` (which holds
+    the parameters to train).  ``prev_model`` is the frozen previous stage
+    (stage > 1).  ``generator`` (a ``torch.Generator`` on the model's
+    device) draws the dropout masks and, with ``augment=True``, each
+    micro-batch's augmentation parameters before them; ``augment=True``
+    without it raises.  ``class_weights``: (K,) or None.
+
+    ``accum_steps=K`` splits the batch into K micro-batches in order: the
+    class-weighted CE normalises per micro-batch (what torch accumulation
+    gives), gradients are averaged, BN stats update per micro-batch, one
+    optimizer step follows; "correct" and "count" are summed, the other
+    metrics averaged."""
+    not_ported(external_uncertainty=external_uncertainty)
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    prev_model = prev_model if stage > 1 else None
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def micro(images, labels, class_weights, generator) -> Metrics:
+        if augment:
+            b, _, h, w = images.shape
+            images = apply_herlev_params(images, sample_herlev_params(generator, b, h, w))
+        x, weights = _cls_inputs(images, resolution, normalize, prev_model, prev_resolution,
+                                 num_classes, alpha)
+        model.train()
+        final, metrics = _cls_metrics(model(x, generator=generator), labels, class_weights,
+                                      weights)
+        final.backward()
+        return metrics
+
+    def step(batch, class_weights=None, generator: torch.Generator | None = None) -> Metrics:
+        device = params[0].device
+        images, labels = _cls_batch(batch, device)
+        n = images.shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch size {n} is not divisible by accum_steps={accum_steps}")
+        if augment and generator is None:
+            raise ValueError("augment=True: pass generator, a torch.Generator")
+        m = n // accum_steps
+        optimizer.zero_grad(set_to_none=True)
+        parts = [micro(images[i * m:(i + 1) * m], labels[i * m:(i + 1) * m], class_weights,
+                       generator) for i in range(accum_steps)]
+        if accum_steps > 1:
+            for p in params:  # the micro-batches' gradients were summed
+                if p.grad is not None:
+                    p.grad.div_(accum_steps)
+        optimizer.step()
+        if accum_steps == 1:
+            return parts[0]
+        return {k: torch.stack([part[k] for part in parts]).sum() if k in ("correct", "count")
+                else torch.stack([part[k] for part in parts]).mean() for k in CLS_METRIC_KEYS}
+
+    return step
+
+
+def make_cls_eval_step(
+    model: nn.Module,
+    stage: int,
+    resolution: int,
+    num_classes: int,
+    prev_model: nn.Module | None = None,
+    prev_resolution: int | None = None,
+    alpha: float = 1.0,
+    normalize: bool = False,
+) -> Callable[..., Metrics]:
+    """``step(batch, class_weights=None) -> metrics`` in eval mode (running
+    BN stats, no dropout), no update."""
+    prev_model = prev_model if stage > 1 else None
+
+    @torch.no_grad()
+    def step(batch, class_weights=None) -> Metrics:
+        images, labels = _cls_batch(batch, next(model.parameters()).device)
+        x, weights = _cls_inputs(images, resolution, normalize, prev_model, prev_resolution,
+                                 num_classes, alpha)
+        model.eval()
+        return _cls_metrics(model(x), labels, class_weights, weights)[1]
 
     return step

@@ -7,6 +7,9 @@
 * ``UncertaintyGuidedLoss``, the reference's object over those functions
   (both of its call styles), and ``create_uncertainty_weighted_loss_fn``,
   a reduction-free BCE
+* classification: the normalised softmax entropy H(p) / log K, the
+  per-sample weights ``1 + alpha A`` of a frozen previous stage's logits,
+  and Monte-Carlo-dropout mean and variance
 
 Serving computes the same map from logits in one kernel
 (``ops/cuda/uncertainty.py::uncertainty_from_logits``); the train step's
@@ -16,6 +19,7 @@ fused loss folds the weighting into its own kernels
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -23,13 +27,43 @@ import torch
 from ugpg_tpu_torch.ops.losses import bce_with_logits
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
-__all__ = ["binary_uncertainty", "generate_uncertainty_map", "apply_uncertainty_weighted_loss",
-           "UncertaintyGuidedLoss", "create_uncertainty_weighted_loss_fn"]
+__all__ = ["binary_uncertainty", "entropy_uncertainty", "mc_dropout_uncertainty",
+           "generate_uncertainty_map", "apply_uncertainty_weighted_loss",
+           "classification_uncertainty_weights", "UncertaintyGuidedLoss",
+           "create_uncertainty_weighted_loss_fn"]
 
 
 def binary_uncertainty(probs: torch.Tensor) -> torch.Tensor:
     """A = 1 - 2|P - 0.5| of a probability map."""
     return 1.0 - 2.0 * (probs - 0.5).abs()
+
+
+def entropy_uncertainty(probs: torch.Tensor, num_classes: int, dim: int = -1) -> torch.Tensor:
+    """Normalised softmax entropy H(p) / log K, keeping ``dim`` (size 1)."""
+    entropy = -(probs * torch.log(probs + 1e-8)).sum(dim=dim, keepdim=True)
+    return entropy / math.log(float(num_classes))
+
+
+@torch.no_grad()
+def mc_dropout_uncertainty(apply_fn: Callable[[torch.Tensor, torch.Generator], torch.Tensor],
+                           x: torch.Tensor, generator: torch.Generator, num_samples: int = 8,
+                           task_type: str = "segmentation") -> tuple[torch.Tensor, torch.Tensor]:
+    """Monte-Carlo-dropout mean and variance over ``num_samples`` passes of
+    ``apply_fn(x, generator) -> logits``, which must run the model with its
+    dropout active and its BN in eval mode, drawing the masks from
+    ``generator``.  Probabilities are float32 (softmax for classification,
+    sigmoid otherwise).  -> (mean, variance): per pixel for segmentation;
+    for classification (B, K) and the variance's mean over classes (B,)."""
+    probs = []
+    for _ in range(num_samples):
+        logits = apply_fn(x, generator).float()
+        probs.append(torch.softmax(logits, dim=-1) if task_type == "classification"
+                     else torch.sigmoid(logits))
+    stacked = torch.stack(probs)
+    mean, var = stacked.mean(0), stacked.var(0, correction=0)
+    if task_type == "classification":
+        var = var.mean(-1)
+    return mean, var
 
 
 @torch.no_grad()
@@ -57,6 +91,21 @@ def apply_uncertainty_weighted_loss(pixel_loss: torch.Tensor,
         return base_loss, base_loss
     weights = (1.0 + alpha * uncertainty_map).detach()
     return (pixel_loss * weights).mean(), base_loss
+
+
+@torch.no_grad()
+def classification_uncertainty_weights(prev_logits: torch.Tensor, num_classes: int,
+                                       alpha: float = 1.0) -> torch.Tensor:
+    """Per-sample weights (B,) ``1 + alpha A`` from a frozen previous
+    stage's logits: A is the normalised softmax entropy for K > 2, and the
+    mean over the logits of ``1 - 2|sigmoid - 0.5|`` for K = 2."""
+    if num_classes > 2:
+        unc = entropy_uncertainty(torch.softmax(prev_logits, dim=-1), num_classes, dim=-1)
+    else:
+        unc = binary_uncertainty(torch.sigmoid(prev_logits))
+    if unc.dim() > 1:
+        unc = unc.mean(dim=tuple(range(1, unc.dim())))
+    return 1.0 + alpha * unc
 
 
 class UncertaintyGuidedLoss:
