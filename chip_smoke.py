@@ -26,7 +26,10 @@
    map is timed at each serving bucket (1, 8, 64) on float32 logits and
    at 64 on bfloat16: CUDA-event, device (torch.profiler, which must show
    exactly one uncertainty kernel per call; at 64 also with the L2 cold,
-   the time the kernels line gives) and host time per call.
+   the time the kernels line gives) and host time per call.  Then the host
+   time per call of each serving kernel through its ctypes wrapper and
+   through its operator (torch.ops.ugpg_torch, ops/cuda/library.py, which
+   the models and the artifacts call), at bucket 1 in float32.
 5. Serves stage 4 at full width through the port's entry points: seeded
    random weights with non-trivial BN stats saved as a reference-format
    .pth, Predictor(buckets=(1, 8, 64)), requests of 1, 5, 8 and 11 images
@@ -140,7 +143,30 @@
    bf16 and float32 (and stage 1's at batch 1), and one stage-4
    classifier forward's double convs timed at bucket 64 in bf16 and batch
    16 in float32 beside cuDNN's pair and the bound.
-12. Prints a "kernels" JSON line, then as its last line
+12. The serving stack and MoNuSeg's tools, on phase 5's seeded stage-4
+   checkpoint, phase 11's seeded classifier and phase 9's tree.  The
+   export command (python -m ugpg_tpu_torch.cli.export_model, buckets 1 8
+   64) in two children, float32 and --uint8 --compact, beside the demo
+   command (--demo all --stages 2 --epochs 1) and the augment command
+   (--variants 1, on a copy of the tree's tiles).  Each artifact on the
+   card answers bit for bit as the live float32 Predictor on requests of
+   1, 5, 8 and 11 images (uint8 and float32), with 9 double-conv, 4
+   upsample and 1 uncertainty launches per device call and 18
+   conv3x3_f32_kernel launches by the C side's count; a profiled bucket-64
+   call shows the float32 conv kernel's device time and no library conv
+   kernel; images/s at bucket 64, live and exported in turns; 16
+   concurrent BatchingServer submits; the artifact loaded on the CPU
+   within 1e-4 of the live CPU Predictor.  The classifier exported plain
+   and with mc_dropout=8 (4 double convs per device call) and the slide
+   predictor at 1000 px (18 float32-conv launches), bit for bit.  The
+   serve command in a child with --model, --cls_model --mc_dropout 8,
+   --slide_model and --artifact: 16 concurrent single-image POSTs equal
+   the direct call in fewer than 16 device calls, a batch, a JSON
+   classification and a slide bit for bit, latency over 50 requests per
+   model, SIGINT and an exit within 10 s.  The augment command's patches
+   against extract_patches' grid, every PNG and XML read back, and one
+   stage-1 AugMoNuSegTrainer epoch on them.
+13. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -152,10 +178,13 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import http.client
+import io
 import itertools
 import json
 import math
 import re
+import shutil
 import signal
 import statistics
 import struct
@@ -184,12 +213,22 @@ from ugpg_tpu_torch.data.loader import DataLoader, prefetch_to_device  # noqa: E
 from ugpg_tpu_torch.data.monuseg import load_rgb, resize_image, resize_mask  # noqa: E402
 from ugpg_tpu_torch.data.rasterize import parse_polygons, rasterize_polygons  # noqa: E402
 from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset  # noqa: E402
-from ugpg_tpu_torch.cli import test_herlev, test_monuseg, train_herlev  # noqa: E402
+from ugpg_tpu_torch.cli import (  # noqa: E402
+    augment_monuseg,
+    test_herlev,
+    test_monuseg,
+    train_herlev,
+)
 from ugpg_tpu_torch.data.herlev import CLASS_NAMES, HerlevDataset  # noqa: E402
 from ugpg_tpu_torch.data.monuseg import AugMoNuSegDataset, MoNuSegDataset  # noqa: E402
 from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator  # noqa: E402
+from ugpg_tpu_torch.eval.exported import ExportedPredictor  # noqa: E402
 from ugpg_tpu_torch.eval.serving import BatchingServer, Predictor  # noqa: E402
-from ugpg_tpu_torch.eval.slide import SlidePredictor, native_forward  # noqa: E402
+from ugpg_tpu_torch.eval.slide import (  # noqa: E402
+    ExportedSlidePredictor,
+    SlidePredictor,
+    native_forward,
+)
 from ugpg_tpu_torch.io.checkpoint import full_classifier_state_dict, read_checkpoint  # noqa: E402
 from ugpg_tpu_torch.models.classifier import (  # noqa: E402
     CLS_STAGE_RESOLUTIONS,
@@ -201,6 +240,7 @@ from ugpg_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import double_conv as double_conv_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import resize2x as resize2x_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import uncertainty as uncertainty_mod  # noqa: E402
+from ugpg_tpu_torch.ops.cuda import library as library_ops  # noqa: E402
 from ugpg_tpu_torch.ops.cuda.double_conv import (  # noqa: E402
     F32_TILE,
     f32_blocks,
@@ -208,6 +248,7 @@ from ugpg_tpu_torch.ops.cuda.double_conv import (  # noqa: E402
     f32_plan,
     fused_double_conv,
     fused_double_conv_reference,
+    pack_double_conv,
 )
 from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x, upsample2x_reference  # noqa: E402
 from ugpg_tpu_torch.ops.cuda.uncertainty import (  # noqa: E402
@@ -476,6 +517,49 @@ def time_uncertainty(g):
         del args, windows
     log(f"time uncertainty: one uncertainty kernel per call at every bucket ({json.dumps(kernels)} "
         "in the last 20 calls)")
+    return out
+
+
+# the host-cost timings: each serving kernel's smallest stage-4 call at
+# bucket 1, float32 (down4's double conv, up1's upsample, the logits)
+HOST_CASES = {"fused_double_conv": ("down4", 1), "upsample2x": ("up1", 1),
+              "uncertainty_from_logits": ("logits", 1)}
+
+
+def time_host_dispatch():
+    """Host us per call of each serving kernel through its ctypes wrapper
+    (how the models called the kernels before the operators) and through
+    its operator (``torch.ops.ugpg_torch``, how they call them now), in
+    turns: wrapper, operator, operator, wrapper."""
+    g = torch.Generator(device=DEV).manual_seed(4)
+    by_case = {(kernel, label): (make, fn) for kernel, label, make, fn, *_ in cases()}
+    ops = {"fused_double_conv": library_ops.fused_double_conv,
+           "upsample2x": library_ops.upsample2x,
+           "uncertainty_from_logits": library_ops.uncertainty_from_logits}
+    out = {}
+    for kernel, (label, n) in HOST_CASES.items():
+        make, wrapper = by_case[kernel, label]
+        args = make(n, torch.float32, g)
+        op_args = args
+        if kernel == "fused_double_conv":  # the models pass the packed weights
+            packed = pack_double_conv(*args[1:])
+            wrapper_args = args
+            op_args = (*args, *packed)
+
+            def wrapper(*a, packed=packed):
+                return fused_double_conv(*a, packed=packed)
+        else:
+            wrapper_args = args
+        assert torch.equal(wrapper(*wrapper_args), ops[kernel](*op_args)), kernel
+        samples = {"wrapper": [], "operator": []}
+        for name in ("wrapper", "operator", "operator", "wrapper"):
+            fn, a = (wrapper, wrapper_args) if name == "wrapper" else (ops[kernel], op_args)
+            samples[name].append(host_us(fn, a))
+        out[kernel] = {f"host_us_{k}": statistics.median(v) for k, v in samples.items()}
+        log("time host", json.dumps({"kernel": kernel, "shape": [n, *args[0].shape[1:]],
+                                     **out[kernel],
+                                     "samples": {k: v for k, v in samples.items()}}))
+        del args, op_args, wrapper_args
     return out
 
 
@@ -1938,17 +2022,7 @@ def serve_herlev(tmp: Path) -> tuple[dict, dict]:
         f"{f32_calls} launches")
     assert mma_ms > 0 and f32_ms == 0 and f32_calls == 0, (mma_ms, f32_ms, f32_calls)
 
-    one = images[:1]
-    pb(one)
-    lat = []
-    for _ in range(LATENCY_REPEATS):
-        t0 = time.perf_counter()
-        pb(one)  # returns numpy: the device's work is done
-        lat.append((time.perf_counter() - t0) * 1e3)
-    lat.sort()
-    latency = {"median_ms": statistics.median(lat), "p10_ms": lat[len(lat) // 10],
-               "p90_ms": lat[len(lat) * 9 // 10], "min_ms": lat[0], "max_ms": lat[-1],
-               "repeats": LATENCY_REPEATS}
+    latency = latency_ms(lambda: pb(images[:1]))  # numpy out: the device's work is done
     log("herlev serve: bucket-1 latency, bf16, one 224 px image:", json.dumps(latency))
 
     counts = _lib.launch_counts()
@@ -2046,6 +2120,450 @@ def herlev(tmp: Path, ptxas: dict):
                              "double_conv_bf16_64": dc_bf16, "double_conv_f32_16": dc_f32}
 
 
+# ---------------------------------------------------------------- the serving stack and the tools
+ART_BUCKETS = SERVE_BUCKETS
+SLIDE_PX = TILE_PX
+HTTP_DEADLINE_MS = 5.0  # the serve command's default --max_latency_ms
+HTTP_CONCURRENT = 16
+# kernels of a library convolution (cuDNN's fprop, implicit-GEMM and Winograd
+# kernels); the port's own are conv3x3_*, and cuBLAS's GEMMs (xmma_gemm) serve
+# the heads' matmuls
+LIBRARY_CONV = re.compile(r"cudnn|fprop|implicit|winograd|conv(?!3x3_)", re.IGNORECASE)
+
+
+def port_command(module: str, *args) -> list[str]:
+    """One of the port's command lines, as a user runs it."""
+    return [sys.executable, "-u", "-m", module, *args]
+
+
+def start_command(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def finish_command(proc: subprocess.Popen, label: str, timeout: float = 600.0) -> str:
+    """Wait for a child of ``start_command``; raise unless it exits 0."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise AssertionError(f"{label}: no exit after {timeout} s\n{out[-4000:]}")
+    log_tail(label, out, 4)
+    assert proc.returncode == 0, f"{label}: exit {proc.returncode}\n{out[-4000:]}"
+    return out
+
+
+def drain_launches(total: dict) -> None:
+    """Add the launch counts so far to ``total`` and set them to 0."""
+    for kernel, n in _lib.launch_counts().items():
+        total[kernel] = total.get(kernel, 0) + n
+    _lib.reset_launch_counts()
+
+
+def assert_same(got, want, label):
+    assert len(got) == len(want), label
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, g.dtype, w.dtype, g.shape)
+        np.testing.assert_array_equal(g, w, err_msg=label)
+
+
+def http_call(port: int, method: str, path: str, body: bytes | None = None, ctype=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body, headers={"Content-Type": ctype} if ctype else {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def npy(arr: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def npz(data: bytes) -> dict:
+    with np.load(io.BytesIO(data)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def latency_ms(fn, repeats: int = LATENCY_REPEATS) -> dict:
+    """Wall ms of ``repeats`` calls of ``fn`` after one: median, p10, p90,
+    min and max."""
+    fn()
+    lat = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    return {"median_ms": statistics.median(lat), "p10_ms": lat[len(lat) // 10],
+            "p90_ms": lat[len(lat) * 9 // 10], "min_ms": lat[0], "max_ms": lat[-1],
+            "repeats": repeats}
+
+
+def artifacts(tmp: Path, seg: Path, cls: Path, tile: np.ndarray,
+              launches: dict) -> tuple[dict, dict]:
+    """Phase 12, artifacts: the export command's float32 and uint8 compact
+    artifacts (exported in children), the classifier's and the slide
+    predictor's (here), each against the live predictor on the card.  Adds
+    the phase's launches to ``launches``; the timings come after, in
+    ``artifact_times``."""
+    out = {}
+    g = np.random.default_rng(12)
+    images8 = g.integers(0, 256, (64, 256, 256, 3), dtype=np.uint8)
+    images = images8.astype(np.float32) / 255.0
+    live = {"float32": Predictor(str(seg), buckets=ART_BUCKETS, dtype=None),
+            "uint8_compact": Predictor(str(seg), buckets=ART_BUCKETS, dtype=None,
+                                       input_dtype=np.uint8, compact_output=True)}
+    requests = [(n, req) for n in (1, 5, 8, 11) for req in (images[:n], images8[:n])]
+    want = {key: [p(req) for _, req in requests] for key, p in live.items()}
+    arts = {key: ExportedPredictor(tmp / f"art_{key}") for key in live}
+    for key, art in arts.items():
+        assert art.manifest["buckets"] == list(ART_BUCKETS), art.manifest
+        drain_launches(launches)
+        f32_before = f32_launches()
+        for (n, req), w in zip(requests, want[key]):
+            assert_same(art(req), w, f"artifact {key}, {n} images, {req.dtype}")
+        torch.cuda.synchronize()
+        counts, f32_calls = _lib.launch_counts(), f32_launches() - f32_before
+        calls = art.stats()["device_calls"]
+        log(f"artifacts: {key}: bit-identical to the live float32 Predictor on requests of 1, 5, "
+            f"8, 11 images (float32 and uint8); {calls} device calls, launches "
+            f"{json.dumps(counts)}, {F32_KERNEL} {f32_calls} by the C side's count")
+        assert counts == {"fused_double_conv": 9 * calls, "upsample2x": 4 * calls,
+                          "uncertainty_from_logits": calls}, (counts, calls)
+        assert f32_calls == 18 * calls, (f32_calls, calls)
+    cpu_art = ExportedPredictor(tmp / "art_float32", device="cpu")
+    cpu = cpu_art(images[:1])
+    cpu_live = Predictor(str(seg), buckets=(1,), dtype=None, device="cpu")(images[:1])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(cpu[1:], cpu_live[1:]))
+    flips = cpu[0] != cpu_live[0]
+    log(f"artifacts: the card's float32 artifact loaded on the CPU vs the live CPU Predictor: "
+        f"max|d| {err:.3e} (probabilities and uncertainty), pred flips {int(flips.sum())}")
+    assert err <= 1e-4 and np.all(np.abs(cpu_live[1][flips] - 0.5) < 1e-4)
+    del cpu_art
+
+    px = CLS_STAGE_RESOLUTIONS[4]
+    cls_images = np.random.default_rng(13).random((11, px, px, 3), dtype=np.float32)
+    for mc in (0, 8):
+        live_cls = Predictor(str(cls), task_type="classification", num_classes=7,
+                             buckets=ART_BUCKETS, dtype=None, mc_dropout=mc)
+        path = live_cls.export(tmp / f"cls_art_{mc}")
+        want_cls = [live_cls(cls_images[:n]) for n in (1, 5, 8, 11)]
+        served = ExportedPredictor(path)
+        drain_launches(launches)
+        for n, w in zip((1, 5, 8, 11), want_cls):
+            assert_same(served(cls_images[:n]), w, f"classifier artifact, mc_dropout={mc}, {n}")
+        counts, calls = _lib.launch_counts(), served.stats()["device_calls"]
+        log(f"artifacts: classifier (stage 4, 224 px, float32, mc_dropout={mc}): bit-identical to "
+            f"the live Predictor on 1, 5, 8, 11 images; {calls} device calls, launches "
+            f"{json.dumps(counts)}")
+        assert counts == {"fused_double_conv": 4 * calls}, (counts, calls)
+
+    slide = SlidePredictor(str(seg))
+    t0 = time.perf_counter()
+    path = slide.export(tmp / "slide_art", sizes=((SLIDE_PX, SLIDE_PX),))
+    export_s = time.perf_counter() - t0
+    want_slide = slide(tile[None])
+    served = ExportedSlidePredictor(path)
+    drain_launches(launches)
+    f32_before = f32_launches()
+    got = served(tile[None])
+    torch.cuda.synchronize()
+    f32_calls, counts = f32_launches() - f32_before, _lib.launch_counts()
+    assert_same(got, want_slide, "slide artifact")
+    log(f"artifacts: slide ({SLIDE_PX} px, exported in {export_s:.1f} s): bit-identical to the "
+        f"live SlidePredictor on one {SLIDE_PX} px tile; launches {json.dumps(counts)}, "
+        f"{F32_KERNEL} {f32_calls} by the C side's count")
+    assert f32_calls == 18 and counts == {"fused_double_conv": 9, "upsample2x": 4,
+                                          "uncertainty_from_logits": 1}, (f32_calls, counts)
+    return out, {"live": live["float32"], "art": arts["float32"], "images": images,
+                  "tile": tile, "slide": want_slide}
+
+
+def artifact_times(ref: dict) -> dict:
+    """Phase 12: the float32 artifact's bucket-64 profile (its float32 conv
+    kernel, no library conv kernel), images/s beside the live Predictor in
+    turns, and 16 concurrent BatchingServer submits."""
+    out = {}
+    art, live, images = ref["art"], ref["live"], ref["images"]
+    device, wall_ms, seen = profile_call("artifacts: the float32 artifact, bucket 64, 64 images",
+                                         lambda: art(images))
+    f32_ms = sum(v for k, v in device.items() if F32_KERNEL in k)
+    library_convs = {k[:90]: v for k, v in device.items() if LIBRARY_CONV.search(k)}
+    log(f"artifacts: bucket-64 profile: {F32_KERNEL} {f32_ms:.3f} ms of device time "
+        f"({sum(v for k, v in seen.items() if F32_KERNEL in k)} launches in the profile), "
+        f"library conv kernels {json.dumps(library_convs)}")
+    assert f32_ms > 0 and not library_convs, (f32_ms, library_convs)
+
+    reps, ips = 3, {"live": [], "artifact": []}
+    for name in ("live", "artifact", "artifact", "live"):
+        p = live if name == "live" else art
+        p(images)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            p(images)
+        ips[name].append(reps * 64 / (time.perf_counter() - t0))
+    out["images_per_s"] = {k: statistics.mean(v) for k, v in ips.items()}
+    out["images_per_s_runs"] = ips
+    log(f"artifacts: bucket 64, float32: live Predictor {ips['live']} images/s, exported "
+        f"{ips['artifact']} images/s (in turns: live, exported, exported, live)")
+
+    server = BatchingServer(art, max_latency_ms=20.0)
+    try:
+        results = [f.result(timeout=600) for f in
+                   [server.submit(im) for im in images[:HTTP_CONCURRENT]]]
+    finally:
+        server.close()
+    direct = art(images[:HTTP_CONCURRENT])
+    for i, outs in enumerate(results):
+        for got, w in zip(outs, direct):
+            np.testing.assert_allclose(got, w[i], atol=1e-6)
+    log(f"artifacts: {HTTP_CONCURRENT} concurrent BatchingServer submits to the artifact ok",
+        json.dumps(server.stats()))
+
+    return out
+
+
+def start_server(tmp: Path, seg: Path, cls: Path) -> dict:
+    """Start the serve command in a child with all four kinds of model: a
+    checkpoint, a classifier with MC dropout, a slide model and the
+    float32 artifact.  A thread keeps its output."""
+    import queue as queue_mod
+
+    cmd = port_command("ugpg_tpu_torch.cli.serve", "--model", f"seg={seg}", "--cls_model",
+                       f"cls={cls}", "--mc_dropout", "8", "--slide_model", f"slide={seg}",
+                       "--artifact", f"art={tmp / 'art_float32'}", "--host", "127.0.0.1",
+                       "--port", "0", "--max_latency_ms", str(HTTP_DEADLINE_MS))
+    server = {"t0": time.perf_counter(), "proc": start_command(cmd), "lines": queue_mod.Queue(),
+              "text": []}
+
+    def pump():
+        for line in server["proc"].stdout:
+            server["text"].append(line)
+            server["lines"].put(line)
+        server["lines"].put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return server
+
+
+def server_port(server: dict) -> int:
+    """The port the serve command prints once it listens; its health
+    answer lists the four models."""
+    port = None
+    while port is None:
+        line = server["lines"].get(timeout=300)
+        assert line is not None, "".join(server["text"])[-4000:]
+        m = re.search(r"^serving .* on http://127\.0\.0\.1:(\d+)", line)
+        port = int(m.group(1)) if m else None
+    status, body = http_call(port, "GET", "/v1/health")
+    server["ready_s"] = time.perf_counter() - server["t0"]
+    health = json.loads(body)
+    log(f"http: serve command up {server['ready_s']:.1f} s after its start, on port {port}: "
+        f"{json.dumps(health)}")
+    assert status == 200 and health["models"] == ["art", "cls", "seg", "slide"], health
+    return port
+
+
+def stop_server(server: dict) -> float:
+    """SIGINT; the child must exit 0 within 10 s.  -> seconds to its exit."""
+    proc = server["proc"]
+    t1 = time.perf_counter()
+    proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("http: the serve command outlived SIGINT by 10 s")
+    stop_s = time.perf_counter() - t1
+    log(f"http: SIGINT -> exit {rc} after {stop_s:.2f} s")
+    log_tail("http: serve command", "".join(server["text"]), 3)
+    assert rc == 0, "".join(server["text"])[-4000:]
+    return stop_s
+
+
+def serve_over_http(server: dict, port: int, cls: Path, ref: dict) -> dict:
+    """Phase 12, HTTP: concurrent single images, a batch, a JSON
+    classification and a slide against the live predictors, and the
+    latency of single requests."""
+    out = {"ready_s": server["ready_s"]}
+    g = np.random.default_rng(14)
+    images = g.random((HTTP_CONCURRENT, 256, 256, 3), dtype=np.float32)
+    direct = ref["live"](images)
+    before = json.loads(http_call(port, "GET", "/v1/stats")[1])["seg"]["predictor"]
+    results = [None] * HTTP_CONCURRENT
+
+    def call(i):
+        results[i] = http_call(port, "POST", "/v1/models/seg:predict", npy(images[i]),
+                               "application/x-npy")
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(HTTP_CONCURRENT)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i, (status, body) in enumerate(results):
+        assert status == 200, body[:400]
+        got = npz(body)
+        for name, w in zip(("preds", "probs", "uncertainty"), direct):
+            np.testing.assert_allclose(got[name], w[i], atol=1e-6, err_msg=name)
+    stats = json.loads(http_call(port, "GET", "/v1/stats")[1])["seg"]
+    calls = stats["predictor"]["device_calls"] - before["device_calls"]
+    out["coalescing"] = {"requests": HTTP_CONCURRENT, "device_calls": calls,
+                         "device_calls_per_request": calls / HTTP_CONCURRENT,
+                         "batcher": stats["batcher"]}
+    log(f"http: {HTTP_CONCURRENT} concurrent single-image POSTs to seg equal the direct "
+        f"Predictor call; {calls} device calls ({calls / HTTP_CONCURRENT:.4f} per request), "
+        f"batcher {json.dumps(stats['batcher'])}")
+    assert calls < HTTP_CONCURRENT, stats
+
+    status, body = http_call(port, "POST", "/v1/models/art:predict", npy(images[:8]),
+                             "application/x-npy")
+    assert status == 200, body[:400]
+    got = npz(body)
+    for name, w in zip(("preds", "probs", "uncertainty"), ref["live"](images[:8])):
+        np.testing.assert_array_equal(got[name], w, err_msg=name)
+    px = CLS_STAGE_RESOLUTIONS[4]
+    cls_x = g.random((2, px, px, 3), dtype=np.float32)
+    status, body = http_call(port, "POST", "/v1/models/cls:predict",
+                             json.dumps({"instances": cls_x.tolist()}).encode(),
+                             "application/json")
+    assert status == 200, body[:400]
+    preds = json.loads(body)["predictions"]
+    want = Predictor(str(cls), task_type="classification", num_classes=7, buckets=ART_BUCKETS,
+                     dtype=None, mc_dropout=8)(cls_x)
+    assert sorted(preds) == ["labels", "mc_variance", "probs"], sorted(preds)
+    for name, w in zip(("labels", "probs", "mc_variance"), want):
+        np.testing.assert_array_equal(np.asarray(preds[name], w.dtype), w, err_msg=name)
+    status, body = http_call(port, "POST", "/v1/models/slide:predict", npy(ref["tile"]),
+                             "application/x-npy")
+    assert status == 200, body[:400]
+    got = npz(body)
+    for name, w in zip(("preds", "probs", "uncertainty"), ref["slide"]):
+        np.testing.assert_array_equal(got[name], w[0], err_msg=name)
+    log("http: a batch of 8 to the artifact equals the live Predictor bit for bit; a JSON "
+        "classification with mc_variance equals the live mc_dropout=8 Predictor; a "
+        f"{SLIDE_PX} px slide equals the live SlidePredictor")
+
+    one_seg = npy(images[:1])
+    one_cls = npy(cls_x[:1])
+    single = npy(images[0])
+
+    def post(model, body):
+        def fn():
+            status, data = http_call(port, "POST", f"/v1/models/{model}:predict", body,
+                                     "application/x-npy")
+            assert status == 200, data[:400]
+        return fn
+
+    out["latency"] = {
+        "seg_bucket1": latency_ms(post("seg", one_seg)),
+        "art_bucket1": latency_ms(post("art", one_seg)),
+        "cls_mc8_bucket1": latency_ms(post("cls", one_cls)),
+        "seg_single_image_micro_batched": latency_ms(post("seg", single)),
+    }
+    log("http: latency over localhost, 50 sequential requests each (a (1, H, W, 3) batch: "
+        "bucket 1; a (H, W, 3) image: through the micro-batcher, deadline "
+        f"{HTTP_DEADLINE_MS} ms):", json.dumps(out["latency"]))
+    return out
+
+
+def augment_tool(tmp: Path, mon_root: Path, aug_proc: subprocess.Popen,
+                 aug_root: Path) -> dict:
+    """Phase 12, tools: the augment command's patches (its child started
+    earlier) against extract_patches' grid, every file read back, and one
+    stage-1 AugMoNuSegTrainer epoch on them."""
+    text = finish_command(aug_proc, "augment_monuseg")
+    m = re.search(r"Wrote (\d+) patches to .* in ([0-9.]+) s", text)
+    written, seconds = int(m.group(1)), float(m.group(2))
+    grid = 0
+    for path in sorted((aug_root / "train" / "images").glob("*.tif")):
+        polys = parse_polygons(aug_root / "train" / "annots" / f"{path.stem}.xml")
+        grid += sum(1 for _ in augment_monuseg.extract_patches(load_rgb(str(path)), polys))
+    pngs = sorted((aug_root / "train" / "aug" / "images").glob("*.png"))
+    xmls = sorted((aug_root / "train" / "aug" / "annots").glob("*.xml"))
+    shapes = {native.decode_png(p).shape for p in pngs}
+    nuclei = sum(len(parse_polygons(x)) for x in xmls)
+    log(f"tools: augment_monuseg --variants 1 wrote {written} patches in {seconds:.3f} s "
+        f"({written / seconds:.2f} patches/s on the host), the grid holds {grid} patches; "
+        f"{len(pngs)} PNGs decode to {shapes}, {len(xmls)} XMLs parse ({nuclei} polygons)")
+    assert written == len(pngs) == len(xmls) == 2 * grid and shapes == {(256, 256, 3)}
+
+    cfgs = {1: {**DEFAULT_STAGE_CONFIGS[1], "epochs_per_stage": 1}}
+    trainer = AugMoNuSegTrainer(fused_loss=True, width=1.0, stage_configs=cfgs, verbose=False)
+    trainer.setup_datasets(str(aug_root), stages=(1,))
+    assert len(trainer.train_datasets[1]) == written
+    tl, vl = trainer.make_loaders(batch_size=TRAIN_BATCH, num_workers=4)
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.train_progressive(tl, vl, save_dir=str(tmp / "aug_ckpt"), stages=[1])
+    counts = _lib.launch_counts()
+    log(f"tools: one stage-1 AugMoNuSegTrainer epoch on the written patches: {len(tl[1])} steps "
+        f"in {time.perf_counter() - t0:.2f} s, train loss {history['train_loss']}, launches "
+        f"{json.dumps(counts)}")
+    assert counts == {k: len(tl[1]) for k in LOSS_KERNELS}, counts
+    assert np.isfinite(history["train_loss"]).all() and np.isfinite(history["val_loss"]).all()
+    return {"patches": written, "seconds": seconds, "patches_per_s": written / seconds}
+
+
+def serving_stack(tmp: Path, mon_root: Path) -> tuple[dict, dict]:
+    """Phase 12: artifacts, HTTP and the MoNuSeg tools.  Returns the three
+    serving kernels' launches in the phase and its numbers."""
+    seg, cls = tmp / "seeded_stage4.pth", tmp / "herlev_stage4_seeded.pth"
+    random_checkpoint(seg)
+    random_classifier_checkpoint(cls)
+    aug_root = tmp / "aug_tree"
+    for split in ("train", "val"):
+        for sub in ("images", "annots"):
+            shutil.copytree(mon_root / split / sub, aug_root / split / sub)
+    buckets = [str(b) for b in ART_BUCKETS]
+    export = "ugpg_tpu_torch.cli.export_model"
+    t0 = time.perf_counter()
+    children = {
+        "export float32": start_command(port_command(
+            export, "--model", str(seg), "--out", str(tmp / "art_float32"), "--buckets",
+            *buckets)),
+        "export uint8 compact": start_command(port_command(
+            export, "--model", str(seg), "--out", str(tmp / "art_uint8_compact"), "--buckets",
+            *buckets, "--uint8", "--compact")),
+        "demo": start_command(port_command(
+            "ugpg_tpu_torch.cli.demo", "--demo", "all", "--stages", "2", "--epochs", "1",
+            "--save_dir", str(tmp / "demo"))),
+        "augment": start_command(port_command(
+            "ugpg_tpu_torch.cli.augment_monuseg", "--data_dir", str(aug_root), "--variants",
+            "1")),
+    }
+    for label in ("export float32", "export uint8 compact", "demo"):
+        finish_command(children.pop(label), label)
+    log(f"serving stack: both exports and the demo (--demo all --stages 2 --epochs 1) exited 0 "
+        f"after {time.perf_counter() - t0:.1f} s; artifacts "
+        + json.dumps({p.name: sum(f.stat().st_size for f in p.iterdir()) // 2**20
+                      for p in sorted(tmp.glob("art_*"))}) + " MiB")
+    server = start_server(tmp, seg, cls)  # it loads while the artifacts are checked here
+    try:
+        tile = load_rgb(str(mon_root / "val" / "images" / "val_tile_0.tif"))
+        _lib.reset_launch_counts()
+        total = dict.fromkeys(SERVING_KERNELS, 0)
+        numbers, ref = artifacts(tmp, seg, cls, tile, total)
+        drain_launches(total)
+        port = server_port(server)  # up and idle before anything is timed
+        numbers.update(artifact_times(ref))
+        drain_launches(total)
+        numbers["http"] = serve_over_http(server, port, cls, ref)
+        drain_launches(total)
+    finally:
+        stop_s = stop_server(server)
+    numbers["http"]["sigint_exit_s"] = stop_s
+    numbers["tools"] = augment_tool(tmp, mon_root, children.pop("augment"), aug_root)
+    return {k: total[k] for k in SERVING_KERNELS}, numbers
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -2069,6 +2587,8 @@ def main():
         errors = check_kernels()
         check_uncertainty_past_2_31()
         totals = time_kernels()
+        for kernel, host in time_host_dispatch().items():
+            totals[kernel].update(host)
         with tempfile.TemporaryDirectory() as tmp:
             launches, ips = serve(Path(tmp))
 
@@ -2083,18 +2603,25 @@ def main():
     torch.cuda.empty_cache()
     gpu_vs_cpu()
     log(f"train (synthetic disks): loss launches {json.dumps(train_launches)}")
-    with tempfile.TemporaryDirectory() as tmp:
-        mon_launches, mon_epoch, mon_host = train_monuseg(Path(tmp))
+    with tempfile.TemporaryDirectory() as mon_tmp:  # phase 9's tree, read again in phase 12
+        mon_launches, mon_epoch, mon_host = train_monuseg(Path(mon_tmp))
         cli_launches, native_errors, cli_times = monuseg_command_lines(
-            Path(tmp), Path(tmp) / "MoNuSeg", ptxas)
-    launches.update(mon_launches)  # the loss kernels: MoNuSeg training
-    for kernel in SERVING_KERNELS:  # and the evaluator's launches
-        launches[kernel] += cli_launches[kernel]
-        errors[kernel] = max(errors[kernel], native_errors[kernel])
-    with tempfile.TemporaryDirectory() as tmp:
-        herlev_launches, herlev_error, herlev_times = herlev(Path(tmp), ptxas)
-    launches["fused_double_conv"] += herlev_launches  # Herlev evaluation and serving
-    errors["fused_double_conv"] = max(errors["fused_double_conv"], herlev_error)
+            Path(mon_tmp), Path(mon_tmp) / "MoNuSeg", ptxas)
+        launches.update(mon_launches)  # the loss kernels: MoNuSeg training
+        for kernel in SERVING_KERNELS:  # and the evaluator's launches
+            launches[kernel] += cli_launches[kernel]
+            errors[kernel] = max(errors[kernel], native_errors[kernel])
+        with tempfile.TemporaryDirectory() as tmp:
+            herlev_launches, herlev_error, herlev_times = herlev(Path(tmp), ptxas)
+        launches["fused_double_conv"] += herlev_launches  # Herlev evaluation and serving
+        errors["fused_double_conv"] = max(errors["fused_double_conv"], herlev_error)
+        torch.cuda.empty_cache()
+        with tf32(False), tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            stack_launches, stack = serving_stack(Path(tmp), Path(mon_tmp) / "MoNuSeg")
+            log(f"serving stack: phase 12 in {time.perf_counter() - t0:.1f} s")
+    for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's
+        launches[kernel] += stack_launches[kernel]
 
     rows = []
     for kernel, (source, replaces) in KERNELS.items():
@@ -2106,7 +2633,8 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound,
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
             "library_ms": t["library_ms"],
-            **{key: t[key] for key in ("device_ms", "host_us") if key in t},
+            **{key: t[key] for key in ("device_ms", "host_us", "host_us_wrapper",
+                                        "host_us_operator") if key in t},
         })
         if kernel == "fused_double_conv":  # one stage-4 forward's double convs
             for key, dc in (("float32_native_1008", cli_times["double_conv_f32_1008"]),
@@ -2147,6 +2675,14 @@ def main():
         f"(cuDNN {hc['double_conv_bf16_64']['library_ms']:.3f}), "
         f"{hc['double_conv_f32_16']['ms']:.3f} ms at batch 16 float32 (cuDNN "
         f"{hc['double_conv_f32_16']['library_ms']:.3f}) on {card}")
+    lat = stack["http"]["latency"]
+    log(f"serving stack: bucket 64 float32 images/s, live {stack['images_per_s']['live']:.2f}, "
+        f"exported {stack['images_per_s']['artifact']:.2f}; HTTP latency on localhost (median / "
+        "p90 of 50, ms): " + ", ".join(f"{k} {v['median_ms']:.3f} / {v['p90_ms']:.3f}"
+                                       for k, v in lat.items())
+        + f"; {HTTP_CONCURRENT} concurrent single images in "
+        f"{stack['http']['coalescing']['device_calls']} device calls; augment_monuseg "
+        f"{stack['tools']['patches_per_s']:.2f} patches/s on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

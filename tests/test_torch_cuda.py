@@ -539,3 +539,85 @@ def test_kernels_count_launches_and_check_layout(cuda):
     assert _lib.launch_counts() == {
         "fused_double_conv": 1, "upsample2x": 1, "uncertainty_from_logits": 1,
         "uncertainty_weighted_bce_fwd": 1, "uncertainty_weighted_bce_bwd": 1}
+
+
+# ---------------------------------------------------------------- the operators and the artifacts
+# the operators of ops/cuda/library.py at the stage-4 serving shapes: the
+# CUDA implementation (the kernel) against the CPU one (the plain version),
+# with the tolerances above
+SERVING_DOUBLE_CONVS = [(256, 3, 64, 64), (128, 64, 128, 128), (64, 128, 256, 256),
+                        (32, 256, 512, 512), (16, 512, 512, 512), (32, 1024, 256, 256),
+                        (64, 512, 128, 128), (128, 256, 64, 64), (256, 128, 64, 64)]
+SERVING_UPSAMPLES = [(512, 16), (256, 32), (128, 64), (64, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,cin,cm,cout", SERVING_DOUBLE_CONVS)
+def test_double_conv_operator_on_the_card_against_the_cpu(cuda, dtype, h, cin, cm, cout):
+    from ugpg_tpu_torch.ops.cuda import library
+
+    args = _dc_inputs(cuda, dtype, 2, h, h, cin, cm, cout)
+    _lib.reset_launch_counts()
+    got = library.fused_double_conv(*args, *pack_double_conv(*args[1:]))
+    assert _lib.launch_counts() == {"fused_double_conv": 1}
+    want = library.fused_double_conv(*(t.cpu() for t in args), None, None, None, None)
+    assert got.is_contiguous(memory_format=CL) and want.is_contiguous(memory_format=CL)
+    _close(got, want.to(cuda), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h", SERVING_UPSAMPLES)
+def test_upsample_operator_on_the_card_against_the_cpu(cuda, dtype, c, h):
+    from ugpg_tpu_torch.ops.cuda import library
+
+    x = torch.randn(2, c, h, h, device=cuda).to(dtype).contiguous(memory_format=CL)
+    _lib.reset_launch_counts()
+    got = library.upsample2x(x)
+    assert _lib.launch_counts() == {"upsample2x": 1}
+    _close(got, library.upsample2x(x.cpu()).to(cuda), dtype)
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_uncertainty_operator_on_the_card_against_the_cpu(cuda, batch):
+    from ugpg_tpu_torch.ops.cuda import library
+
+    x = torch.randn(batch, 1, 256, 256, device=cuda) * 4
+    _lib.reset_launch_counts()
+    got = library.uncertainty_from_logits(x)
+    assert _lib.launch_counts() == {"uncertainty_from_logits": 1}
+    _close(got, library.uncertainty_from_logits(x.cpu()).to(cuda), torch.float32)
+
+
+def test_exported_artifact_runs_the_kernels(cuda, tmp_path):
+    """A stage-4 float32 artifact exported on the card: bit-identical to
+    the live Predictor there, 9 double-conv, 4 upsample and 1 uncertainty
+    launches per device call (the wrappers' counts) and 18 float32-conv
+    launches (the C side's); loaded on the CPU, within 1e-4 of the live
+    CPU Predictor."""
+    import numpy as np
+
+    from ugpg_tpu_torch.eval.exported import ExportedPredictor
+    from ugpg_tpu_torch.eval.serving import Predictor
+    from ugpg_tpu_torch.io.checkpoint import save_checkpoint
+    from ugpg_tpu_torch.models.blocks import init_parameters
+    from ugpg_tpu_torch.models.pgunet import PGUNet4
+
+    model = PGUNet4(use_bn=True)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    save_checkpoint(tmp_path / "s4.pth", model.state_dict(), stage=4, epoch=0)
+    live = Predictor(str(tmp_path / "s4.pth"), buckets=(2,), dtype=None)
+    served = ExportedPredictor(live.export(tmp_path / "art"))
+    x = np.random.default_rng(0).random((2, 256, 256, 3), dtype=np.float32)
+    want = live(x)
+    _lib.reset_launch_counts()
+    f32_before = f32_launches()
+    got = served(x)
+    torch.cuda.synchronize()
+    assert _lib.launch_counts() == {"fused_double_conv": 9, "upsample2x": 4,
+                                    "uncertainty_from_logits": 1}
+    assert f32_launches() - f32_before == 18
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    cpu = ExportedPredictor(tmp_path / "art", device="cpu")(x)
+    live_cpu = Predictor(str(tmp_path / "s4.pth"), buckets=(2,), dtype=None, device="cpu")(x)
+    np.testing.assert_allclose(cpu[1], live_cpu[1], atol=1e-4, rtol=0)

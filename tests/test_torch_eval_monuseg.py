@@ -32,7 +32,7 @@ from ugpg_tpu.metrics.segmentation import binary_eval_metrics as jax_binary_eval
 from ugpg_tpu_torch import native
 from ugpg_tpu_torch.data.monuseg import MoNuSegDataset
 from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator, MoNuSegInferer
-from ugpg_tpu_torch.eval.slide import SlidePredictor
+from ugpg_tpu_torch.eval.slide import ExportedSlidePredictor, SlidePredictor
 from ugpg_tpu_torch.io.checkpoint import has_checkpoint, sniff_stage
 from ugpg_tpu_torch.io.png import png_bytes, write_png
 from ugpg_tpu_torch.metrics.segmentation import binary_eval_metrics
@@ -169,12 +169,17 @@ def test_slide_predictor_shares_the_native_evaluation_forward(ckpts, tree):
         assert got[f"{k}_mean"] == float(v[0]), k
 
 
-def test_slide_predictor_options_outside_the_slice_raise(ckpts):
+def test_slide_predictor_options_outside_the_slice_raise(ckpts, tmp_path):
+    """mesh raises; export, ported since, writes an artifact that answers
+    as the live predictor, here at the odd 37 x 45 size."""
     _, pth = ckpts[1]
     with pytest.raises(NotImplementedError, match="not ported"):
         SlidePredictor(pth, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SlidePredictor(pth, device="cpu").export("out")
+    live = SlidePredictor(pth, device="cpu")
+    art = live.export(tmp_path / "out", sizes=((37, 45),))
+    x = (np.random.default_rng(3).random((1, 37, 45, 3)) * 255).astype(np.uint8)
+    for got, want in zip(ExportedSlidePredictor(art, device="cpu")(x), live(x)):
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="num_classes"):
         SlidePredictor(pth, num_classes=2, device="cpu")
 

@@ -1,7 +1,8 @@
-"""Package rules of ugpg_tpu_torch: it imports neither JAX nor ugpg_tpu nor PIL,
-its entry points need CUDA unless the CPU is asked for, and the Predictor,
-SlidePredictor, trainer and command-line options not ported yet raise (or
-exit "not ported") instead of being ignored; the options ported since run."""
+"""Package rules of ugpg_tpu_torch: it imports neither JAX nor ugpg_tpu nor PIL
+(the serving stack and the MoNuSeg tools included), its entry points need
+CUDA unless the CPU is asked for, and the Predictor, SlidePredictor,
+trainer and command-line options not ported yet raise (or exit "not
+ported") instead of being ignored; the options ported since run."""
 
 import pathlib
 import re
@@ -13,13 +14,14 @@ import pytest
 import torch
 
 import ugpg_tpu_torch
-from ugpg_tpu_torch.cli import test_monuseg, train_monuseg
+from ugpg_tpu_torch.cli import export_model, serve, test_monuseg, train_monuseg
 from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset
 from ugpg_tpu_torch.device import resolve_device
+from ugpg_tpu_torch.eval.exported import ExportedPredictor
 from ugpg_tpu_torch.eval.herlev import HerlevEvaluator
 from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator
 from ugpg_tpu_torch.eval.serving import Predictor
-from ugpg_tpu_torch.eval.slide import SlidePredictor
+from ugpg_tpu_torch.eval.slide import ExportedSlidePredictor, SlidePredictor
 from ugpg_tpu_torch.io.checkpoint import (
     full_classifier_state_dict,
     load_checkpoint,
@@ -53,7 +55,7 @@ def test_imports_with_jax_and_ugpg_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 40  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 63  # every module of the package was imported
 
 
 _FORBIDDEN = re.compile(
@@ -86,7 +88,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         Predictor(str(tmp_path / "never_read.pth"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         UncertaintyGuidedProgressiveTrainer()
-    for entry in (MoNuSegEvaluator, SlidePredictor, HerlevEvaluator):
+    for entry in (MoNuSegEvaluator, SlidePredictor, HerlevEvaluator, ExportedPredictor,
+                  ExportedSlidePredictor):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry(str(tmp_path / "never_read.pth"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -161,12 +164,17 @@ def test_options_ported_since_run(option, stage1_pth, tmp_path):
 
 
 @pytest.mark.parametrize("part", ["mesh", "w_axis", "export"])
-def test_slide_predictor_parts_outside_the_slice_raise(part, stage1_pth):
+def test_slide_predictor_parts_outside_the_slice_raise(part, stage1_pth, tmp_path):
+    """mesh and w_axis raise; export, ported since, writes an artifact."""
+    if part == "export":
+        live = SlidePredictor(str(stage1_pth), device="cpu")
+        art = live.export(tmp_path / "slide", sizes=((32, 32),))
+        x = np.random.default_rng(0).random((1, 32, 32, 3), dtype=np.float32)
+        for got, want in zip(ExportedSlidePredictor(art, device="cpu")(x), live(x)):
+            np.testing.assert_array_equal(got, want)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        if part == "export":
-            SlidePredictor(str(stage1_pth), device="cpu").export("never_written")
-        else:
-            SlidePredictor(str(stage1_pth), device="cpu", **{part: object()})
+        SlidePredictor(str(stage1_pth), device="cpu", **{part: object()})
 
 
 @pytest.mark.parametrize("command,flags", [
@@ -175,12 +183,20 @@ def test_slide_predictor_parts_outside_the_slice_raise(part, stage1_pth):
     ("train", ["--remat"]), ("train", ["--pipeline_unc", "1"]),
     ("train", ["--native_finetune", "1"]), ("train", ["--checkpoint_backend", "msgpack"]),
     ("train", ["--checkpoint_backend", "orbax-async"]), ("test", ["--mesh", "2,2"]),
+    ("serve", ["--mesh", "2"]), ("export", ["--quantize"]), ("export", ["--platforms", "tpu"]),
 ])
 def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_path, capsys):
     """Never ignored: the command exits 2 naming the flag."""
     if command == "train":
         argv = ["--data_dir", str(tmp_path), "--device", "cpu", *flags]
         main = train_monuseg.main
+    elif command == "serve":
+        argv = ["--model", f"m={tmp_path / 'm.pth'}", "--device", "cpu", *flags]
+        main = serve.main
+    elif command == "export":
+        argv = ["--model", str(tmp_path / "m.pth"), "--out", str(tmp_path), "--device", "cpu",
+                *flags]
+        main = export_model.main
     else:
         argv = ["--model", str(tmp_path / "m.pth"), "--eval_full", "--native_res",
                 "--device", "cpu", *flags]

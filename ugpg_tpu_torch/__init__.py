@@ -6,11 +6,17 @@ progressively (``train/seg_trainer.py``), resumably, and evaluates MoNuSeg
 at the stage and at native resolution (``eval/monuseg.py``,
 ``eval/slide.py``); trains, evaluates and serves Herlev classification
 (``train/cls_trainer.py``, ``eval/herlev.py``, ``Predictor(task_type=
-"classification")``); and does both through command lines (``cli/``).  The kernels on those paths --
+"classification")``); exports its predictors as ``torch.export`` artifacts
+and serves checkpoints and artifacts by name and over HTTP
+(``eval/exported.py``, ``ServingRegistry``, ``eval/http_server.py``); and
+does all of this through command lines (``cli/``), with MoNuSeg's offline
+augmentation and the demos.  The kernels on those paths --
 the fused DoubleConv, the exact 2x bilinear upsample, the uncertainty map,
 and the uncertainty-weighted BCE loss with its gradient -- are
 hand-written CUDA C++ for ``sm_90a`` (``csrc/``), each with a plain
-PyTorch version beside it (``ops/cuda/``).
+PyTorch version beside it (``ops/cuda/``); the three serving kernels are
+``torch.library`` operators (``ops/cuda/library.py``), so that the models
+and their exported graphs call the same code on either device.
 
 Layout mirrors ``ugpg_tpu`` (``models/``, ``ops/``, ``io/``, ``eval/``,
 ``train/``, ``progressive/``, ``metrics/``, ``data/``, ``utils/``).  The

@@ -36,7 +36,7 @@ from ugpg_tpu_torch.io.checkpoint import container_stage, read_checkpoint
 from ugpg_tpu_torch.io.png import write_png
 from ugpg_tpu_torch.metrics.segmentation import binary_eval_metrics
 from ugpg_tpu_torch.models.pgunet import STAGE_RESOLUTIONS
-from ugpg_tpu_torch.ops.cuda.uncertainty import uncertainty_from_logits
+from ugpg_tpu_torch.ops.cuda.library import uncertainty_from_logits
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 
 __all__ = ["MoNuSegEvaluator", "MoNuSegInferer"]

@@ -7,7 +7,10 @@ Segmentation responses are numpy (preds, probs, uncertainty) maps of shape
 float32), with ``mc_dropout=N`` a third output, the predictive variance
 (N,).  Ragged batches route to the smallest bucket that fits, padding is
 stripped, and larger requests run in chunks of the largest bucket
-(``_BucketRouter``, a copy of ``ugpg_tpu/eval/exported.py``'s).
+(``eval/exported.py::_BucketRouter``, as in the JAX package).
+``Predictor.export`` writes a ``torch.export`` artifact of it, which
+``ExportedPredictor`` serves without model code; ``ServingRegistry``
+serves several predictors and artifacts by name.
 
 On the GPU every DoubleConv, every Up-block upsample and the uncertainty
 map run the port's CUDA kernels (9, 4 and 1 launches per stage-4
@@ -24,11 +27,13 @@ too.
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future
+from pathlib import Path
 from typing import Iterator, Mapping, Sequence
 
 import numpy as np
@@ -36,24 +41,23 @@ import torch
 
 from ugpg_tpu_torch.data.loader import prefetch_to_device
 from ugpg_tpu_torch.device import resolve_device
+from ugpg_tpu_torch.eval.exported import (
+    PLATFORMS,
+    ExportedPredictor,
+    _BucketRouter,
+    check_platforms,
+)
 from ugpg_tpu_torch.io.checkpoint import classifier_state_dict, load_checkpoint
 from ugpg_tpu_torch.models.blocks import DoubleConv
 from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS, HerlevClassificationModel
 from ugpg_tpu_torch.models.folding import fold_batchnorm
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS, STAGE_RESOLUTIONS
-from ugpg_tpu_torch.ops.cuda.uncertainty import uncertainty_from_logits
-from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from ugpg_tpu_torch.ops.cuda.library import uncertainty_from_logits
 from ugpg_tpu_torch.uncertainty import mc_dropout_uncertainty
 
-__all__ = ["Predictor", "BatchingServer", "stage_model", "classifier_model"]
+__all__ = ["Predictor", "BatchingServer", "ServingRegistry", "stage_model", "classifier_model"]
 
 _INPUT_DTYPES = {torch.float32: np.dtype(np.float32), torch.uint8: np.dtype(np.uint8)}
-
-
-def _resize_nhwc(images: np.ndarray, res: int) -> np.ndarray:
-    """Host-side bilinear (align_corners) resize of float32 NHWC images."""
-    x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32)).permute(0, 3, 1, 2)
-    return resize_bilinear_align_corners(x, (res, res)).permute(0, 2, 3, 1).numpy()
 
 
 def stage_model(stage: int, state_dict: Mapping[str, torch.Tensor], device: torch.device,
@@ -89,102 +93,28 @@ def _served(model: torch.nn.Module, state_dict, device: torch.device, fold_bn: b
     return model
 
 
-class _BucketRouter:
-    """Fixed-bucket request routing.
+class _BucketEntry(torch.nn.Module):
+    """What ``Predictor.export`` traces for one bucket: the predictor's
+    ``_graph`` over its model, and with MC dropout the bucket's head masks
+    as buffers."""
 
-    Requires ``buckets`` (ascending), ``batch_size`` (largest bucket),
-    ``resolution``, ``input_dtype``, ``_n_outputs`` and
-    ``_dispatch(bucket, chunk) -> tuple``.  ``stats()`` reports request
-    counters and latency percentiles over a sliding window.
-    """
+    def __init__(self, predictor: "Predictor", masks):
+        super().__init__()
+        self.model = predictor.model  # the weights, lifted into the program
+        self._graph = predictor._graph
+        self._present = [[m is not None for m in layer] for layer in masks or ()]
+        for i, layer in enumerate(masks or ()):
+            for j, mask in enumerate(layer):
+                if mask is not None:
+                    self.register_buffer(f"mask_{i}_{j}", mask, persistent=False)
 
-    def __init__(self):
-        self._stats_lock = threading.Lock()
-        self._n_requests = 0
-        self._n_images = 0
-        self._n_device_calls = 0
-        self._total_s = 0.0
-        self._latencies = deque(maxlen=1024)  # per-request wall seconds
-
-    def _dispatch(self, bucket: int, chunk):
-        raise NotImplementedError
-
-    def stats(self) -> dict:
-        """Request counters + latency percentiles (sliding 1024 window)."""
-        with self._stats_lock:
-            lat = list(self._latencies)
-            out = {
-                "requests": self._n_requests,
-                "images": self._n_images,
-                "device_calls": self._n_device_calls,
-                "total_seconds": round(self._total_s, 6),
-            }
-        lat.sort()
-        if lat:
-            def pct(p):
-                return round(lat[min(len(lat) - 1, int(p / 100.0 * len(lat)))] * 1e3, 3)
-            out["latency_ms"] = {"p50": pct(50), "p95": pct(95), "p99": pct(99)}
-        return out
-
-    def _record(self, dt: float, n_images: int, n_device_calls: int) -> None:
-        with self._stats_lock:
-            self._n_requests += 1
-            self._n_images += n_images
-            self._n_device_calls += n_device_calls
-            self._total_s += dt
-            self._latencies.append(dt)
-
-    def _bucket_for(self, n: int) -> int:
-        for b in self.buckets:
-            if n <= b:
-                return b
-        return self.buckets[-1]
-
-    def _coerce(self, images: np.ndarray) -> np.ndarray:
-        """Match the served input signature: dtype and spatial size."""
-        images = np.asarray(images)
-        res = self.resolution
-        if self.input_dtype == np.uint8:
-            if images.dtype != np.uint8:
-                images = np.clip(np.asarray(images, np.float32) * 255.0, 0, 255).astype(np.uint8)
-        else:
-            if images.dtype == np.uint8:
-                images = images.astype(np.float32) / 255.0
-            else:
-                images = np.asarray(images, np.float32)
-        if images.shape[1:3] != (res, res):
-            # arbitrary request sizes: resize on the host once
-            x = images.astype(np.float32)
-            if images.dtype == np.uint8:
-                x = x / 255.0
-            images = _resize_nhwc(x, res)
-            if self.input_dtype == np.uint8:
-                images = np.clip(images * 255.0, 0, 255).astype(np.uint8)
-        return images
-
-    def _run_padded(self, chunk: np.ndarray):
-        n = chunk.shape[0]
-        bucket = self._bucket_for(n)
-        if n < bucket:
-            pad = np.zeros((bucket - n, *chunk.shape[1:]), chunk.dtype)
-            chunk = np.concatenate([chunk, pad])
-        outs = self._dispatch(bucket, chunk)
-        return tuple(o[:n] for o in outs)
-
-    def __call__(self, images: np.ndarray):
-        """images: (N, H, W, 3) float32 in [0,1] or uint8 RGB; any N.
-        -> numpy (preds, probs, uncertainty)."""
-        t0 = time.perf_counter()
-        images = self._coerce(images)
-        outs = [
-            self._run_padded(images[s: s + self.batch_size])
-            for s in range(0, len(images), self.batch_size)
-        ]
-        result = tuple(
-            np.concatenate([np.asarray(o[i]) for o in outs]) for i in range(self._n_outputs)
-        )
-        self._record(time.perf_counter() - t0, len(images), len(outs))
-        return result
+    def forward(self, raw: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        masks = None
+        if self._present:
+            masks = [[getattr(self, f"mask_{i}_{j}") if present else None
+                      for j, present in enumerate(layer)]
+                     for i, layer in enumerate(self._present)]
+        return self._graph(raw, masks)
 
 
 class Predictor(_BucketRouter):
@@ -220,7 +150,9 @@ class Predictor(_BucketRouter):
         device: str | torch.device | None = None,
     ):
         """``checkpoint``: a reference-format ``.pth`` (``ugpg-export-torch``).
-        ``dtype``: compute dtype of the network body (heads stay float32).
+        ``dtype``: compute dtype of the network body (heads stay float32);
+        None is the checkpoint's float32, as the JAX package's command
+        lines ask for it.
         ``threshold``: preds are ``probs > threshold``.
         ``input_dtype``: float32 or uint8 requests (uint8 is divided by 255
         on the device).  ``compact_output`` (segmentation): uint8 preds,
@@ -270,6 +202,8 @@ class Predictor(_BucketRouter):
         self._pred_dtype = torch.uint8 if compact_output else torch.float32
         self._map_dtype = torch.float16 if compact_output else torch.float32
 
+        dtype = torch.float32 if dtype is None else dtype
+        self.dtype = dtype
         self.stage, state_dict = load_checkpoint(checkpoint)
         if task_type == "classification":
             self.resolution = CLS_STAGE_RESOLUTIONS[self.stage]
@@ -286,11 +220,16 @@ class Predictor(_BucketRouter):
     def _forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """(B, H, W, 3) request images on the device -> NHWC (preds, probs,
         uncertainty), or (labels, probs[, variance]), on the device."""
+        return self._graph(x)
+
+    def _graph(self, x: torch.Tensor, masks=None) -> tuple[torch.Tensor, ...]:
+        """``_forward``'s body, which an exported bucket runs too (``masks``:
+        the MC-dropout head masks baked into it, see ``export``)."""
         x = x.permute(0, 3, 1, 2).float()  # NCHW view of NHWC (channels_last) memory
         if self.input_dtype == np.uint8:
             x = x / 255.0
         if self.task_type == "classification":
-            return self._classify(x)
+            return self._classify(x, masks)
         logits = self.model(x)
         probs = torch.sigmoid(logits)
         preds = (probs > self.threshold).to(self._pred_dtype)
@@ -301,25 +240,77 @@ class Predictor(_BucketRouter):
         outs = (preds, probs.to(self._map_dtype), unc.to(self._map_dtype))
         return tuple(o.permute(0, 2, 3, 1) for o in outs)
 
-    def _classify(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def _classify(self, x: torch.Tensor, masks=None) -> tuple[torch.Tensor, ...]:
         if not self.mc_dropout:
             probs = torch.softmax(self.model(x).float(), dim=-1)
             return probs.argmax(-1).to(torch.int32), probs
         # the encoder has no dropout and its BN is in eval mode: one pass of
         # it, then the head's N stochastic passes
         feats = self.model.features(x)
-        generator = torch.Generator(device=self.device).manual_seed(self.mc_seed)
-        mean, var = mc_dropout_uncertainty(
-            lambda h, g: self.model.head(h, active=True, generator=g), feats, generator,
-            num_samples=self.mc_dropout, task_type="classification")
+        if masks is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.mc_seed)
+
+            def head(h, g):
+                return self.model.head(h, active=True, generator=g)
+        else:
+            generator, passes = None, iter(masks)
+
+            def head(h, g):
+                return self.model.head(h, active=True, keep=next(passes))
+        mean, var = mc_dropout_uncertainty(head, feats, generator, num_samples=self.mc_dropout,
+                                           task_type="classification")
         return mean.argmax(-1).to(torch.int32), mean, var
+
+    def _mc_masks(self, bucket: int) -> list:
+        """The head masks a call on ``bucket`` rows draws, pass by pass, from
+        the generator seeded by ``mc_seed`` on this device: what an
+        exported bucket bakes in to answer as this predictor does."""
+        generator = torch.Generator(device=self.device).manual_seed(self.mc_seed)
+        return [self.model.head_masks(bucket, generator, self.device)
+                for _ in range(self.mc_dropout)]
 
     def _dispatch(self, bucket: int, chunk: np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
         return tuple(o.cpu().numpy() for o in self._forward(x))
 
-    def export(self, *args, **kwargs):
-        raise NotImplementedError("Predictor.export is not ported to ugpg_tpu_torch yet")
+    def export(self, path, platforms: Sequence[str] = PLATFORMS):
+        """Write this predictor as an artifact that serves without model
+        code or checkpoint (``ExportedPredictor``, ``eval/exported.py``).
+
+        One ``torch.export`` program per bucket, ``bucket_{b}.pt2``, of
+        ``_forward`` on a (b, res, res, 3) request in the served input
+        dtype: the weights (and the kernels' packed layouts), the threshold,
+        the uint8 scaling and the compact outputs inside, the kernels as
+        the ``torch.ops.ugpg_torch`` operators; with ``mc_dropout``, the
+        bucket's head masks drawn as a live call draws them on this
+        device.  Plus ``manifest.json``.  The programs serve on the CPU and
+        the GPU (``platforms`` records that).  Answers bit for bit as this
+        predictor on the same device (``tests/test_torch_artifact.py``).
+        Returns ``path``."""
+        platforms = check_platforms(platforms)
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        res = self.resolution
+        in_dtype = torch.uint8 if self.input_dtype == np.uint8 else torch.float32
+        for b in self.buckets:
+            masks = self._mc_masks(b) if self.mc_dropout else None
+            example = torch.zeros((b, res, res, 3), dtype=in_dtype, device=self.device)
+            with torch.no_grad():
+                program = torch.export.export(_BucketEntry(self, masks), (example,))
+            torch.export.save(program, str(path / f"bucket_{b}.pt2"))
+        manifest = {
+            "format_version": 1,
+            "task_type": self.task_type,
+            "stage": self.stage,
+            "resolution": self.resolution,
+            "buckets": list(self.buckets),
+            "input_dtype": self.input_dtype.name,
+            "n_outputs": self._n_outputs,
+            "platforms": platforms,
+            "torch_version": torch.__version__,
+        }
+        (path / "manifest.json").write_text(json.dumps(manifest, indent=1))
+        return path
 
     def stream(self, batches: Iterator[np.ndarray], prefetch: int = 2):
         """Yield the numpy outputs (as ``__call__`` returns them) for each
@@ -468,3 +459,165 @@ class BatchingServer:
                             fut.set_exception(exc)
             if stop:
                 return
+
+
+class ServingRegistry:
+    """Named multi-model serving: one surface over many predictors.
+
+    Deployments serve several checkpoints side by side (stage variants,
+    segmentation and classification, canary and stable).  The registry
+    owns a predictor per name and, on the first ``submit``, a
+    ``BatchingServer`` in front of it; duplicate names are rejected,
+    shutdown drains cleanly, and a predictor is built outside the
+    registry's lock, so that registering a model never stalls live
+    traffic.
+
+    Example:
+        reg = ServingRegistry()
+        reg.register("seg_stage4", "out/ug_pgunet_stage4_best.pth", buckets=(1, 64))
+        reg.register("cls", "out/herlev_stage4_best.pth",
+                     task_type="classification", num_classes=7)
+        preds, probs, unc = reg.predict("seg_stage4", images)
+        fut = reg.submit("cls", image)           # micro-batched
+        reg.close()
+    """
+
+    def __init__(self, max_latency_ms: float = 5.0):
+        self._max_latency_ms = max_latency_ms
+        self._predictors: dict = {}
+        self._servers: dict[str, BatchingServer] = {}
+        self._lock = threading.Lock()
+
+    def _add(self, name: str, build):
+        with self._lock:
+            if name in self._predictors:
+                raise ValueError(f"model {name!r} already registered")
+        p = build()  # outside the lock: loading a model never blocks submit()
+        with self._lock:
+            if name in self._predictors:  # lost a registration race
+                raise ValueError(f"model {name!r} already registered")
+            self._predictors[name] = p
+        return p
+
+    def register(self, name: str, checkpoint: str, **predictor_kwargs) -> Predictor:
+        """Load a checkpoint as a ``Predictor`` under ``name``; duplicate
+        names are rejected."""
+        return self._add(name, lambda: Predictor(checkpoint, **predictor_kwargs))
+
+    def register_artifact(self, name: str, path, **kwargs):
+        """Register an exported artifact under ``name``: the same traffic
+        surface, no model code or checkpoint.  Dispatches on the manifest:
+        bucket artifacts (``Predictor.export``) load as
+        ``ExportedPredictor``, slide artifacts (``SlidePredictor.export``)
+        as ``ExportedSlidePredictor``.  ``kwargs`` (``device``) go to the
+        loader."""
+        manifest = json.loads((Path(path) / "manifest.json").read_text())
+        if manifest.get("kind") == "slide":
+            from ugpg_tpu_torch.eval.slide import ExportedSlidePredictor
+
+            return self._add(name, lambda: ExportedSlidePredictor(path, **kwargs))
+        return self._add(name, lambda: ExportedPredictor(path, **kwargs))
+
+    def register_slide(self, name: str, checkpoint: str, **slide_kwargs):
+        """Register a native-resolution ``SlidePredictor`` under ``name``:
+        requests of any size run on the whole image instead of being
+        resized to the stage resolution (``eval/slide.py``).  The
+        micro-batcher is bypassed: slides of different sizes cannot share a
+        call."""
+        from ugpg_tpu_torch.eval.slide import SlidePredictor
+
+        return self._add(name, lambda: SlidePredictor(checkpoint, **slide_kwargs))
+
+    def names(self) -> list[str]:
+        return sorted(self._predictors)
+
+    def _unknown(self, name: str) -> KeyError:
+        return KeyError(f"unknown model {name!r}; registered: {self.names()}")
+
+    def get(self, name: str):
+        try:
+            return self._predictors[name]
+        except KeyError:
+            raise self._unknown(name) from None
+
+    def predict(self, name: str, images):
+        """Synchronous batch prediction on the named model."""
+        return self.get(name)(images)
+
+    def submit(self, name: str, image) -> Future:
+        """Micro-batched single-image request (a server per model, made on
+        first use).  A server closed between the lookup and the submit is
+        replaced and the request sent again."""
+        predictor = self.get(name)
+        if not getattr(predictor, "micro_batch", True):
+            # slide predictors: images of different sizes cannot share one
+            # device call; served directly, still as a future
+            fut: Future = Future()
+            try:
+                outs = predictor(np.asarray(image)[None])
+                fut.set_result(tuple(o[0] for o in outs))
+            except Exception as exc:
+                fut.set_exception(exc)
+            return fut
+        for _ in range(2):
+            with self._lock:
+                server = self._servers.get(name)
+                if server is None:
+                    server = BatchingServer(self.get(name), max_latency_ms=self._max_latency_ms)
+                    self._servers[name] = server
+            try:
+                return server.submit(image)
+            except RuntimeError:  # closed under us: replace it and try again
+                with self._lock:
+                    if self._servers.get(name) is server:
+                        del self._servers[name]
+        raise RuntimeError(f"could not submit to {name!r} (closing repeatedly)")
+
+    def unregister(self, name: str) -> None:
+        """Remove a model: drain its micro-batcher, drop the predictor.
+        Futures already submitted resolve; later ``predict``/``submit``
+        raise KeyError, and the name is free again."""
+        with self._lock:
+            if name not in self._predictors:
+                raise self._unknown(name)
+            # both under one lock, so that a concurrent submit cannot make a
+            # server for a half-removed name
+            del self._predictors[name]
+            server = self._servers.pop(name, None)
+        if server is not None:
+            server.close()  # outside the lock: close() waits for the drain
+
+    def replace(self, name: str, checkpoint: str, **predictor_kwargs):
+        """Swap the model behind ``name`` (canary promotion).  The new
+        predictor is built before the old one is removed, so the name never
+        answers with an error; traffic moves at the next request."""
+        p = Predictor(checkpoint, **predictor_kwargs)
+        with self._lock:
+            if name not in self._predictors:
+                raise self._unknown(name)
+            server = self._servers.pop(name, None)
+            self._predictors[name] = p
+        if server is not None:
+            server.close()  # drains the futures against the old predictor
+        return p
+
+    def stats(self) -> dict:
+        """Per-model request, latency and coalescing counters."""
+        with self._lock:
+            predictors = dict(self._predictors)
+            servers = dict(self._servers)
+        out = {}
+        for name, p in predictors.items():
+            entry = {"predictor": p.stats()}
+            server = servers.get(name)
+            if server is not None:
+                entry["batcher"] = server.stats()
+            out[name] = entry
+        return out
+
+    def close(self):
+        """Drain and stop every micro-batcher (the predictors stay usable)."""
+        with self._lock:
+            servers, self._servers = dict(self._servers), {}
+        for server in servers.values():
+            server.close()

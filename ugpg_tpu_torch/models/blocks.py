@@ -11,8 +11,10 @@ the layout of the parity tests and of training.  A ``DoubleConv`` whose
 inputs and weights, its bias added in bf16, the BN statistics and the
 normalisation in float32 with a bf16 result.  ``use_bn=False``: the
 BN-folded inference path (``models/folding.py``); ``DoubleConv`` runs the
-double-conv kernels and ``Up`` the 2x upsample kernel.  BN slots 1 and 4
-then hold ``nn.Identity`` so that the parameter names do not shift.
+double-conv kernels and ``Up`` the 2x upsample kernel, through their
+operators (``ops/cuda/library.py``), so that an exported graph calls them
+too.  BN slots 1 and 4 then hold ``nn.Identity`` so that the parameter
+names do not shift.
 
 ``DownSample`` and ``UpSample`` are the legacy ``UNet``'s blocks.
 """
@@ -23,8 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ugpg_tpu_torch.ops.cuda.double_conv import fused_double_conv, pack_double_conv
-from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x
+from ugpg_tpu_torch.ops.cuda import library
+from ugpg_tpu_torch.ops.cuda.double_conv import pack_double_conv
 from ugpg_tpu_torch.ops.resize import upsample2x_bilinear_align_corners
 
 __all__ = ["DoubleConv", "InConv", "Down", "Up", "OutConv", "DownSample", "UpSample",
@@ -85,9 +87,8 @@ class DoubleConv(nn.Module):
                 return self.conv_op(x)
             return self._forward_mixed(x)
         c1, c2 = self.conv_op[0], self.conv_op[3]
-        packed = None if self.packed_w1 is None else tuple(getattr(self, n) for n in _PACKED)
-        return fused_double_conv(x, c1.weight, c1.bias, c2.weight, c2.bias, packed=packed)
-
+        return library.fused_double_conv(x, c1.weight, c1.bias, c2.weight, c2.bias,
+                                         *(getattr(self, n) for n in _PACKED))
 
     def _forward_mixed(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
@@ -132,7 +133,7 @@ class Up(nn.Module):
         if self.use_bn:
             x1 = upsample2x_bilinear_align_corners(x1)
         else:
-            x1 = upsample2x(x1)
+            x1 = library.upsample2x(x1)
         return self.conv(torch.cat([x2, x1], dim=1))
 
 

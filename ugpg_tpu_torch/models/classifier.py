@@ -32,7 +32,7 @@ from torch import nn
 from ugpg_tpu_torch.models.blocks import DoubleConv, Down, InConv
 
 __all__ = ["HerlevClassificationModel", "CLS_STAGE_RESOLUTIONS", "ENCODER_SPECS",
-           "dropout"]
+           "dropout", "dropout_keep"]
 
 # 224, not 256, at stage 4
 CLS_STAGE_RESOLUTIONS = {1: 32, 2: 64, 3: 128, 4: 224}
@@ -48,14 +48,26 @@ ENCODER_SPECS = {
 _LINEAR_SLOTS = (3, 6, 9)  # the Linear layers of ``classifier``
 
 
-def dropout(h: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout_keep(shape, p: float, generator: torch.Generator | None,
+                 device: torch.device) -> torch.Tensor | None:
+    """The keep mask ``dropout`` draws for a ``shape`` input at rate ``p``
+    (bool), or None where it draws nothing (p = 0 or p >= 1)."""
+    if p == 0.0 or p >= 1.0:
+        return None
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
+def dropout(h: torch.Tensor, p: float, generator: torch.Generator | None,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
     """Keep each value with probability 1 - p and scale it by 1 / (1 - p);
-    p = 0 returns ``h`` and draws nothing."""
+    p = 0 returns ``h`` and draws nothing.  ``keep``: a mask drawn ahead
+    (``dropout_keep``), used instead of a draw."""
     if p == 0.0:
         return h
     if p >= 1.0:
         return torch.zeros_like(h)
-    keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - p
+    if keep is None:
+        keep = dropout_keep(h.shape, p, generator, h.device)
     return torch.where(keep, h / (1.0 - p), torch.zeros_like(h))
 
 
@@ -114,16 +126,27 @@ class HerlevClassificationModel(nn.Module):
         return self.unet(x.to(self.dtype)).float().mean(dim=(2, 3))
 
     def head(self, h: torch.Tensor, active: bool = False,
-             generator: torch.Generator | None = None) -> torch.Tensor:
-        """The MLP on pooled features; ``active`` turns dropout on."""
-        for linear, p in zip(_LINEAR_SLOTS, self.dropout_rates):
+             generator: torch.Generator | None = None, keep=None) -> torch.Tensor:
+        """The MLP on pooled features; ``active`` turns dropout on.  ``keep``:
+        the three dropout masks drawn ahead (``head_masks``) instead of
+        drawn here."""
+        keep = keep if keep is not None else (None,) * len(_LINEAR_SLOTS)
+        for linear, p, mask in zip(_LINEAR_SLOTS, self.dropout_rates, keep):
             if active:
-                h = dropout(h, p, generator)
+                h = dropout(h, p, generator, mask)
             lin = self.classifier[linear]
             h = F.linear(h, lin.weight.float(), lin.bias.float())
             if linear != _LINEAR_SLOTS[-1]:
                 h = F.relu(h)
         return h
+
+    def head_masks(self, batch: int, generator: torch.Generator | None,
+                   device: torch.device) -> list:
+        """The dropout masks an active ``head`` on ``batch`` rows draws from
+        ``generator``, drawn in the same order: the same numbers."""
+        widths = (512, 512, 256)  # the head's input to each dropout
+        return [dropout_keep((batch, width), p, generator, device)
+                for width, p in zip(widths, self.dropout_rates)]
 
     def forward(self, x: torch.Tensor, mc_dropout: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:

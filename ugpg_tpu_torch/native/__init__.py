@@ -1,7 +1,8 @@
-"""ctypes bindings for the port's host C++: the polygon rasterizers and the
+"""ctypes bindings for the port's host C++: the polygon rasterizers, the
 PNG, TIFF and BMP decoders (copies of ``rasterize.cpp``, ``png_decode.cpp``,
 ``tiff_decode.cpp`` and ``bmp_decode.cpp`` of the JAX package, the
-rasterizer extended with Pillow's polygon fill).
+rasterizer extended with Pillow's polygon fill) and Pillow's Gaussian blur
+(``gaussian_blur.cpp``, for the offline augmentation).
 
 Each source compiles at first use with ``g++`` into its own shared library
 under ``ugpg_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
@@ -34,6 +35,7 @@ __all__ = [
     "decode_tiff",
     "decode_bmp",
     "image_hw",
+    "gaussian_blur",
 ]
 
 _HERE = Path(__file__).resolve().parent
@@ -42,7 +44,7 @@ BUILD_DIR = _HERE.parent / "_build"
 # fuse a multiply and an add
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 _LDFLAGS = {"rasterize": ("-lpthread",), "png_decode": ("-lz",), "tiff_decode": ("-lz",),
-            "bmp_decode": ()}
+            "bmp_decode": (), "gaussian_blur": ()}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -72,6 +74,10 @@ _SIGNATURES = {
         "bmp_info": [_P_U8, ctypes.c_int64, _P_I64, _P_I64, ctypes.POINTER(ctypes.c_int),
                      ctypes.POINTER(ctypes.c_int)],
         "bmp_decode_rgb8": [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int64],
+    },
+    "gaussian_blur": {
+        "gaussian_blur_rgb8": [_P_U8, _P_U8, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+                               ctypes.c_float, ctypes.c_int],
     },
 }
 
@@ -248,3 +254,22 @@ def image_hw(path) -> tuple[int, int]:
     kind = "png" if low.endswith(".png") else "bmp" if low.endswith(".bmp") else "tiff"
     _, _, h, w = _info(kind, data, label)
     return h, w
+
+
+# ---------------------------------------------------------------- filters
+def gaussian_blur(image: np.ndarray, radius: float) -> np.ndarray:
+    """Pillow's ``image.filter(ImageFilter.GaussianBlur(radius))`` on an
+    (H, W, 3) uint8 RGB array, bit for bit (``radius`` is the Gaussian's
+    sigma, taken as a C float as Pillow takes it; Pillow's three box
+    passes): (H, W, 3) uint8."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"gaussian_blur: (H, W, 3) uint8 expected, got {image.dtype} "
+                         f"{image.shape}")
+    h, w = image.shape[:2]
+    out = np.empty_like(image)
+    rc = _library("gaussian_blur").gaussian_blur_rgb8(
+        image.ctypes.data_as(_P_U8), out.ctypes.data_as(_P_U8), h, w, radius, radius, 3)
+    if rc != 0:
+        raise ValueError(f"gaussian_blur: radius {radius} out of range, or an empty image")
+    return out
