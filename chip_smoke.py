@@ -166,7 +166,26 @@
    model, SIGINT and an exit within 10 s.  The augment command's patches
    against extract_patches' grid, every PNG and XML read back, and one
    stage-1 AugMoNuSegTrainer epoch on them.
-13. Prints a "kernels" JSON line, then as its last line
+13. W8A8 int8 serving (``Predictor(quantize=True)``, ``ops/quant.py``) on
+   phase 5's seeded stage-4 checkpoint and phase 11's seeded classifier,
+   calibrated on 8 seeded images.  ``_conv_i8`` (``torch._int_mm`` on 3x3
+   patches) on the card equals int64 sums on the CPU at 1024 channels of
+   +-127 and at K = 27.  The int8 Predictor at buckets 1, 8, 64, 128 on
+   requests of 1, 5, 8, 11 images: 4 upsample and 1 uncertainty launches per
+   device call, no double conv.  Its logits against the float32 Predictor's
+   on the card (``tests/test_quant.py``'s RMS bound; decisions equal away
+   from 1e-3 of the threshold in 99.9% of pixels, or no more than 0.05
+   points below the JAX package's int8 program (the same model with JAX's
+   bf16 resize) on the same images, where that falls short); against the same
+   ``QuantizedModel`` on the CPU (max |d| and the share of int8 values that
+   differ at each point, printed).  The export command's ``--quantize
+   --calibration`` artifact bit for bit as the live int8 Predictor.  Images/s
+   int8 against bf16 at buckets 64 and 128 and the Herlev classifier at 64,
+   in turns (median and spread of 5 calls); one bucket-64 call profiled, its
+   device time split into host copies, int8 GEMM, patch gather, upsample,
+   epilogue and the rest, beside its idle share; the peak memory of a
+   bucket-128 call.
+14. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -235,7 +254,9 @@ from ugpg_tpu_torch.models.classifier import (  # noqa: E402
     ENCODER_SPECS,
     HerlevClassificationModel,
 )
+from ugpg_tpu_torch.models.folding import fold_batchnorm  # noqa: E402
 from ugpg_tpu_torch.models.pgunet import PGUNet4  # noqa: E402
+from ugpg_tpu_torch.ops import quant  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import double_conv as double_conv_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import resize2x as resize2x_mod  # noqa: E402
@@ -251,6 +272,7 @@ from ugpg_tpu_torch.ops.cuda.double_conv import (  # noqa: E402
     pack_double_conv,
 )
 from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x, upsample2x_reference  # noqa: E402
+from ugpg_tpu_torch.ops.resize import upsample2x_bilinear_align_corners  # noqa: E402
 from ugpg_tpu_torch.ops.cuda.uncertainty import (  # noqa: E402
     uncertainty_from_logits,
     uncertainty_from_logits_reference,
@@ -2564,6 +2586,230 @@ def serving_stack(tmp: Path, mon_root: Path) -> tuple[dict, dict]:
     return {k: total[k] for k in SERVING_KERNELS}, numbers
 
 
+# ---------------------------------------------------------------- int8 serving (phase 13)
+QUANT_BUCKETS = (1, 8, 64, 128)
+QUANT_CALIBRATION = 8  # seeded calibration images
+QUANT_TIMED = 5  # calls per predictor and bucket, in turns
+# a bucket-64 call's device time by part: the first part whose marks name the kernel or
+# an op on the stack of the op that launched it
+QUANT_SPLIT = (("host copies", ("Memcpy",)), ("int8 GEMM", ("aten::_int_mm",)),
+               ("patch gather and concats", ("aten::cat", "aten::constant_pad_nd")),
+               ("upsample", ("upsample2x",)), ("uncertainty map", ("uncertainty",)),
+               ("epilogue and requantize", ("aten::addcmul", "aten::relu", "aten::round",
+                                            "aten::clamp", "aten::_to_copy", "aten::mul")))
+
+
+def check_conv_i8() -> None:
+    """``_conv_i8`` on the card against int64 sums on the CPU: 1024 input
+    channels of +-127 (an output at 127^2 * 9 * 1024, past 2^24) and 3
+    input channels (K = 27, padded to 72)."""
+    rng = np.random.default_rng(13)
+    for n, h, cin, cout in ((2, 16, 1024, 64), (2, 64, 3, 64)):
+        x = rng.choice([-127, 127], (n, h, h, cin)).astype(np.int8)
+        k = rng.choice([-127, 127], (3, 3, cin, cout)).astype(np.int8)
+        x[0], k[..., 0] = 127, 127
+        xp = np.pad(x.astype(np.int64), ((0, 0), (1, 1), (1, 1), (0, 0)))
+        want = sum(xp[:, ky:ky + h, kx:kx + h] @ k[ky, kx].astype(np.int64)
+                   for ky in range(3) for kx in range(3))
+        got = quant._conv_i8(torch.from_numpy(x).to(DEV),
+                             quant.weight_matrix(torch.from_numpy(k)).to(DEV)).cpu().numpy()
+        assert got.dtype == np.int32 and np.array_equal(got, want), (cin, np.abs(got - want).max())
+        log(f"int8: _conv_i8 on the card equals int64 sums at {n}x{h}x{h}x{cin} -> {cout} "
+            f"(K = {9 * cin}; max |sum| {int(np.abs(want).max())})")
+
+
+def turns_ips(label: str, predictors: dict, images: np.ndarray) -> dict:
+    """Images/s of each predictor on ``images`` (one bucket), one call of each
+    in turn, ``QUANT_TIMED`` rounds after a warm call: median and spread."""
+    for p in predictors.values():
+        p(images)
+    runs = {name: [] for name in predictors}
+    for _ in range(QUANT_TIMED):
+        for name, p in predictors.items():
+            t0 = time.perf_counter()
+            p(images)
+            runs[name].append(len(images) / (time.perf_counter() - t0))
+    out = {name: {"median": statistics.median(v), "min": min(v), "max": max(v), "runs": v}
+           for name, v in runs.items()}
+    log(f"int8: {label}, images/s in turns (median [min, max] of {QUANT_TIMED}): "
+        + ", ".join(f"{name} {v['median']:.2f} [{v['min']:.2f}, {v['max']:.2f}]"
+                    for name, v in out.items()))
+    return out
+
+
+def int8_split(fn) -> tuple[dict, dict]:
+    """Device ms of one call by ``QUANT_SPLIT`` part (the rest "other"), from
+    the kernels each op of a profile launched; and ms by kernel name with
+    its part."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys([name for name, _ in QUANT_SPLIT] + ["other"], 0.0)
+    by_kernel = {}
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        chain, p = [e.name], e.cpu_parent
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        for k in e.kernels:
+            part = next((name for name, marks in QUANT_SPLIT
+                         if any(m in link for link in [k.name, *chain] for m in marks)), "other")
+            split[part] += k.duration / 1e3
+            key = (k.name[:70], part)
+            by_kernel[key] = by_kernel.get(key, 0.0) + k.duration / 1e3
+    return split, by_kernel
+
+
+def int8_serving(tmp: Path) -> tuple[dict, dict]:
+    """Phase 13: the W8A8 int8 Predictor (``quantize=True``) on phase 5's
+    seeded stage-4 checkpoint and phase 11's seeded classifier.  Returns the
+    serving kernels' launches on its main path (the int8 requests and the
+    int8 artifact) and its numbers."""
+    seg, cls = tmp / "seeded_stage4.pth", tmp / "herlev_stage4_seeded.pth"
+    random_checkpoint(seg)
+    random_classifier_checkpoint(cls)
+    rng = np.random.default_rng(13)
+    res, cls_res = 256, CLS_STAGE_RESOLUTIONS[4]
+    calibration = rng.random((QUANT_CALIBRATION, res, res, 3), dtype=np.float32)
+    np.save(tmp / "calibration.npy", calibration)
+    export = start_command(port_command(
+        "ugpg_tpu_torch.cli.export_model", "--model", str(seg), "--out", str(tmp / "art_int8"),
+        "--buckets", *map(str, QUANT_BUCKETS), "--quantize", "--calibration",
+        str(tmp / "calibration.npy")))
+    check_conv_i8()
+
+    t0 = time.perf_counter()
+    pq = Predictor(str(seg), buckets=QUANT_BUCKETS, quantize=True,
+                   calibration_batches=[calibration])
+    log(f"int8: Predictor(quantize=True) built and calibrated on {QUANT_CALIBRATION} images in "
+        f"{time.perf_counter() - t0:.2f} s; scales {json.dumps(pq.model.scales)}")
+    images = rng.random((128, res, res, 3), dtype=np.float32)
+    total = dict.fromkeys(SERVING_KERNELS, 0)
+    _lib.reset_launch_counts()
+    replies = {n: pq(images[:n]) for n in (1, 5, 8, 11)}
+    counts, calls = _lib.launch_counts(), pq.stats()["device_calls"]
+    log(f"int8: requests of 1, 5, 8, 11 images in {calls} device calls, launches "
+        f"{json.dumps(counts)}")
+    assert counts == {"upsample2x": 4 * calls, "uncertainty_from_logits": calls}, counts
+    for n, outs in replies.items():
+        check_response(outs, n)
+    drain_launches(total)
+
+    # the maps against the float32 Predictor on the card (tests/test_quant.py:56-61), beside
+    # the same int8 model with JAX's bf16 two-pass resize in place of the upsample operator:
+    # the JAX package's jitted int8 program (tests/test_torch_quant.py holds them equal)
+    p32 = Predictor(str(seg), buckets=(8,), dtype=torch.float32)
+    x = torch.from_numpy(images[:8]).to(DEV).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        lq, lf = pq.model(x).cpu().numpy(), p32.model(x).cpu().numpy()
+        operator, library_ops.upsample2x = library_ops.upsample2x, upsample2x_bilinear_align_corners
+        try:
+            lj = pq.model(x).cpu().numpy()
+        finally:
+            library_ops.upsample2x = operator
+    rms, std = float(np.sqrt(np.mean((lq - lf) ** 2))), float(lf.std())
+    pf_, pq_ = p32(images[:8])[1], replies[8][1]
+    away = np.abs(pf_ - 0.5) > 1e-3
+
+    def agreement(logits):  # decisions equal away from 1e-3 of the threshold
+        return float(np.mean(((pf_ > 0.5) == (logits.transpose(0, 2, 3, 1) > 0)) | ~away))
+
+    agree, agree_jax = agreement(lq), agreement(lj)
+    log(f"int8 vs float32 on the card, 8 images: logits RMS {rms:.4e} (std {std:.4e}, bound "
+        f"{0.2 * std + 1e-4:.4e}), max|d| {np.abs(lq - lf).max():.4e}, max|dprob| "
+        f"{np.abs(pq_ - pf_).max():.4e}; decisions equal away from 1e-3 of the threshold in "
+        f"{agree:.6%} of pixels, JAX's program {agree_jax:.6%} (RMS "
+        f"{float(np.sqrt(np.mean((lj - lf) ** 2))):.4e}); 99.9% "
+        + ("met" if agree >= 0.999 else "missed"))
+    # tests/test_quant.py's 99.9% holds for its checkpoint; held here to JAX's own program
+    # on this one where that falls short (the seeded logits sit near 0: std 0.35)
+    assert rms < 0.2 * std + 1e-4 and agree >= min(0.999, agree_jax - 5e-4), (rms, agree)
+
+    # the card against the CPU: the same qparams and scales, 2 images
+    cpu_model = quant.QuantizedModel(quant.quantize_weights(
+        fold_batchnorm(read_checkpoint(seg)["model_state_dict"]), 4, pq.model.scales),
+        pq.model.scales, 4)
+    card_points, cpu_points = {}, {}
+    with torch.inference_mode():
+        gl = pq.model.forward_nhwc(torch.from_numpy(images[:2]).to(DEV), card_points).cpu()
+        cl = cpu_model.forward_nhwc(torch.from_numpy(images[:2]), cpu_points)
+    shares = {k: float((card_points[k].cpu() != v).float().mean()) for k, v in cpu_points.items()}
+    steps = max(int((card_points[k].cpu().int() - v.int()).abs().max())
+                for k, v in cpu_points.items())
+    log(f"int8 card vs CPU, 2 images, same qparams and scales: logits max|d| "
+        f"{(gl - cl).abs().max().item():.4e} (std {cl.std().item():.4e}); int8 values that "
+        f"differ, by point: {json.dumps({k: round(v, 6) for k, v in shares.items() if v})} "
+        f"(all other points equal; largest step {steps})")
+    del p32, cpu_model
+
+    # the export command's int8 artifact, bit for bit
+    finish_command(export, "export --quantize")
+    art = ExportedPredictor(tmp / "art_int8")
+    _lib.reset_launch_counts()
+    for n in (1, 5, 8, 11, 100):
+        assert_same(art(images[:n]), pq(images[:n]), f"int8 artifact, {n} images")
+    counts = _lib.launch_counts()
+    calls = art.stats()["device_calls"] + pq.stats()["device_calls"] - calls
+    assert counts == {"upsample2x": 4 * calls, "uncertainty_from_logits": calls}, counts
+    log(f"int8: the export command's artifact (buckets {list(QUANT_BUCKETS)}) answers bit for "
+        f"bit as the live int8 Predictor on requests of 1, 5, 8, 11, 100 images; launches "
+        f"{json.dumps(counts)}")
+    drain_launches(total)
+    del art
+
+    # images/s, int8 against bf16, in turns; Herlev at bucket 64
+    numbers = {"rms": rms, "logit_std": std, "agree": agree, "card_vs_cpu": shares}
+    pb = Predictor(str(seg), buckets=(64, 128))
+    numbers["images_per_s"] = {b: turns_ips(f"segmentation, bucket {b}",
+                                            {"int8": pq, "bf16": pb}, images[:b])
+                               for b in (64, 128)}
+    del pb
+    torch.cuda.empty_cache()
+    _lib.reset_launch_counts()  # the bf16 yardsticks' launches are not the int8 path's
+    cls_images = rng.random((64, cls_res, cls_res, 3), dtype=np.float32)
+    common = dict(task_type="classification", num_classes=7, buckets=(64,))
+    cq = Predictor(str(cls), quantize=True, calibration_batches=[cls_images[:QUANT_CALIBRATION]],
+                   **common)
+    cb = Predictor(str(cls), **common)
+    lab_q, prob_q = cq(cls_images)
+    lab_b, prob_b = cb(cls_images)
+    log(f"int8: Herlev classifier, 64 images: labels equal to bf16's for "
+        f"{int((lab_q == lab_b).sum())}, max|dprob| {np.abs(prob_q - prob_b).max():.4e}")
+    numbers["herlev_images_per_s"] = turns_ips("Herlev, bucket 64", {"int8": cq, "bf16": cb},
+                                               cls_images)
+    assert _lib.launch_counts().get("fused_double_conv", 0) == 4 * cb.stats()["device_calls"]
+    del cq, cb
+    _lib.reset_launch_counts()
+
+    # one bucket-64 call profiled, split by part; peak memory at bucket 128
+    device, wall_ms, _ = profile_call("int8: bucket 64, 64 images", lambda: pq(images[:64]))
+    busy = sum(device.values())
+    split, by_kernel = int8_split(lambda: pq(images[:64]))
+    numbers["split"] = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+                        "ms": split}
+    log(f"int8: bucket-64 call {wall_ms:.2f} ms wall, device busy {busy:.2f} ms, idle "
+        f"{1 - busy / wall_ms:.1%}; device ms by part (a second profile): "
+        + ", ".join(f"{k} {v:.3f} ({v / (sum(split.values()) or 1):.1%})"
+                    for k, v in split.items()))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    log("int8: the kernels of that call by device ms: "
+        + "; ".join(f"{name} [{part}] {ms:.3f}" for (name, part), ms in top))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pq(images)
+    peak = torch.cuda.max_memory_allocated()
+    numbers["peak_gib_128"] = {"peak": peak / 2**30, "above_resident": (peak - before) / 2**30}
+    log(f"int8: bucket 128 call: torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB "
+        f"({(peak - before) / 2**30:.3f} GiB above the {before / 2**30:.3f} GiB resident)")
+    drain_launches(total)  # the timed and profiled int8 calls
+    return {k: total[k] for k in SERVING_KERNELS}, numbers
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -2620,8 +2866,13 @@ def main():
             t0 = time.perf_counter()
             stack_launches, stack = serving_stack(Path(tmp), Path(mon_tmp) / "MoNuSeg")
             log(f"serving stack: phase 12 in {time.perf_counter() - t0:.1f} s")
-    for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's
-        launches[kernel] += stack_launches[kernel]
+    torch.cuda.empty_cache()
+    with tf32(False), tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        int8_launches, int8 = int8_serving(Path(tmp))
+        log(f"int8: phase 13 in {time.perf_counter() - t0:.1f} s")
+    for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's; the int8 path's
+        launches[kernel] += stack_launches[kernel] + int8_launches[kernel]
 
     rows = []
     for kernel, (source, replaces) in KERNELS.items():
@@ -2683,6 +2934,16 @@ def main():
         + f"; {HTTP_CONCURRENT} concurrent single images in "
         f"{stack['http']['coalescing']['device_calls']} device calls; augment_monuseg "
         f"{stack['tools']['patches_per_s']:.2f} patches/s on {card}")
+    ips = {b: {k: v["median"] for k, v in d.items()} for b, d in int8["images_per_s"].items()}
+    split = int8["split"]
+    log(f"int8 serving, images/s (median of {QUANT_TIMED}, in turns with bf16): stage 4 bucket 64 "
+        f"int8 {ips[64]['int8']:.2f} vs bf16 {ips[64]['bf16']:.2f}, bucket 128 int8 "
+        f"{ips[128]['int8']:.2f} vs bf16 {ips[128]['bf16']:.2f}; Herlev bucket 64 int8 "
+        f"{int8['herlev_images_per_s']['int8']['median']:.2f} vs bf16 "
+        f"{int8['herlev_images_per_s']['bf16']['median']:.2f}; a bucket-64 call's device ms: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split["ms"].items())
+        + f", idle {split['idle_share']:.1%}; peak {int8['peak_gib_128']['peak']:.2f} GiB at "
+        f"bucket 128 on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

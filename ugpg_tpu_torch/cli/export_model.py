@@ -3,7 +3,8 @@
 
     python -m ugpg_tpu_torch.cli.export_model --model OUT/ug_pgunet_stage4_best.pth \\
         --out exported/stage4 [--buckets 1 8 64] [--task segmentation] \\
-        [--classes 1] [--uint8] [--compact] [--device cpu]
+        [--classes 1] [--uint8] [--compact] [--quantize --calibration CAL.npy] \\
+        [--device cpu]
 
 The artifact directory (one ``torch.export`` program per batch bucket,
 ``bucket_{b}.pt2``, weights inside, and ``manifest.json``) serves without
@@ -12,8 +13,11 @@ model code or checkpoint through
 (``--platforms cpu cuda``): its kernels are the ``torch.ops.ugpg_torch``
 operators, which run the hand-written kernels on the GPU and the plain
 versions on the CPU.  The JAX package writes StableHLO instead.  The
-checkpoint is exported in its own float32.  ``--quantize`` (int8) and
-``--platforms tpu`` are not ported: given, they exit with status 2.
+checkpoint is exported in its own float32, or with ``--quantize`` as the
+W8A8 int8 graph (``ops/quant.py``), its activation scales calibrated on the
+images of ``--calibration`` (a (N, H, W, 3) float ``.npy`` from the real
+input distribution; ``--quantize`` without it exits with status 2).
+``--platforms tpu`` is not ported: given, it exits with status 2.
 """
 
 from __future__ import annotations
@@ -34,9 +38,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="serve raw uint8 RGB requests (divided by 255 on the device)")
     p.add_argument("--compact", action="store_true",
                    help="uint8 preds and float16 maps (2.4x fewer bytes)")
-    p.add_argument("--quantize", action="store_true", help="not ported: the W8A8 int8 path")
+    p.add_argument("--quantize", action="store_true",
+                   help="export the W8A8 int8 graph (requires --calibration)")
     p.add_argument("--calibration", type=str, default=None, metavar="NPY",
-                   help="not ported: calibration images for --quantize")
+                   help=".npy of (N, H, W, 3) float images from the real input distribution: "
+                        "activation calibration for --quantize")
     p.add_argument("--platforms", nargs="+", default=["cpu", "cuda"],
                    help="devices the artifact is for (cpu, cuda)")
     p.add_argument("--device", type=str, default="cuda",
@@ -47,8 +53,8 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.quantize:
-        parser.error("not ported to ugpg_tpu_torch yet: --quantize (ROADMAP.md queue A, item 5)")
+    if args.quantize and args.calibration is None:
+        parser.error("--quantize requires --calibration NPY (no silent random calibration)")
     if "tpu" in args.platforms:
         parser.error("not ported: --platforms tpu (the port's artifacts serve on cpu and cuda)")
     bad = [p for p in args.platforms if p not in ("cpu", "cuda")]
@@ -60,6 +66,7 @@ def main(argv=None):
     from ugpg_tpu_torch.eval.serving import Predictor
 
     num_classes = args.classes or (1 if args.task == "segmentation" else 7)
+    calibration_batches = [np.load(args.calibration)] if args.quantize else None
     predictor = Predictor(
         args.model,
         task_type=args.task,
@@ -67,6 +74,8 @@ def main(argv=None):
         buckets=tuple(args.buckets),
         input_dtype=np.uint8 if args.uint8 else np.float32,
         compact_output=args.compact,
+        quantize=args.quantize,
+        calibration_batches=calibration_batches,
         dtype=None,  # the checkpoint's float32
         device=args.device,
     )

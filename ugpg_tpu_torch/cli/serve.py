@@ -101,7 +101,7 @@ def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
     if args.mesh is not None:
-        parser.error("not ported to ugpg_tpu_torch yet: --mesh (ROADMAP.md queue A, item 6)")
+        parser.error("not ported to ugpg_tpu_torch yet: --mesh (ROADMAP.md queue A, item 4)")
     if not (args.model or args.cls_model or args.slide_model or args.artifact):
         raise SystemExit("nothing to serve: pass --model/--cls_model/--slide_model/--artifact")
 

@@ -15,6 +15,9 @@ serves several predictors and artifacts by name.
 On the GPU every DoubleConv, every Up-block upsample and the uncertainty
 map run the port's CUDA kernels (9, 4 and 1 launches per stage-4
 segmentation call; 4 double convs per stage-4 classifier call).
+``quantize=True`` serves the W8A8 int8 graph (``ops/quant.py``): int8
+convs as ``torch._int_mm`` GEMMs, the upsample and the uncertainty map on
+their kernels (4 and 1 launches per stage-4 call, no double conv).
 ``fold_bn=False`` serves the live-BN model in plain PyTorch instead, as
 the JAX package's live-BN ``Predictor`` runs it in XLA; the uncertainty map
 keeps its kernel.  ``stream`` overlaps the copy of batch k + 1 to the
@@ -31,10 +34,11 @@ import json
 import queue
 import threading
 import time
+import warnings
 from collections import deque
 from concurrent.futures import Future
 from pathlib import Path
-from typing import Iterator, Mapping, Sequence
+from typing import Iterable, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -53,6 +57,7 @@ from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS, HerlevClassi
 from ugpg_tpu_torch.models.folding import fold_batchnorm
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS, STAGE_RESOLUTIONS
 from ugpg_tpu_torch.ops.cuda.library import uncertainty_from_logits
+from ugpg_tpu_torch.ops.quant import QuantizedClassifier, QuantizedModel
 from ugpg_tpu_torch.uncertainty import mc_dropout_uncertainty
 
 __all__ = ["Predictor", "BatchingServer", "ServingRegistry", "stage_model", "classifier_model"]
@@ -148,6 +153,7 @@ class Predictor(_BucketRouter):
         mc_dropout: int = 0,
         mc_seed: int = 0,
         device: str | torch.device | None = None,
+        calibration_batches: Iterable[np.ndarray] | None = None,
     ):
         """``checkpoint``: a reference-format ``.pth`` (``ugpg-export-torch``).
         ``dtype``: compute dtype of the network body (heads stay float32);
@@ -165,6 +171,11 @@ class Predictor(_BucketRouter):
         probs come from the mean, and a third output is the variance
         averaged over classes.  The masks come from a generator seeded by
         ``mc_seed`` at every call, so equal requests get equal responses.
+        ``quantize=True`` (either task): the W8A8 int8 graph
+        (``ops/quant.py``), BN folded, activation scales calibrated by the
+        bf16 walker on ``calibration_batches`` (an iterable of (B, H, W, 3)
+        float images from the real input distribution; required, there is
+        no default); ``dtype`` does not apply to it.
         ``device``: ``cuda`` unless given; raises without CUDA."""
         _BucketRouter.__init__(self)
         self.device = resolve_device(device)
@@ -184,7 +195,7 @@ class Predictor(_BucketRouter):
             if mc_dropout < 2:
                 raise ValueError(f"mc_dropout={mc_dropout}: need >= 2 stochastic passes "
                                  "for a variance")
-        deferred = {"quantize": quantize, "mesh": mesh is not None, "shard_model": shard_model}
+        deferred = {"mesh": mesh is not None, "shard_model": shard_model}
         missing = [name for name, asked in deferred.items() if asked]
         if missing:
             raise NotImplementedError(
@@ -195,6 +206,20 @@ class Predictor(_BucketRouter):
         self.task_type = task_type
         self.buckets = tuple(sorted(set(buckets or (batch_size,))))
         self.batch_size = self.buckets[-1]
+        self.quantize = bool(quantize)
+        if quantize:
+            if calibration_batches is None:
+                raise ValueError(
+                    "quantize=True requires calibration_batches: an iterable of (B, H, W, 3) "
+                    "float arrays from the real input distribution (scales calibrated on "
+                    "random data silently degrade accuracy, so there is no default)")
+            if task_type == "segmentation" and self.batch_size >= 32 \
+                    and self.batch_size % 128:
+                warnings.warn(
+                    f"quantize=True with largest bucket {self.batch_size}: the JAX package "
+                    "asks for a multiple of 128 for int8 segmentation throughput buckets "
+                    "(latency buckets under 32 are exempt), a rule measured on its TPU; "
+                    "PERF.md has this port's int8 numbers per bucket", stacklevel=2)
         self.threshold = float(threshold)
         self.emit_uncertainty = emit_uncertainty
         self.mc_dropout = int(mc_dropout)
@@ -207,13 +232,22 @@ class Predictor(_BucketRouter):
         self.stage, state_dict = load_checkpoint(checkpoint)
         if task_type == "classification":
             self.resolution = CLS_STAGE_RESOLUTIONS[self.stage]
-            self.model = classifier_model(self.stage, state_dict, self.device, num_classes,
-                                          dtype, fold_bn)
+            if quantize:
+                self.model = QuantizedClassifier.from_state_dict(
+                    classifier_state_dict(state_dict, self.stage), self.stage,
+                    calibration_batches, self.device)
+            else:
+                self.model = classifier_model(self.stage, state_dict, self.device,
+                                              num_classes, dtype, fold_bn)
             self._n_outputs = 3 if mc_dropout else 2
         else:
             self.resolution = STAGE_RESOLUTIONS[self.stage]
-            self.model = stage_model(self.stage, state_dict, self.device, num_classes, dtype,
-                                     fold_bn)
+            if quantize:
+                self.model = QuantizedModel.from_state_dict(state_dict, self.stage,
+                                                            calibration_batches, self.device)
+            else:
+                self.model = stage_model(self.stage, state_dict, self.device, num_classes,
+                                         dtype, fold_bn)
             self._n_outputs = 3
 
     @torch.inference_mode()
