@@ -184,8 +184,32 @@
    in turns (median and spread of 5 calls); one bucket-64 call profiled, its
    device time split into host copies, int8 GEMM, patch gather, upsample,
    epilogue and the rest, beside its idle share; the peak memory of a
-   bucket-128 call.
-14. Prints a "kernels" JSON line, then as its last line
+   bucket-128 call.  The int8 path's upsample is the bf16-taps instance
+   (``upsample2x_bf16_taps``, JAX's bf16 resize rounding): 4 of its launches
+   per device call, none of ``upsample2x``; card and CPU give every int8
+   point equal and the logits within 1e-5.
+14. The trainers' last single-device options and the uncertainty pipeline.
+   The bf16-taps upsample against its plain version bit for bit at the four
+   stage-4 Up shapes at buckets 8 and 64, timed at bucket 64 beside the
+   float32-tap instance, F.interpolate and the byte bound.  remat at full
+   width: a stage-4 float32 segmentation step at batch 8 (fused loss, the
+   frozen stage 3) and a Herlev stage-4 step at batch 16, each with and
+   without remat from the same weights, cuDNN deterministic: the
+   gradients and the BN state equal bit for bit; the peak memory and step
+   time of each.  The pipeline at full width: UncertaintyPipeline on
+   [cuda:0, cuda:0] (n_unc=1) for segmentation stage 4 (the previous stage
+   at 128 px), batch 8, fused_loss, augment, depth 2, over 6 batches:
+   step 0 against the fused step on the same drawn parameters (rtol 2e-5),
+   one loss forward and one backward launch per step; the pipelined epoch
+   against the fused steps in turns (median and spread of 5); one
+   pipelined step traced with ``utils.profiling.trace`` (the file names
+   both pipeline regions) and its device idle share.  Herlev stage 2
+   through the classification pipeline: step 0 against the fused step
+   (rtol 2e-5).  The command line on phase 9's tree: ``train_monuseg
+   --remat --tb_logdir``, one stage-1 epoch (events written, or the one
+   warning), and ``--pipeline_unc 1`` on one card exiting 2 with the JAX
+   package's message.
+15. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -226,6 +250,7 @@ if not torch.cuda.is_available():
 from ugpg_tpu_torch import native  # noqa: E402
 from ugpg_tpu_torch.data.augment import (  # noqa: E402
     apply_monuseg_params,
+    sample_herlev_params,
     sample_monuseg_params,
 )
 from ugpg_tpu_torch.data.loader import DataLoader, prefetch_to_device  # noqa: E402
@@ -255,7 +280,8 @@ from ugpg_tpu_torch.models.classifier import (  # noqa: E402
     HerlevClassificationModel,
 )
 from ugpg_tpu_torch.models.folding import fold_batchnorm  # noqa: E402
-from ugpg_tpu_torch.models.pgunet import PGUNet4  # noqa: E402
+from ugpg_tpu_torch.models.blocks import init_parameters  # noqa: E402
+from ugpg_tpu_torch.models.pgunet import PGUNet3, PGUNet4  # noqa: E402
 from ugpg_tpu_torch.ops import quant  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import double_conv as double_conv_mod  # noqa: E402
@@ -271,7 +297,12 @@ from ugpg_tpu_torch.ops.cuda.double_conv import (  # noqa: E402
     fused_double_conv_reference,
     pack_double_conv,
 )
-from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x, upsample2x_reference  # noqa: E402
+from ugpg_tpu_torch.ops.cuda.resize2x import (  # noqa: E402
+    upsample2x,
+    upsample2x_bf16_taps,
+    upsample2x_bf16_taps_reference,
+    upsample2x_reference,
+)
 from ugpg_tpu_torch.ops.resize import upsample2x_bilinear_align_corners  # noqa: E402
 from ugpg_tpu_torch.ops.cuda.uncertainty import (  # noqa: E402
     uncertainty_from_logits,
@@ -291,7 +322,9 @@ from ugpg_tpu_torch.train.seg_trainer import (  # noqa: E402
     DEFAULT_STAGE_CONFIGS,
     UncertaintyGuidedProgressiveTrainer,
 )
-from ugpg_tpu_torch.train.steps import make_seg_train_step  # noqa: E402
+from ugpg_tpu_torch.parallel.pipeline import UncertaintyPipeline  # noqa: E402
+from ugpg_tpu_torch.train.steps import make_cls_train_step, make_seg_train_step  # noqa: E402
+from ugpg_tpu_torch.utils import profiling  # noqa: E402
 
 CL = torch.channels_last
 DEV = torch.device("cuda", 0)
@@ -315,6 +348,9 @@ KERNELS = {
     "fused_double_conv": ("ugpg_tpu_torch/csrc/double_conv.cu",
                           "ugpg_tpu/ops/pallas/double_conv.py:196"),
     "upsample2x": ("ugpg_tpu_torch/csrc/upsample2x.cu", "ugpg_tpu/ops/pallas/resize2x.py:126"),
+    # the same kernel's bf16 instance with JAX's bf16 resize rounding (the int8 path)
+    "upsample2x_bf16_taps": ("ugpg_tpu_torch/csrc/upsample2x.cu",
+                             "ugpg_tpu/ops/pallas/resize2x.py:126"),
     "uncertainty_from_logits": ("ugpg_tpu_torch/csrc/uncertainty.cu",
                                 "ugpg_tpu/ops/pallas/uncertainty_fused.py:66"),
     "uncertainty_weighted_bce_fwd": ("ugpg_tpu_torch/csrc/uncertainty_bce.cu",
@@ -2693,23 +2729,28 @@ def int8_serving(tmp: Path) -> tuple[dict, dict]:
     counts, calls = _lib.launch_counts(), pq.stats()["device_calls"]
     log(f"int8: requests of 1, 5, 8, 11 images in {calls} device calls, launches "
         f"{json.dumps(counts)}")
-    assert counts == {"upsample2x": 4 * calls, "uncertainty_from_logits": calls}, counts
+    assert counts == {"upsample2x_bf16_taps": 4 * calls, "uncertainty_from_logits": calls}, counts
     for n, outs in replies.items():
         check_response(outs, n)
     drain_launches(total)
 
     # the maps against the float32 Predictor on the card (tests/test_quant.py:56-61), beside
     # the same int8 model with JAX's bf16 two-pass resize in place of the upsample operator:
-    # the JAX package's jitted int8 program (tests/test_torch_quant.py holds them equal)
+    # the JAX package's jitted int8 program (tests/test_torch_quant.py holds them equal), which
+    # the bf16-taps kernel now computes
     p32 = Predictor(str(seg), buckets=(8,), dtype=torch.float32)
     x = torch.from_numpy(images[:8]).to(DEV).permute(0, 3, 1, 2)
     with torch.inference_mode():
         lq, lf = pq.model(x).cpu().numpy(), p32.model(x).cpu().numpy()
-        operator, library_ops.upsample2x = library_ops.upsample2x, upsample2x_bilinear_align_corners
+        operator = library_ops.upsample2x_bf16_taps
+        library_ops.upsample2x_bf16_taps = upsample2x_bilinear_align_corners
         try:
             lj = pq.model(x).cpu().numpy()
         finally:
-            library_ops.upsample2x = operator
+            library_ops.upsample2x_bf16_taps = operator
+    log(f"int8 on the card: the bf16-taps kernel against JAX's bf16 resize in plain torch, "
+        f"logits max|d| {np.abs(lq - lj).max():.3e}")
+    assert np.abs(lq - lj).max() <= 1e-5
     rms, std = float(np.sqrt(np.mean((lq - lf) ** 2))), float(lf.std())
     pf_, pq_ = p32(images[:8])[1], replies[8][1]
     away = np.abs(pf_ - 0.5) > 1e-3
@@ -2743,6 +2784,7 @@ def int8_serving(tmp: Path) -> tuple[dict, dict]:
         f"{(gl - cl).abs().max().item():.4e} (std {cl.std().item():.4e}); int8 values that "
         f"differ, by point: {json.dumps({k: round(v, 6) for k, v in shares.items() if v})} "
         f"(all other points equal; largest step {steps})")
+    assert steps == 0 and (gl - cl).abs().max().item() <= 1e-5  # every point equal
     del p32, cpu_model
 
     # the export command's int8 artifact, bit for bit
@@ -2753,7 +2795,7 @@ def int8_serving(tmp: Path) -> tuple[dict, dict]:
         assert_same(art(images[:n]), pq(images[:n]), f"int8 artifact, {n} images")
     counts = _lib.launch_counts()
     calls = art.stats()["device_calls"] + pq.stats()["device_calls"] - calls
-    assert counts == {"upsample2x": 4 * calls, "uncertainty_from_logits": calls}, counts
+    assert counts == {"upsample2x_bf16_taps": 4 * calls, "uncertainty_from_logits": calls}, counts
     log(f"int8: the export command's artifact (buckets {list(QUANT_BUCKETS)}) answers bit for "
         f"bit as the live int8 Predictor on requests of 1, 5, 8, 11, 100 images; launches "
         f"{json.dumps(counts)}")
@@ -2807,7 +2849,329 @@ def int8_serving(tmp: Path) -> tuple[dict, dict]:
     log(f"int8: bucket 128 call: torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB "
         f"({(peak - before) / 2**30:.3f} GiB above the {before / 2**30:.3f} GiB resident)")
     drain_launches(total)  # the timed and profiled int8 calls
-    return {k: total[k] for k in SERVING_KERNELS}, numbers
+    return {k: total.get(k, 0) for k in (*SERVING_KERNELS, "upsample2x_bf16_taps")}, numbers
+
+
+# ---------------------------------------------------------------- phase 14: remat, the pipeline
+PIPE_BATCHES = 6  # batches of the pipelined epoch
+PIPE_TURNS = 5  # pipelined epochs and fused-step epochs, in turns
+REMAT_TIMED = 5  # timed steps with and without remat
+HERLEV_REMAT_BATCH = 16
+PIPE_REGIONS = ("uncertainty_pipeline.produce", "uncertainty_pipeline.train_step")
+
+
+def check_bf16_taps() -> dict:
+    """The bf16-taps upsample (the int8 path's) against its plain version,
+    bit for bit, at the four stage-4 Up shapes at buckets 8 and 64; then the
+    four timed at bucket 64 (per stage-4 forward) beside the float32-tap
+    instance of the same kernel, F.interpolate and the byte bound."""
+    g = torch.Generator(device=DEV).manual_seed(14)
+    t = dict.fromkeys(("ms", "float32_taps_ms", "plain_ms", "library_ms", "bytes_ms",
+                       "ops_ms"), 0.0)
+    for n in (CHECK_BATCH, TIME_BATCH):
+        for name, (c, h) in UPSAMPLES.items():
+            args = up_inputs(n, c, h, torch.bfloat16, g)
+            got, want = upsample2x_bf16_taps(*args), upsample2x_bf16_taps_reference(*args)
+            torch.cuda.synchronize()
+            assert got.is_contiguous(memory_format=CL) and torch.equal(got, want), (name, n)
+            if n != TIME_BATCH:
+                continue
+            t["ms"] += time_ms(upsample2x_bf16_taps, args)
+            t["float32_taps_ms"] += time_ms(upsample2x, args)
+            t["plain_ms"] += time_ms(upsample2x_bf16_taps_reference, args, reps=1, repeats=3)
+            t["library_ms"] += time_ms(library_upsample, args)
+            t["bytes_ms"] += 5 * n * c * h * h * 2 / HBM_BYTES_PER_S * 1e3
+            t["ops_ms"] += 2 * 3 * 4 * n * c * h * h / PEAK_OPS_PER_S[torch.float32] * 1e3
+            del args, got, want
+    torch.cuda.empty_cache()
+    log(f"bf16-taps upsample: bit for bit its plain version at {list(UPSAMPLES)} x buckets "
+        f"{CHECK_BATCH} and {TIME_BATCH}; per stage-4 forward at bucket {TIME_BATCH}: "
+        + json.dumps({k: round(v, 5) for k, v in t.items()})
+        + f", {max(t['bytes_ms'], t['ops_ms']) / t['ms']:.1%} of the bound")
+    return t
+
+
+def _seeded(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """``model`` with seeded weights and non-trivial BN stats, on the card."""
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.1, 0.1, generator=g)
+                m.running_var.uniform_(0.8, 1.2, generator=g)
+    return model.to(DEV)
+
+
+def _remat_pair(label: str, build, make_step, batch, extra) -> dict:
+    """One step with and without remat from the same weights (``extra(remat)``:
+    the step's other arguments): gradients, BN state and metrics bit for
+    bit; then the peak memory of that step and the median of
+    ``REMAT_TIMED`` more."""
+    ref = build(False).state_dict()
+    runs = {}
+    for remat in (False, True):
+        model = build(remat)
+        model.load_state_dict(ref)
+        step = make_step(model)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = step(batch, *extra(remat))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        times = []
+        for _ in range(REMAT_TIMED):
+            t0 = time.perf_counter()
+            step(batch, *extra(remat))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs[remat] = {"metrics": {k: v.item() for k, v in metrics.items()}, "grads": grads,
+                       "state": state, "peak_gib": peak / 2**30,
+                       "above_resident_gib": (peak - before) / 2**30,
+                       "step_ms": statistics.median(times), "step_ms_runs": times}
+        del model, step
+    a, b = runs[False], runs[True]
+    worst = max((x.float() - y.float()).abs().max().item() for x, y in zip(a["grads"], b["grads"]))
+    worst_state = max((a["state"][k].float() - b["state"][k].float()).abs().max().item()
+                      for k in a["state"])
+    out = {k: {"peak_gib": r["peak_gib"], "above_resident_gib": r["above_resident_gib"],
+               "step_ms": r["step_ms"], "step_ms_runs": r["step_ms_runs"]}
+           for k, r in (("plain", a), ("remat", b))}
+    log(f"remat, {label}: gradients max|d| {worst:.3e}, BN state max|d| {worst_state:.3e}; "
+        + json.dumps(out))
+    assert a["metrics"] == b["metrics"], (a["metrics"], b["metrics"])
+    assert all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"])), worst
+    assert all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"]), worst_state
+    return out
+
+
+def remat_full_width() -> dict:
+    """remat at full width, float32, cuDNN deterministic: a stage-4
+    segmentation step at batch 8 (fused loss, the frozen stage 3 at 128 px)
+    and a Herlev stage-4 step at batch 16 (the frozen stage 3)."""
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        prev = _seeded(PGUNet3(use_bn=True), 30)
+        images, masks = disk_dataset(TRAIN_BATCH, 256, seed=14)
+        batch = (torch.from_numpy(images).to(DEV), torch.from_numpy(masks).to(DEV))
+        seg = _remat_pair(
+            f"segmentation stage 4, batch {TRAIN_BATCH}",
+            lambda r: _seeded(PGUNet4(use_bn=True, remat=r), 40),
+            lambda m: make_seg_train_step(m, torch_rmsprop(m.parameters(), 1e-4,
+                                                           weight_decay=1e-4),
+                                          4, 256, prev_model=prev, prev_resolution=128,
+                                          fused_loss=True),
+            batch, lambda r: (PW,))
+        del prev, batch
+        res, k = CLS_STAGE_RESOLUTIONS[4], 7
+        cprev = _seeded(HerlevClassificationModel(3, k), 50)
+        rng = np.random.default_rng(14)
+        cbatch = (torch.from_numpy(rng.random((HERLEV_REMAT_BATCH, res, res, 3),
+                                              dtype=np.float32)).to(DEV),
+                  torch.from_numpy(rng.integers(0, k, HERLEV_REMAT_BATCH)).to(DEV))
+        cw = torch.ones(k, device=DEV)
+        herlev = _remat_pair(
+            f"Herlev stage 4, batch {HERLEV_REMAT_BATCH}",
+            lambda r: _seeded(HerlevClassificationModel(4, k, remat=r), 60),
+            lambda m: make_cls_train_step(m, torch_rmsprop(m.parameters(), 1e-4), 4, res, k,
+                                          prev_model=cprev,
+                                          prev_resolution=CLS_STAGE_RESOLUTIONS[3],
+                                          normalize=True),
+            cbatch, lambda r: (cw, torch.Generator(device=DEV).manual_seed(7)))
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    torch.cuda.empty_cache()
+    return {"segmentation": seg, "herlev": herlev}
+
+
+def _busy_ms(prof) -> tuple[float, float]:
+    """(the union of the device intervals, their sum) in ms, from a profile."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name != "Activity Buffer Request")
+    union, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            union += b - a
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    return union / 1e3, sum(b - a for a, b in spans) / 1e3
+
+
+def _assert_step0(got: dict, want: dict, keys, label: str) -> None:
+    for key in keys:
+        g, w = float(got[key]), float(want[key])
+        assert abs(g - w) <= 2e-5 * abs(w) + 1e-6, (label, key, g, w)
+    log(f"pipeline, {label}: step 0 equals the fused step to rtol 2e-5: "
+        + json.dumps({key: [float(got[key]), float(want[key])] for key in keys}))
+
+
+def pipeline_full_width(tmp: Path) -> tuple[dict, dict]:
+    """The uncertainty pipeline at full width on one card (the CPU's
+    counterpart of two devices: [cuda:0, cuda:0], n_unc=1).  Returns the
+    loss kernels' launches of its epochs and its numbers."""
+    prev = _seeded(PGUNet3(use_bn=True), 30)
+    ref = _seeded(PGUNet4(use_bn=True), 40).state_dict()
+    images, masks = disk_dataset(TRAIN_BATCH * PIPE_BATCHES, 256, seed=15)
+    batches = [(images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                masks[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]) for i in range(PIPE_BATCHES)]
+    g = torch.Generator(device=DEV).manual_seed(15)
+    draws = [sample_monuseg_params(g, TRAIN_BATCH) for _ in batches]
+
+    def fresh():
+        model = PGUNet4(use_bn=True).to(DEV)
+        model.load_state_dict(ref)
+        return model, torch_rmsprop(model.parameters(), 1e-4, weight_decay=1e-4)
+
+    model, opt = fresh()
+    pipe = UncertaintyPipeline(model, prev, opt, 4, 256, 128, devices=[DEV, DEV], n_unc=1,
+                               fused_loss=True, augment=True, depth=2)
+    pipe.create_state()
+    pipe.place_prev()
+    fmodel, fopt = fresh()
+    fused = make_seg_train_step(fmodel, fopt, 4, 256, prev_model=prev, prev_resolution=128,
+                                augment=True, fused_loss=True)
+    _lib.reset_launch_counts()
+    piped = pipe.run_epoch(batches, PW, aug=draws)
+    torch.cuda.synchronize()
+    launches = _lib.launch_counts()
+    log(f"pipeline: segmentation stage 4, {PIPE_BATCHES} batches of {TRAIN_BATCH}, launches "
+        f"{json.dumps(launches)}")
+    assert launches == {k: PIPE_BATCHES for k in LOSS_KERNELS}, launches
+    want = [fused(b, PW, d) for b, d in zip(batches, draws)]
+    _assert_step0(piped[0], want[0], ("final_loss", "base_loss", "dice", "accuracy",
+                                      "uncertainty_weight_mean", "uncertainty_weight_std"),
+                  "segmentation stage 4")
+    drift = max(abs(float(p["final_loss"]) / float(w["final_loss"]) - 1)
+                for p, w in zip(piped, want))
+    log(f"pipeline: largest relative gap of the {PIPE_BATCHES} steps' losses {drift:.3e}")
+    _lib.reset_launch_counts()
+
+    # the pipelined epoch against the fused steps, in turns
+    runs = {"pipelined": [], "fused": []}
+    for _ in range(PIPE_TURNS):
+        for name in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "pipelined":
+                pipe.run_epoch(batches, PW, aug=draws)
+            else:
+                for b, d in zip(batches, draws):
+                    fused(b, PW, d)
+            torch.cuda.synchronize()
+            runs[name].append(len(images) / (time.perf_counter() - t0))
+    ips = {k: {"median": statistics.median(v), "min": min(v), "max": max(v), "runs": v}
+           for k, v in runs.items()}
+    log(f"pipeline: images/s over {PIPE_BATCHES} steps, in turns (median [min, max] of "
+        f"{PIPE_TURNS}): " + ", ".join(f"{k} {v['median']:.2f} [{v['min']:.2f}, {v['max']:.2f}]"
+                                       for k, v in ips.items()))
+
+    # one pipelined step, traced (utils.profiling.trace), and one fused step
+    idle = {}
+    for name in ("pipelined", "fused"):
+        torch.cuda.synchronize()
+        with profiling.trace(tmp / f"trace_{name}") as prof:
+            t0 = time.perf_counter()
+            if name == "pipelined":
+                pipe.run_epoch(batches[:1], PW, aug=draws[:1])
+            else:
+                fused(batches[0], PW, draws[0])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        union, total = _busy_ms(prof)
+        idle[name] = {"wall_ms": wall, "busy_ms": union, "kernel_ms_sum": total,
+                      "idle_share": 1 - union / wall}
+    files = list((tmp / "trace_pipelined").glob("*.pt.trace.json"))
+    assert len(files) == 1, files
+    names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
+    assert set(PIPE_REGIONS) <= names, sorted(n for n in names if n and "pipeline" in n)
+    log(f"pipeline: one step traced to {files[0].name} ({files[0].stat().st_size} bytes, "
+        f"regions {list(PIPE_REGIONS)}); device busy and idle: {json.dumps(idle)}")
+    drain = _lib.launch_counts()  # the timed and traced epochs: 1 + 1 per step
+    steps = PIPE_TURNS * PIPE_BATCHES * 2 + 2
+    assert drain == {k: steps for k in LOSS_KERNELS}, drain
+    _lib.reset_launch_counts()
+    del pipe, fused, model, fmodel
+    torch.cuda.empty_cache()
+
+    # Herlev stage 2 through the classification pipeline
+    k, res, prev_res = 7, CLS_STAGE_RESOLUTIONS[2], CLS_STAGE_RESOLUTIONS[1]
+    cprev = _seeded(HerlevClassificationModel(1, k), 70)
+    cref = _seeded(HerlevClassificationModel(2, k), 80).state_dict()
+    rng = np.random.default_rng(16)
+    cbatch = (rng.random((HERLEV_BATCH, res, res, 3), dtype=np.float32),
+              rng.integers(0, k, HERLEV_BATCH))
+    cw = torch.linspace(0.5, 2.0, k, device=DEV)
+    params = sample_herlev_params(torch.Generator(device=DEV).manual_seed(17), HERLEV_BATCH,
+                                  res, res)
+    out = []
+    for piped_run in (True, False):
+        cmodel = HerlevClassificationModel(2, k).to(DEV)
+        cmodel.load_state_dict(cref)
+        copt = torch_rmsprop(cmodel.parameters(), 1e-4)
+        dropout = torch.Generator(device=DEV).manual_seed(18)
+        if piped_run:
+            cpipe = UncertaintyPipeline(cmodel, cprev, copt, 2, res, prev_res,
+                                        devices=[DEV, DEV], task_type="classification",
+                                        num_classes=k, augment=True, normalize=True)
+            out.append(cpipe.run_epoch([cbatch], cw, aug=[params], generator=dropout)[0])
+        else:
+            step = make_cls_train_step(cmodel, copt, 2, res, k, prev_model=cprev,
+                                       prev_resolution=prev_res, augment=True, normalize=True)
+            out.append(step(cbatch, cw, dropout, aug=params))
+    _assert_step0(out[0], out[1], ("final_loss", "base_loss", "uncertainty_weight_mean",
+                                   "uncertainty_weight_std"),
+                  f"Herlev stage 2, batch {HERLEV_BATCH}")
+    assert int(out[0]["correct"]) == int(out[1]["correct"])
+    _lib.reset_launch_counts()
+    return {kernel: PIPE_BATCHES for kernel in LOSS_KERNELS}, {
+        "images_per_s": ips, "idle": idle, "loss_drift": drift}
+
+
+def options_command_lines(tmp: Path, root: Path) -> dict:
+    """``train_monuseg --remat --tb_logdir`` for one stage-1 epoch on phase 9's
+    tree, and ``--pipeline_unc 1``, which on one card exits 2 with the JAX
+    package's message."""
+    tb = tmp / "tb"
+    remat = start_command(port_command(
+        "ugpg_tpu_torch.cli.train_monuseg", "--data_dir", str(root), "--output_dir",
+        str(tmp / "remat_out"), "--stages", "1", "--epochs", "1", "--batch_size",
+        str(TRAIN_BATCH), "--remat", "--tb_logdir", str(tb)))
+    piped = start_command(port_command(
+        "ugpg_tpu_torch.cli.train_monuseg", "--data_dir", str(root), "--output_dir",
+        str(tmp / "piped_out"), "--stages", "1", "2", "--epochs", "1", "--pipeline_unc", "1"))
+    out = finish_command(remat, "train_monuseg --remat --tb_logdir")
+    events = list(tb.glob("events.out.tfevents.*"))
+    warned = "event logging disabled" in out
+    assert events or warned, out[-2000:]
+    assert (tmp / "remat_out" / "ug_pgunet_stage1_best.pth").exists()
+    log("command line: train_monuseg --remat --tb_logdir: "
+        + (f"{len(events)} events file(s) written" if events else
+           "the tensorboard package is missing: the one warning printed, no events"))
+    text, _ = piped.communicate(timeout=600)
+    message = "n_unc=1 must leave at least one train device out of 1 visible"
+    log(f"command line: train_monuseg --pipeline_unc 1 on {torch.cuda.device_count()} card(s): "
+        f"exit {piped.returncode}")
+    if torch.cuda.device_count() == 1:
+        assert piped.returncode == 2 and message in text, text[-2000:]
+    return {"tb_events": len(events), "tb_warning": warned, "pipeline_unc_exit": piped.returncode}
+
+
+def options_and_pipeline(tmp: Path, root: Path) -> tuple[dict, dict]:
+    """Phase 14."""
+    taps = check_bf16_taps()
+    remat = remat_full_width()
+    with tf32(False):
+        launches, pipe = pipeline_full_width(tmp)
+    commands = options_command_lines(tmp, root)
+    return launches, {"bf16_taps": taps, "remat": remat, "pipeline": pipe, "commands": commands}
 
 
 def main():
@@ -2866,13 +3230,25 @@ def main():
             t0 = time.perf_counter()
             stack_launches, stack = serving_stack(Path(tmp), Path(mon_tmp) / "MoNuSeg")
             log(f"serving stack: phase 12 in {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    with tf32(False), tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        int8_launches, int8 = int8_serving(Path(tmp))
-        log(f"int8: phase 13 in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        with tf32(False), tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            int8_launches, int8 = int8_serving(Path(tmp))
+            log(f"int8: phase 13 in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:  # phase 9's tree for the command line
+            t0 = time.perf_counter()
+            pipe_launches, phase14 = options_and_pipeline(Path(tmp), Path(mon_tmp) / "MoNuSeg")
+            log(f"remat and pipeline: phase 14 in {time.perf_counter() - t0:.1f} s")
     for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's; the int8 path's
         launches[kernel] += stack_launches[kernel] + int8_launches[kernel]
+    # the int8 path is the bf16-taps instance's main path; the pipeline's epoch, the loss
+    # kernels' (beside MoNuSeg training's)
+    launches["upsample2x_bf16_taps"] = int8_launches["upsample2x_bf16_taps"]
+    for kernel in LOSS_KERNELS:
+        launches[kernel] += pipe_launches[kernel]
+    totals["upsample2x_bf16_taps"] = phase14["bf16_taps"]
+    errors["upsample2x_bf16_taps"] = 0.0  # bit for bit (phase 14), asserted
 
     rows = []
     for kernel, (source, replaces) in KERNELS.items():
@@ -2885,7 +3261,7 @@ def main():
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
             "library_ms": t["library_ms"],
             **{key: t[key] for key in ("device_ms", "host_us", "host_us_wrapper",
-                                        "host_us_operator") if key in t},
+                                        "host_us_operator", "float32_taps_ms") if key in t},
         })
         if kernel == "fused_double_conv":  # one stage-4 forward's double convs
             for key, dc in (("float32_native_1008", cli_times["double_conv_f32_1008"]),
@@ -2944,6 +3320,18 @@ def main():
         + ", ".join(f"{k} {v:.2f}" for k, v in split["ms"].items())
         + f", idle {split['idle_share']:.1%}; peak {int8['peak_gib_128']['peak']:.2f} GiB at "
         f"bucket 128 on {card}")
+    remat, pipe = phase14["remat"], phase14["pipeline"]
+    log("remat (float32, full width): "
+        + "; ".join(f"{task} peak {r['plain']['peak_gib']:.3f} -> {r['remat']['peak_gib']:.3f} "
+                    f"GiB, step {r['plain']['step_ms']:.2f} -> {r['remat']['step_ms']:.2f} ms"
+                    for task, r in remat.items())
+        + f"; pipeline at stage 4, batch {TRAIN_BATCH}: images/s pipelined "
+        f"{pipe['images_per_s']['pipelined']['median']:.2f} vs fused "
+        f"{pipe['images_per_s']['fused']['median']:.2f}, idle "
+        f"{pipe['idle']['pipelined']['idle_share']:.1%} vs "
+        f"{pipe['idle']['fused']['idle_share']:.1%}; bf16-taps upsample "
+        f"{phase14['bf16_taps']['ms']:.4f} ms per forward at bucket {TIME_BATCH} (float32 taps "
+        f"{phase14['bf16_taps']['float32_taps_ms']:.4f}) on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

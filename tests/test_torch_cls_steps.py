@@ -155,9 +155,14 @@ def test_cls_eval_step_matches_jax(k):
 def test_cls_step_refusals():
     model = port_classifier(1, jax_cls_variables(1, 3, seed=6), 3)
     opt = torch_adam(model.parameters(), 1e-4)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_cls_train_step(model, opt, 1, 32, 3, external_uncertainty=True)
     images, labels, _ = _batch(3)
+    # external_uncertainty (ported since) takes the weights as unc=, of one per sample
+    step2 = make_cls_train_step(port_classifier(2, jax_cls_variables(2, 3, seed=7), 3), opt, 2,
+                                32, 3, external_uncertainty=True)
+    with pytest.raises(ValueError, match="pass unc"):
+        step2((images, labels))
+    with pytest.raises(ValueError, match="4 rows"):
+        step2((images, labels), unc=torch.ones(3))
     with pytest.raises(ValueError, match="divisible"):
         make_cls_train_step(model, opt, 1, 32, 3, accum_steps=3)((images, labels))
     with pytest.raises(ValueError, match="generator"):

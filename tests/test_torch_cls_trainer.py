@@ -7,6 +7,7 @@ options and flags that are not ported."""
 
 import csv
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from ugpg_tpu.io.torch_import import import_torch_checkpoint
 from ugpg_tpu_torch.cli import train_herlev
 from ugpg_tpu_torch.data.synthetic import ArrayLoader
 from ugpg_tpu_torch.io.checkpoint import read_checkpoint, save_checkpoint
+from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS
 from ugpg_tpu_torch.models.pgunet import PGUNet1
 from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer, create_config
 from ugpg_tpu_torch.utils.preemption import PreemptionGuard
@@ -159,14 +161,46 @@ def test_preempted_and_resumed_run_ends_on_the_same_bits(tmp_path):
     assert rows == [(1, 1), (2, 1), (2, 2)]
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for a test that trains: the suite runs six test
+    processes at once, where torch's default of a thread per core
+    oversubscribes the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object()), dict(axis_name="data"), dict(checkpoint_backend="msgpack"),
     dict(config=dict(scan_epochs=True)), dict(config=dict(scan_chunk_bytes=1 << 30)),
     dict(config=dict(tb_logdir="tb")), dict(config=dict(remat=True)),
     dict(config=dict(pipeline_unc=1)),
 ])
-def test_trainer_options_outside_the_slice_raise(kwargs):
-    cfg = _config(**kwargs.pop("config", {}))
+def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
+                                               one_torch_thread):
+    """The config's tb_logdir, remat and pipeline_unc, ported since, train
+    stages 1-2 (at 8/16 px); beside a mesh they still raise (pipeline_unc: the JAX
+    package's ValueError)."""
+    config = kwargs.pop("config", {})
+    if set(config) & {"tb_logdir", "remat", "pipeline_unc"}:
+        config = {k: (str(tmp_path / v) if k == "tb_logdir" else v) for k, v in config.items()}
+        train, val = _loaders(n_train=2)
+        monkeypatch.setitem(sys.modules, "tensorflow", None)  # TensorBoard's own stub
+        monkeypatch.setitem(CLS_STAGE_RESOLUTIONS, 1, 8)  # the steps resize to 8/16 px
+        monkeypatch.setitem(CLS_STAGE_RESOLUTIONS, 2, 16)
+        tr = HerlevTrainer(_config(**config), device="cpu")
+        hist = tr.train_progressive(train, val, str(tmp_path / "out"))
+        assert len(hist["train_loss"]) == 2 and np.isfinite(hist["train_loss"]).all()
+        if "tb_logdir" in config:
+            assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
+        assert tr.models[2].unet.inc.conv.remat == ("remat" in config)
+        assert list(tr._pipelines) == ([2] if "pipeline_unc" in config else [])
+        with pytest.raises((NotImplementedError, ValueError),
+                           match="not ported|mutually exclusive"):
+            HerlevTrainer(_config(**config), device="cpu", mesh=object())
+        return
+    cfg = _config(**config)
     with pytest.raises(NotImplementedError, match="not ported"):
         HerlevTrainer(cfg, device="cpu", **kwargs)
 
@@ -176,7 +210,27 @@ def test_trainer_options_outside_the_slice_raise(kwargs):
     ["--remat"], ["--pipeline_unc", "1"], ["--checkpoint_backend", "msgpack"],
     ["--checkpoint_backend", "orbax"],
 ])
-def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys):
+def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys, monkeypatch):
+    """Exit 2 naming the flag.  --tb_logdir, --remat and --pipeline_unc,
+    ported since, reach the trainer's config (--pipeline_unc: the train
+    loaders drop the ragged final batch); beside --mesh the command still
+    exits 2, naming --mesh."""
+    if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc"):
+        from ugpg_tpu_torch.train import cls_trainer
+
+        seen = {}
+
+        def trainer(config, **kwargs):
+            seen.update(config)
+            raise KeyboardInterrupt  # stop before training
+
+        monkeypatch.setattr(cls_trainer, "HerlevTrainer", trainer)
+        root = write_herlev_tree(tmp_path / "Herlev")
+        with pytest.raises(KeyboardInterrupt):
+            train_herlev.cli(["--data_dir", str(root), "--device", "cpu", *flags])
+        key = flags[0][2:]
+        assert seen[key] == {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1}[key]
+        flags = ["--mesh", "4,2", *flags]
     with pytest.raises(SystemExit) as info:
         train_herlev.cli(["--data_dir", str(tmp_path), "--device", "cpu", *flags])
     err = capsys.readouterr().err

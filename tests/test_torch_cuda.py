@@ -577,6 +577,26 @@ def test_upsample_operator_on_the_card_against_the_cpu(cuda, dtype, c, h):
     _close(got, library.upsample2x(x.cpu()).to(cuda), dtype)
 
 
+@pytest.mark.parametrize("n,c,h,w", [(2, c, h, h) for c, h in SERVING_UPSAMPLES]
+                         + [(3, 5, 1, 7), (2, 12, 9, 4), (1, 8, 1, 1)])
+def test_upsample_bf16_taps_operator_on_the_card_against_the_cpu(cuda, n, c, h, w):
+    """The bf16-taps instance (JAX's bf16 resize rounding) equals its plain
+    version bit for bit, on the card and on the CPU: each output is at most
+    two exact bf16 x bf16 products summed once in float32, per pass."""
+    from ugpg_tpu_torch.ops.cuda import library
+    from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x_bf16_taps_reference
+
+    x = (torch.randn(n, c, h, w, device=cuda) * 3).bfloat16().contiguous(memory_format=CL)
+    _lib.reset_launch_counts()
+    got = library.upsample2x_bf16_taps(x)
+    assert _lib.launch_counts() == {"upsample2x_bf16_taps": 1}
+    assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=CL)
+    assert torch.equal(got, upsample2x_bf16_taps_reference(x))
+    assert torch.equal(got.cpu(), library.upsample2x_bf16_taps(x.cpu()))
+    with pytest.raises(TypeError, match="bfloat16"):
+        library.upsample2x_bf16_taps(x.float())
+
+
 @pytest.mark.parametrize("batch", [1, 64])
 def test_uncertainty_operator_on_the_card_against_the_cpu(cuda, batch):
     from ugpg_tpu_torch.ops.cuda import library

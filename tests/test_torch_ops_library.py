@@ -1,4 +1,4 @@
-"""The three serving kernels as PyTorch operators (``ops/cuda/library.py``),
+"""The serving kernels as PyTorch operators (``ops/cuda/library.py``),
 on the CPU.
 
 ``torch.library.opcheck`` holds each operator's schema, fake (meta)
@@ -17,7 +17,11 @@ import torch
 from ugpg_tpu_torch.models.pgunet import PGUNet2
 from ugpg_tpu_torch.ops.cuda import library
 from ugpg_tpu_torch.ops.cuda.double_conv import fused_double_conv_reference, pack_double_conv
-from ugpg_tpu_torch.ops.cuda.resize2x import upsample2x_reference
+from ugpg_tpu_torch.ops.cuda.resize2x import (
+    _tap_weights,
+    upsample2x_bf16_taps_reference,
+    upsample2x_reference,
+)
 from ugpg_tpu_torch.ops.cuda.uncertainty import uncertainty_from_logits_reference
 
 CL = torch.channels_last
@@ -46,6 +50,12 @@ CASES = [
     ("upsample", "bfloat16-nchw",
      lambda: (torch.randn(1, 4, 3, 6, generator=torch.Generator().manual_seed(2))
               .to(torch.bfloat16),)),
+    ("upsample_bf16_taps", "bfloat16-cl",
+     lambda: ((torch.randn(2, 5, 1, 7, generator=torch.Generator().manual_seed(6)) * 3)
+              .to(torch.bfloat16).contiguous(memory_format=CL),)),
+    ("upsample_bf16_taps", "bfloat16-nchw",
+     lambda: ((torch.randn(1, 4, 9, 6, generator=torch.Generator().manual_seed(7)) * 3)
+              .to(torch.bfloat16),)),
     ("uncertainty", "float32-nchw",
      lambda: (torch.randn(2, 1, 8, 8, generator=torch.Generator().manual_seed(3)) * 4,)),
     ("uncertainty", "float32-cl",
@@ -56,10 +66,12 @@ CASES = [
               .to(torch.bfloat16),)),
 ]
 OP = {"double_conv": OPS.fused_double_conv.default, "upsample": OPS.upsample2x.default,
+      "upsample_bf16_taps": OPS.upsample2x_bf16_taps.default,
       "uncertainty": OPS.uncertainty_from_logits.default}
 PLAIN = {
     "double_conv": lambda x, w1, b1, w2, b2, *_: fused_double_conv_reference(x, w1, b1, w2, b2),
     "upsample": upsample2x_reference,
+    "upsample_bf16_taps": upsample2x_bf16_taps_reference,
     "uncertainty": uncertainty_from_logits_reference,
 }
 
@@ -117,3 +129,30 @@ def test_exported_graph_keeps_each_operator_as_one_call():
     assert targets.count(OPS.upsample2x.default) == 2
     assert not [t for t in targets if "conv" in str(t) and "ugpg_torch" not in str(t)]
     assert torch.equal(program.module()(x), want)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 7), (9, 4), (16, 16), (37, 5)])
+def test_bf16_taps_tables_give_the_plain_version_bit_for_bit(h, w):
+    """The bf16-taps kernel's arithmetic, in torch on the CPU: per pass each
+    output is w0 x tap0 + w1 x tap1 from ``_tap_weights`` (both products
+    exact in float32), rounded to bf16, H before W.  It equals the plain
+    version (JAX's bf16 einsums) bit for bit."""
+    x = (torch.randn(2, 3, h, w, generator=torch.Generator().manual_seed(h * w)) * 3)
+    x = x.bfloat16()
+    t = _tap_weights(h, w, torch.device("cpu"))
+    th, tw = t[:4 * h].view(4, h), t[4 * h:].view(4, w)
+
+    def lerp(v, taps, dim, size):
+        k = torch.arange(size)
+        lo = v.index_select(dim, (k - 1).clamp(min=0))
+        hi = v.index_select(dim, (k + 1).clamp(max=size - 1))
+        shape = [1] * v.dim()
+        shape[dim] = size
+        e0, e1, o0, o1 = (r.view(shape) for r in taps)
+        even = (e0 * lo + e1 * v).bfloat16().float()
+        odd = (o0 * v + o1 * hi).bfloat16().float()
+        return torch.stack([even, odd], dim=dim + 1).flatten(dim, dim + 1)
+
+    got = lerp(lerp(x.float(), th, 2, h), tw, 3, w).bfloat16()
+    assert torch.equal(got, upsample2x_bf16_taps_reference(x))
+    assert torch.equal(got, OPS.upsample2x_bf16_taps.default(x))

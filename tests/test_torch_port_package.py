@@ -2,7 +2,8 @@
 (the serving stack and the MoNuSeg tools included), its entry points need
 CUDA unless the CPU is asked for, and the Predictor, SlidePredictor,
 trainer and command-line options not ported yet raise (or exit "not
-ported") instead of being ignored; the options ported since run."""
+ported") instead of being ignored; the options ported since run, and
+raise (or exit 2) only beside a mesh."""
 
 import pathlib
 import re
@@ -29,6 +30,7 @@ from ugpg_tpu_torch.io.checkpoint import (
 )
 from ugpg_tpu_torch.models.classifier import HerlevClassificationModel
 from ugpg_tpu_torch.models.pgunet import PGUNet1
+from ugpg_tpu_torch.train import aug_trainer
 from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer, create_config
 from ugpg_tpu_torch.train.seg_trainer import UncertaintyGuidedProgressiveTrainer
 from ugpg_tpu_torch.utils.preemption import PreemptionGuard
@@ -50,12 +52,16 @@ def test_imports_with_jax_and_ugpg_tpu_blocked():
         "                                                    'PIL')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
+        "print(' '.join(names))\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 63  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 67  # every module of the package was imported
+    imported = proc.stdout.split()[:-1]
+    for name in ("utils.tb", "utils.config", "parallel", "parallel.pipeline"):
+        assert f"ugpg_tpu_torch.{name}" in imported, name
 
 
 _FORBIDDEN = re.compile(
@@ -97,6 +103,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for a test that trains: the suite runs six test
+    processes at once, where torch's default of a thread per core
+    oversubscribes the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 @pytest.mark.parametrize("kwargs", [
     dict(quantize=True, mesh=object()), dict(mesh=object()), dict(shard_model=True),
 ])
@@ -110,7 +126,29 @@ def test_options_outside_the_slice_raise(kwargs, tmp_path):
     dict(checkpoint_backend="msgpack"), dict(scan_epochs=True), dict(scan_chunk_bytes=1 << 30),
     dict(tb_logdir="tb"), dict(remat=True), dict(pipeline_unc=1),
 ])
-def test_trainer_options_outside_the_slice_raise(kwargs):
+def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
+                                               one_torch_thread):
+    """tb_logdir, remat and pipeline_unc, ported since, train two stages;
+    beside a mesh they still raise (pipeline_unc: the JAX package's
+    ValueError).  TensorBoard runs on its own stub, without TensorFlow."""
+    if set(kwargs) & {"tb_logdir", "remat", "pipeline_unc"}:
+        monkeypatch.setitem(sys.modules, "tensorflow", None)
+        kw = {k: (tmp_path / v if k == "tb_logdir" else v) for k, v in kwargs.items()}
+        images, masks = disk_dataset(num_samples=2, image_size=16, seed=0)
+        loader = ArrayLoader(images, masks, batch_size=2)
+        cfgs = {s: {"resolution": 16, "epochs_per_stage": 1, "lr": 3e-4} for s in (1, 2)}
+        tr = UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, width=0.25,
+                                                 stage_configs=cfgs, **kw)
+        h = tr.train_progressive(loader, loader, max_stages=2, save_dir=tmp_path / "out")
+        assert len(h["train_loss"]) == 2 and np.isfinite(h["train_loss"]).all()
+        if "tb_logdir" in kw:
+            assert list(kw["tb_logdir"].glob("events.out.tfevents.*"))
+        assert tr.models[2].inc.conv.remat == ("remat" in kw)
+        assert list(tr._pipelines) == ([2] if "pipeline_unc" in kw else [])
+        with pytest.raises((NotImplementedError, ValueError),
+                           match="not ported|mutually exclusive"):
+            UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, mesh=object(), **kw)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, **kwargs)
 
@@ -185,11 +223,27 @@ def test_slide_predictor_parts_outside_the_slice_raise(part, stage1_pth, tmp_pat
     ("train", ["--checkpoint_backend", "orbax-async"]), ("test", ["--mesh", "2,2"]),
     ("serve", ["--mesh", "2"]), ("export", ["--quantize"]), ("export", ["--platforms", "tpu"]),
 ])
-def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_path, capsys):
-    """Never ignored: the command exits 2 naming the flag."""
+def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_path, capsys,
+                                                        monkeypatch):
+    """Never ignored: the command exits 2 naming the flag.  --tb_logdir,
+    --remat and --pipeline_unc, ported since, reach the trainer; beside
+    --mesh the command still exits 2, naming --mesh."""
     if command == "train":
         argv = ["--data_dir", str(tmp_path), "--device", "cpu", *flags]
         main = train_monuseg.main
+        if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc"):
+            seen = {}
+
+            def trainer(config, **kwargs):
+                seen.update(kwargs)
+                raise KeyboardInterrupt  # stop before any data is read
+
+            monkeypatch.setattr(aug_trainer, "AugMoNuSegTrainer", trainer)
+            with pytest.raises(KeyboardInterrupt):
+                main(argv)
+            key = flags[0][2:]
+            assert seen[key] == {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1}[key]
+            argv, flags = argv + ["--mesh", "4,2"], ["--mesh"]
     elif command == "serve":
         argv = ["--model", f"m={tmp_path / 'm.pth'}", "--device", "cpu", *flags]
         main = serve.main

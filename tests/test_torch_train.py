@@ -277,8 +277,14 @@ def test_eval_step_matches_jax():
 def test_step_options_outside_the_slice_raise():
     model = STAGE_MODELS[1](num_classes=1, width=W)
     opt = torch_rmsprop(model.parameters(), 1e-4)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_seg_train_step(model, opt, 1, 16, external_uncertainty=True)
+    # external_uncertainty (ported since) takes probs_up as unc=, at the stage's size
+    model2 = STAGE_MODELS[2](num_classes=1, width=W)
+    step2 = make_seg_train_step(model2, torch_rmsprop(model2.parameters(), 1e-4), 2, 16,
+                                external_uncertainty=True)
+    with pytest.raises(ValueError, match="pass unc"):
+        step2(_batch(n=4), PW)
+    with pytest.raises(ValueError, match="at 16x16"):
+        step2(_batch(n=4), PW, unc=torch.full((4, 1, 8, 8), 0.5))
     step = make_seg_train_step(model, opt, 1, 16, accum_steps=3)
     with pytest.raises(ValueError, match="divisible"):
         step(_batch(n=4), PW)

@@ -64,7 +64,7 @@ def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
     if args.mesh is not None:
-        parser.error("not ported to ugpg_tpu_torch yet: --mesh (see ROADMAP.md)")
+        parser.error("not ported to ugpg_tpu_torch yet: --mesh (ROADMAP.md queue A, item 4)")
     try:
         data_dir = resolve_dataset_path(args.data)
     except ValueError as e:

@@ -8,10 +8,13 @@ runs the plain PyTorch path).  One dataset per stage at that stage's
 resolution, the train loader shuffled with seed 42 + stage; class weights
 from the stage-1 training split.  Checkpoints are reference-format
 ``.pth`` files (``--checkpoint_backend pth``, the only backend, and so the
-default; the JAX command defaults to msgpack).  The flags of parts not
-ported yet (``--mesh``, ``--scan_epochs``, ``--scan_chunk_mb``,
-``--tb_logdir``, ``--remat``, ``--pipeline_unc``, another
-``--checkpoint_backend``) exit with status 2 and a "not ported" message.
+default; the JAX command defaults to msgpack).  ``--tb_logdir DIR``,
+``--remat`` and ``--pipeline_unc N`` as in ``train_monuseg`` (one card and
+N = 1 exits 2 with the JAX package's message); with ``--pipeline_unc`` the
+train loaders drop the ragged final batch, as the JAX command's do.  The
+flags of parts not ported yet (``--mesh``, ``--scan_epochs``,
+``--scan_chunk_mb``, another ``--checkpoint_backend``) exit with status 2
+and a "not ported" message.
 
 SIGTERM stops the run at the end of the current epoch with a
 ``herlev_stage{S}_last.pth`` written, and ``cli`` exits 75 (EX_TEMPFAIL);
@@ -54,31 +57,37 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["pth", "msgpack", "orbax", "orbax-async"],
                    help="checkpoint format: pth, the only one ported (the JAX "
                         "command's default is msgpack)")
+    p.add_argument("--tb_logdir", type=str, default=None,
+                   help="write per-epoch TensorBoard scalars to this directory")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each encoder DoubleConv in the backward: less peak "
+                        "memory, the same gradients")
+    p.add_argument("--pipeline_unc", type=int, default=0, metavar="N",
+                   help="run the frozen previous stage's uncertainty forward on the last N "
+                        "devices, ahead of the train step (stages > 1); the train loaders "
+                        "drop the ragged final batch")
     # parts not ported yet: given, they exit with "not ported"
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
                    help="not ported: device mesh")
     p.add_argument("--scan_epochs", action="store_true", help="not ported: epoch scans")
     p.add_argument("--scan_chunk_mb", type=int, default=None, help="not ported: epoch scans")
-    p.add_argument("--tb_logdir", type=str, default=None, help="not ported: TensorBoard")
-    p.add_argument("--remat", action="store_true", help="not ported: rematerialisation")
-    p.add_argument("--pipeline_unc", type=int, default=0, metavar="N",
-                   help="not ported: the uncertainty pipeline")
     return p
 
 
 def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
-    asked = {
+    multi_device = {
         "--mesh": args.mesh is not None,
+    }
+    never = {  # ROADMAP.md, "Not to port"
         "--scan_epochs": args.scan_epochs,
         "--scan_chunk_mb": args.scan_chunk_mb is not None,
-        "--tb_logdir": args.tb_logdir is not None,
-        "--remat": args.remat,
-        "--pipeline_unc": bool(args.pipeline_unc),
         f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
     }
-    missing = [flag for flag, on in asked.items() if on]
-    if missing:
-        parser.error(f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} (see ROADMAP.md)")
+    for asked, where in ((multi_device, "ROADMAP.md queue A, item 4"),
+                         (never, 'ROADMAP.md, "Not to port"')):
+        missing = [flag for flag, on in asked.items() if on]
+        if missing:
+            parser.error(f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} ({where})")
 
 
 def main(argv=None):
@@ -97,7 +106,8 @@ def main(argv=None):
     config = create_config()
     config.update(stages=args.stages, epochs_per_stage=args.epochs, batch_size=args.batch_size,
                   binary_classification=args.binary, uncertainty_alpha=args.uncertainty_alpha,
-                  output_dir=args.output_dir, accum_steps=args.accum_steps)
+                  output_dir=args.output_dir, accum_steps=args.accum_steps,
+                  tb_logdir=args.tb_logdir, remat=args.remat, pipeline_unc=args.pipeline_unc)
     if args.data_dir:
         config["data_dir"] = args.data_dir
     if config["binary_classification"]:
@@ -119,8 +129,10 @@ def main(argv=None):
         va_ds = HerlevDataset(config["data_dir"], image_size=size, split="val", augment=False,
                               binary_classification=config["binary_classification"],
                               target_split_ratio=config["split_ratios"], verbose=False)
+        # a pipelined epoch needs every batch to split into the micro-batches
         train_loaders[stage] = DataLoader(tr_ds, batch_size=config["batch_size"], shuffle=True,
-                                          num_workers=config["num_workers"], seed=42 + stage)
+                                          num_workers=config["num_workers"], seed=42 + stage,
+                                          drop_last=bool(args.pipeline_unc))
         val_loaders[stage] = DataLoader(va_ds, batch_size=config["batch_size"],
                                         num_workers=config["num_workers"])
         if class_weights is None:
@@ -129,8 +141,11 @@ def main(argv=None):
         config["class_weights"] = class_weights
         print(f"Computed class weights: {[round(w, 3) for w in class_weights]}")
 
-    trainer = HerlevTrainer(config, dtype=torch.bfloat16 if args.bf16 else None,
-                            device=args.device)
+    try:
+        trainer = HerlevTrainer(config, dtype=torch.bfloat16 if args.bf16 else None,
+                                device=args.device)
+    except ValueError as e:  # e.g. --pipeline_unc leaving no train device
+        parser.error(str(e))
     try:
         # SIGTERM -> herlev_stage{S}_last.pth and an early return; cli()
         # then exits 75 so that a scheduler requeues

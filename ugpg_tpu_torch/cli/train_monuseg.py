@@ -5,11 +5,15 @@
 Takes the JAX command's flags, plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain PyTorch path), where the JAX package reads
 ``JAX_PLATFORMS``.  Checkpoints are reference-format ``.pth`` files
-(``--checkpoint_backend pth``, the only backend).  The flags of parts not
-ported yet (``--mesh``, ``--scan_epochs``, ``--scan_chunk_mb``,
-``--tb_logdir``, ``--remat``, ``--pipeline_unc``, ``--native_finetune``,
-another ``--checkpoint_backend``) exit with status 2 and a "not ported"
-message; none is ignored.
+(``--checkpoint_backend pth``, the only backend).  ``--tb_logdir DIR``
+writes per-epoch TensorBoard scalars, ``--remat`` recomputes every
+DoubleConv in the backward, ``--pipeline_unc N`` runs the frozen previous
+stage on the last N devices (``parallel/pipeline.py``; on ``cuda`` the
+visible cards, so one card and N = 1 exits 2 with the JAX package's
+message; on ``cpu`` the CPU N + 1 times).  The flags of parts not ported
+yet (``--mesh``, ``--scan_epochs``, ``--scan_chunk_mb``,
+``--native_finetune``, another ``--checkpoint_backend``) exit with status
+2 and a "not ported" message; none is ignored.
 
 ``--resume`` loads every requested stage that has a ``_best.pth`` and no
 ``_last.pth``, and ``train_progressive`` continues mid-stage from the
@@ -72,15 +76,19 @@ def build_argparser() -> argparse.ArgumentParser:
                         "micro-batches with one optimizer update")
     p.add_argument("--aug_quantize", type=int, default=0, metavar="N",
                    help="quantize the augmentation rotation to N grid angles")
+    p.add_argument("--tb_logdir", type=str, default=None,
+                   help="write per-epoch TensorBoard scalars to this directory")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute every DoubleConv in the backward instead of keeping its "
+                        "activations: less peak memory, the same gradients")
+    p.add_argument("--pipeline_unc", type=int, default=0, metavar="N",
+                   help="run the frozen previous stage's uncertainty forward on the last N "
+                        "devices, ahead of the train step (stages > 1)")
     # parts not ported yet: given, they exit with "not ported"
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
                    help="not ported: device mesh")
     p.add_argument("--scan_epochs", action="store_true", help="not ported: epoch scans")
     p.add_argument("--scan_chunk_mb", type=int, default=None, help="not ported: epoch scans")
-    p.add_argument("--tb_logdir", type=str, default=None, help="not ported: TensorBoard")
-    p.add_argument("--remat", action="store_true", help="not ported: rematerialisation")
-    p.add_argument("--pipeline_unc", type=int, default=0, metavar="N",
-                   help="not ported: the uncertainty pipeline")
     p.add_argument("--native_finetune", type=int, default=0, metavar="EPOCHS",
                    help="not ported: native-resolution fine-tune (needs a mesh)")
     p.add_argument("--native_size", type=int, default=1000,
@@ -91,19 +99,20 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
-    asked = {
+    multi_device = {
         "--mesh": args.mesh is not None,
+        "--native_finetune": bool(args.native_finetune),
+    }
+    never = {  # ROADMAP.md, "Not to port"
         "--scan_epochs": args.scan_epochs,
         "--scan_chunk_mb": args.scan_chunk_mb is not None,
-        "--tb_logdir": args.tb_logdir is not None,
-        "--remat": args.remat,
-        "--pipeline_unc": bool(args.pipeline_unc),
-        "--native_finetune": bool(args.native_finetune),
         f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
     }
-    missing = [flag for flag, on in asked.items() if on]
-    if missing:
-        parser.error(f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} (see ROADMAP.md)")
+    for asked, where in ((multi_device, "ROADMAP.md queue A, item 4"),
+                         (never, 'ROADMAP.md, "Not to port"')):
+        missing = [flag for flag, on in asked.items() if on]
+        if missing:
+            parser.error(f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} ({where})")
 
 
 def main(argv=None):
@@ -125,9 +134,14 @@ def main(argv=None):
     from ugpg_tpu_torch.train.aug_trainer import AugMoNuSegTrainer, compute_pos_weight
     from ugpg_tpu_torch.utils.preemption import PreemptionGuard
 
-    trainer = AugMoNuSegTrainer(config, dtype=torch.bfloat16 if args.bf16 else None,
-                                accum_steps=args.accum_steps, aug_quantize=args.aug_quantize,
-                                device=args.device)
+    try:
+        trainer = AugMoNuSegTrainer(config, dtype=torch.bfloat16 if args.bf16 else None,
+                                    accum_steps=args.accum_steps,
+                                    aug_quantize=args.aug_quantize, tb_logdir=args.tb_logdir,
+                                    remat=args.remat, pipeline_unc=args.pipeline_unc,
+                                    device=args.device)
+    except ValueError as e:  # e.g. --pipeline_unc leaving no train device
+        parser.error(str(e))
     if args.plain:
         data_dir = config["data_dir"]
         if not os.path.isdir(os.path.join(data_dir, "val")):

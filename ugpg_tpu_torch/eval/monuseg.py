@@ -147,7 +147,7 @@ class MoNuSegEvaluator:
         if mesh is not None or w_axis is not None or dtype is not None:
             raise NotImplementedError("not ported to ugpg_tpu_torch yet: "
                                       "evaluate_dataset_native(mesh=..., w_axis=..., dtype=...) "
-                                      "(see ROADMAP.md)")
+                                      "(ROADMAP.md queue A, item 4)")
         div = native_divisor(self.stage)
         n = len(dataset) if max_samples is None else min(len(dataset), max_samples)
         per_sample: dict[str, list[float]] = {}

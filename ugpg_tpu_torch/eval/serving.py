@@ -199,7 +199,8 @@ class Predictor(_BucketRouter):
         missing = [name for name, asked in deferred.items() if asked]
         if missing:
             raise NotImplementedError(
-                f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} (see ROADMAP.md)")
+                f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} "
+                "(ROADMAP.md queue A, item 4)")
         self.input_dtype = _INPUT_DTYPES.get(input_dtype) or np.dtype(input_dtype)
         if self.input_dtype not in (np.dtype(np.float32), np.dtype(np.uint8)):
             raise ValueError("input_dtype must be float32 or uint8")

@@ -152,7 +152,8 @@ class SlidePredictor(_SlideBase):
         self.device = resolve_device(device)
         if mesh is not None or w_axis is not None:
             raise NotImplementedError(
-                "not ported to ugpg_tpu_torch yet: SlidePredictor(mesh=...) (see ROADMAP.md)")
+                "not ported to ugpg_tpu_torch yet: SlidePredictor(mesh=...) "
+                "(ROADMAP.md queue A, item 4)")
         if num_classes != 1:
             raise ValueError("SlidePredictor is the binary-segmentation slide path "
                              f"(num_classes=1), got num_classes={num_classes}")

@@ -16,6 +16,15 @@ operators (``ops/cuda/library.py``), so that an exported graph calls them
 too.  BN slots 1 and 4 then hold ``nn.Identity`` so that the parameter
 names do not shift.
 
+``remat=True`` (a ``DoubleConv`` attribute; the stages and the
+classifier set it on every block): in training with gradients on, the
+block runs under ``torch.utils.checkpoint`` and its internal activations
+are recomputed in the backward from the block's input instead of kept, as
+``nn.remat`` does in the JAX package.  The recompute uses the same batch
+statistics but updates no BN running stat: the first pass updates them
+once, the second normalises through copies, so the gradients and the BN
+state equal those without ``remat`` bit for bit.
+
 ``DownSample`` and ``UpSample`` are the legacy ``UNet``'s blocks.
 """
 
@@ -24,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ugpg_tpu_torch.ops.cuda import library
 from ugpg_tpu_torch.ops.cuda.double_conv import pack_double_conv
@@ -55,6 +65,7 @@ class DoubleConv(nn.Module):
         super().__init__()
         self.use_bn = use_bn
         self.compute_dtype = torch.float32  # bfloat16: the mixed-precision path (use_bn)
+        self.remat = False  # recompute the block in the backward (use_bn, training)
 
         def norm():
             return nn.BatchNorm2d(out_channels, eps=BN_EPS) if use_bn else nn.Identity()
@@ -83,19 +94,35 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_bn:
-            if self.compute_dtype == torch.float32:
-                return self.conv_op(x)
-            return self._forward_mixed(x)
+            if self.remat and self.training and torch.is_grad_enabled():
+                passes = iter((True, False))  # the forward, then the recompute
+                return checkpoint(lambda t: self._forward_bn(t, next(passes, False)), x,
+                                  use_reentrant=False, preserve_rng_state=False)
+            return self._forward_bn(x)
         c1, c2 = self.conv_op[0], self.conv_op[3]
         return library.fused_double_conv(x, c1.weight, c1.bias, c2.weight, c2.bias,
                                          *(getattr(self, n) for n in _PACKED))
 
-    def _forward_mixed(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward_bn(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        """The live-BN block; ``update_stats=False`` normalises as the
+        training forward does but on copies of the running stats, so that
+        the module's own stay as they are."""
         cd = self.compute_dtype
-        x = x.to(cd)
+        mixed = cd != torch.float32
+        if mixed:
+            x = x.to(cd)
         for conv, bn in ((self.conv_op[0], self.conv_op[1]), (self.conv_op[3], self.conv_op[4])):
-            x = F.conv2d(x, conv.weight.to(cd), padding=1) + conv.bias.to(cd)[:, None, None]
-            x = F.relu(bn(x.float()).to(cd))
+            if mixed:
+                x = F.conv2d(x, conv.weight.to(cd), padding=1) + conv.bias.to(cd)[:, None, None]
+                y = x.float()
+            else:
+                y = conv(x)
+            if update_stats:
+                y = bn(y)
+            else:
+                y = F.batch_norm(y, bn.running_mean.clone(), bn.running_var.clone(), bn.weight,
+                                 bn.bias, bn.training, bn.momentum, bn.eps)
+            x = F.relu(y.to(cd))
         return x
 
 

@@ -12,7 +12,8 @@ never run (``head`` is the MLP).
 
 ``use_bn=True``: the live-BN encoder in plain PyTorch (training, the
 parity tests), computing in ``dtype`` over float32 parameters as the
-segmentation stages do.  ``use_bn=False``: the BN-folded encoder
+segmentation stages do; ``remat=True`` recomputes each encoder DoubleConv
+in the backward (``blocks.py``).  ``use_bn=False``: the BN-folded encoder
 (``models/folding.py``) cast to ``dtype``, every DoubleConv on the
 double-conv kernels (4 calls per stage-4 forward, 1 at stage 1).  Inputs
 are NCHW; the logits (N, K) are float32.
@@ -103,7 +104,7 @@ class HerlevClassificationModel(nn.Module):
     def __init__(self, stage: int, num_classes: int = 7, use_bn: bool = True,
                  dtype: torch.dtype = torch.float32,
                  dropout_rates: tuple[float, float, float] = (0.5, 0.3, 0.2),
-                 in_channels: int = 3):
+                 in_channels: int = 3, remat: bool = False):
         super().__init__()
         self.stage = stage
         self.num_classes = num_classes
@@ -117,7 +118,7 @@ class HerlevClassificationModel(nn.Module):
         if use_bn:
             for block in self.unet.modules():
                 if isinstance(block, DoubleConv):
-                    block.compute_dtype = dtype
+                    block.compute_dtype, block.remat = dtype, remat
         else:
             self.unet.to(dtype)
 

@@ -12,8 +12,9 @@ logits stay float32.  With ``use_bn=False`` (serving on folded weights)
 the body's parameters are cast to ``dtype``, as the kernels take them.
 With ``use_bn=True`` (training, live BN) the parameters stay float32 and
 every DoubleConv computes in ``dtype``, BN statistics in float32
-(``blocks.py``), as the flax stages do.  Inputs are NCHW; the logits are
-(N, num_classes, H, W) float32.
+(``blocks.py``), as the flax stages do.  ``remat=True`` recomputes every
+DoubleConv in the backward (``blocks.py``).  Inputs are NCHW; the logits
+are (N, num_classes, H, W) float32.
 
 ``UNet`` is the legacy classic U-Net, kept for the reference's API.
 """
@@ -40,10 +41,11 @@ def _scaled(n: int, width: float) -> int:
 class _Stage(nn.Module):
     """Shared constructor: ``_build`` the submodules, then set the body's
     dtype: cast all but the heads to ``dtype`` (``use_bn=False``), or make
-    it every DoubleConv's compute dtype (``use_bn=True``)."""
+    it every DoubleConv's compute dtype (``use_bn=True``), and ``remat``."""
 
     def __init__(self, num_classes: int = 1, use_bn: bool = True, width: float = 1.0,
-                 dtype: torch.dtype = torch.float32, in_channels: int = 3):
+                 dtype: torch.dtype = torch.float32, in_channels: int = 3,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.in_channels = in_channels
@@ -57,7 +59,7 @@ class _Stage(nn.Module):
                 continue
             for block in child.modules():
                 if isinstance(block, DoubleConv):
-                    block.compute_dtype = dtype
+                    block.compute_dtype, block.remat = dtype, remat
 
     def _build(self, c, use_bn: bool, k: int) -> None:
         raise NotImplementedError

@@ -1,8 +1,12 @@
-"""The three serving kernels as PyTorch operators, namespace ``ugpg_torch``.
+"""The serving kernels as PyTorch operators, namespace ``ugpg_torch``.
 
     torch.ops.ugpg_torch.fused_double_conv(x, w1, b1, w2, b2, pw1, pb1, pw2, pb2)
     torch.ops.ugpg_torch.upsample2x(x)
+    torch.ops.ugpg_torch.upsample2x_bf16_taps(x)
     torch.ops.ugpg_torch.uncertainty_from_logits(logits)
+
+``upsample2x_bf16_taps`` is the upsample kernel's bf16 instance that
+rounds as the JAX package's bf16 resize (the int8 path's Up blocks).
 
 Each operator has a ``CUDA`` implementation, the kernel's wrapper in
 ``ops/cuda/`` (its argument checks, its launch and its count in
@@ -34,7 +38,8 @@ import torch
 
 from ugpg_tpu_torch.ops.cuda import double_conv, resize2x, uncertainty
 
-__all__ = ["NAMESPACE", "fused_double_conv", "upsample2x", "uncertainty_from_logits"]
+__all__ = ["NAMESPACE", "fused_double_conv", "upsample2x", "upsample2x_bf16_taps",
+           "uncertainty_from_logits"]
 
 NAMESPACE = "ugpg_torch"
 _CL = torch.channels_last
@@ -43,6 +48,7 @@ _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("fused_double_conv(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
             "Tensor? pw1, Tensor? pb1, Tensor? pw2, Tensor? pb2) -> Tensor")
 _LIB.define("upsample2x(Tensor x) -> Tensor")
+_LIB.define("upsample2x_bf16_taps(Tensor x) -> Tensor")
 _LIB.define("uncertainty_from_logits(Tensor logits) -> Tensor")
 
 
@@ -85,6 +91,9 @@ def _uncertainty_fake(logits):
 _IMPLS = {
     "fused_double_conv": (_double_conv_cuda, _double_conv_cpu, _double_conv_fake),
     "upsample2x": (lambda x: resize2x.upsample2x(x), _upsample_cpu, _upsample_fake),
+    "upsample2x_bf16_taps": (lambda x: resize2x.upsample2x_bf16_taps(x),
+                             lambda x: resize2x.upsample2x_bf16_taps_reference(x),
+                             _upsample_fake),
     "uncertainty_from_logits": (lambda t: uncertainty.uncertainty_from_logits(t),
                                 _uncertainty_cpu, _uncertainty_fake),
 }
@@ -95,4 +104,5 @@ for _name, (_cuda, _cpu, _fake) in _IMPLS.items():
 
 fused_double_conv = torch.ops.ugpg_torch.fused_double_conv.default
 upsample2x = torch.ops.ugpg_torch.upsample2x.default
+upsample2x_bf16_taps = torch.ops.ugpg_torch.upsample2x_bf16_taps.default
 uncertainty_from_logits = torch.ops.ugpg_torch.uncertainty_from_logits.default

@@ -42,11 +42,11 @@ constants) computes on the CPU:
   by the float32 reciprocal; the port multiplies by that reciprocal, held
   as a float32 tensor.  ``quantize_weights`` runs eagerly in JAX, so its
   divisions are true divisions here too, on the CPU.
-* The upsample is the port's operator (``torch.ops.ugpg_torch.upsample2x``,
-  the hand-written kernel on the GPU): float32 lerp weights and one
-  rounding to bf16, where JAX's bf16 resize rounds its weights and its
-  first pass to bf16.  This moves an int8 step at ``{up}.up`` now and then
-  (measured in ``tests/test_torch_quant.py``).
+* The upsample is the operator ``torch.ops.ugpg_torch.upsample2x_bf16_taps``
+  (the hand-written kernel's bf16 instance on the GPU), which rounds as
+  JAX's bf16 resize does: the tap weights rounded to bf16, each pass summed
+  in float32, the H pass rounded to bf16 before the W pass.  So every int8
+  point equals JAX's (``tests/test_torch_quant.py``).
 
 ``QuantizedModel`` and ``QuantizedClassifier`` are ``nn.Module``s (NCHW in,
 as the port's models; the weights and scales as buffers), so that
@@ -457,7 +457,7 @@ class QuantizedModel(_Int8Net):
         for i, name in enumerate(self.ups):
             block = self.blocks[name]
             deq = cur.to(torch.bfloat16) * prev.s_bf16
-            up = library.upsample2x(deq.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            up = library.upsample2x_bf16_taps(deq.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
             up_q = _requant(up.float(), block.up_recip)
             if points is not None:
                 points[f"{name}.up"] = up_q

@@ -1,0 +1,321 @@
+"""The uncertainty pipeline: the frozen previous stage's forward as a
+producer beside the train step (counterpart of
+``ugpg_tpu/parallel/pipeline.py``).
+
+Every train step after stage 1 runs two forwards per batch: the current
+stage's (forward and backward) and the frozen previous stage's, which only
+produces the uncertainty.  The pipeline splits them:
+
+    producer (unc device):   resize -> (augment) -> previous stage, eval
+                             -> sigmoid -> upsample  => probs_up    (k+1)
+    consumer (train device): the external-uncertainty train step     (k)
+
+The producer runs up to ``depth`` batches ahead of the consumer.  For
+classification it hands over the per-sample weights (B,) instead.
+
+Semantics are exact: the producer repeats the step's preprocessing (the
+stage resize, the augmentation on the same drawn parameters, and for
+classification the ImageNet normalisation), so the frozen forward sees the
+pixels the fused step would give it.  Per batch the augmentation
+parameters are drawn once, per micro-batch in the step's order
+(``data/augment.py``), and the same draw goes to the producer and to the
+step: the counterpart of the one key per batch that the JAX package hands
+both programs.  The two halves are named profiler regions
+(``uncertainty_pipeline.produce``, ``uncertainty_pipeline.train_step``).
+
+Devices: one train device and one unc device, which may be the same (the
+trainers on one card or on the CPU; ``split_devices`` takes a list that
+names a device twice).  On a card the producer runs on a CUDA stream of
+its own; the consumer's stream waits on an event recorded after it.  On
+the CPU the same code runs without streams.  Whether the side stream gains
+anything on one card is a measurement (``chip_smoke.py``), not a claim.
+More than one train device, ``n_model > 1`` or more than one unc device
+need a device mesh (ROADMAP.md queue A, item 4) and raise.
+"""
+
+from __future__ import annotations
+
+import copy
+from collections import deque
+from typing import Any, Sequence
+
+import torch
+from torch import nn
+
+from ugpg_tpu_torch.data.augment import (
+    apply_herlev_params,
+    apply_monuseg_params,
+    imagenet_normalize,
+    sample_herlev_params,
+    sample_monuseg_params,
+)
+from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from ugpg_tpu_torch.train.steps import _nchw, make_cls_train_step, make_seg_train_step
+from ugpg_tpu_torch.uncertainty import classification_uncertainty_weights
+from ugpg_tpu_torch.utils.profiling import annotate
+
+__all__ = ["split_devices", "pipeline_devices", "pipeline_device_list", "pipeline_check",
+           "UncertaintyPipeline"]
+
+_MESH = "needs a device mesh, not ported yet (ROADMAP.md queue A, item 4)"
+
+
+def split_devices(n_unc: int, devices=None):
+    """Split the devices into (train group, unc group): the last ``n_unc``
+    run the uncertainty producer.  ``devices=None``: the visible CUDA
+    devices.  A list may name one device more than once."""
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if not 1 <= n_unc < len(devices):
+        raise ValueError(
+            f"n_unc={n_unc} must leave at least one train device out of "
+            f"{len(devices)} visible")
+    return devices[:-n_unc], devices[-n_unc:]
+
+
+def pipeline_devices(n_unc: int, devices=None, n_model: int = 1):
+    """(train device, unc device) of ``split_devices(n_unc, devices)``;
+    raises ``NotImplementedError`` where a group holds more than one
+    distinct device or ``n_model > 1``, which need a mesh."""
+    train, unc = split_devices(n_unc, devices)
+    if n_model > 1:
+        raise NotImplementedError(f"n_model={n_model} (a model axis) {_MESH}")
+    out = []
+    for group, what in ((train, "train"), (unc, "unc")):
+        distinct = list(dict.fromkeys(group))
+        if len(distinct) > 1:
+            raise NotImplementedError(f"a {what} group of {len(distinct)} devices {_MESH}")
+        out.append(distinct[0])
+    return tuple(out)
+
+
+def pipeline_device_list(n_unc: int, device: torch.device) -> list[torch.device]:
+    """The devices a trainer on ``device`` pipelines over: the visible cards
+    on ``cuda``; on the CPU, which torch counts as one device, the CPU
+    ``n_unc + 1`` times (the counterpart of the host devices the JAX
+    package's tests fake)."""
+    if device.type == "cpu":
+        return [device] * (n_unc + 1)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def pipeline_check(n_unc: int, device: torch.device) -> None:
+    """Raise now what a trainer on ``device`` with ``pipeline_unc=n_unc``
+    would raise at its first pipelined stage."""
+    train, _ = pipeline_devices(n_unc, pipeline_device_list(n_unc, device))
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if train != device:
+        raise ValueError(f"the pipeline's train device {train} is not the trainer's {device}")
+
+
+def _micro_params(draw, batch: int, accum_steps: int) -> dict:
+    """One batch's parameters, drawn per micro-batch in order and
+    concatenated (what the step's own draws would give)."""
+    m = batch // accum_steps
+    parts = [draw(m) for _ in range(accum_steps)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def _build_seg_unc_body(prev_model: nn.Module, resolution: int, prev_resolution: int,
+                        augment: bool, aug_quantize: int = 0):
+    """Producer of segmentation: NCHW images and the drawn parameters (or
+    None) -> probs_up (B, K, resolution, resolution), as the fused step's
+    chain (``train/steps.py::make_seg_train_step``) computes it."""
+
+    @torch.no_grad()
+    def unc_fn(images: torch.Tensor, aug: dict | None) -> torch.Tensor:
+        x = resize_bilinear_align_corners(images, (resolution, resolution))
+        if augment:  # the image half: masks do not move the image transform
+            x, _ = apply_monuseg_params(x, x[:, :1], aug, quantize_angles=aug_quantize)
+        prev_model.eval()
+        x_prev = resize_bilinear_align_corners(x, (prev_resolution, prev_resolution))
+        return resize_bilinear_align_corners(torch.sigmoid(prev_model(x_prev)),
+                                             (resolution, resolution))
+
+    return unc_fn
+
+
+def _build_cls_unc_body(prev_model: nn.Module, resolution: int, prev_resolution: int,
+                        num_classes: int, alpha: float, augment: bool, normalize: bool):
+    """Producer of classification: NCHW images and the drawn parameters
+    (or None) -> the per-sample weights 1 + alpha A (B,), after the step's
+    augmentation, normalisation and resize."""
+
+    @torch.no_grad()
+    def unc_fn(images: torch.Tensor, aug: dict | None) -> torch.Tensor:
+        if augment:
+            images = apply_herlev_params(images, aug)
+        if normalize:
+            images = imagenet_normalize(images)
+        x = resize_bilinear_align_corners(images, (resolution, resolution))
+        prev_model.eval()
+        x_prev = resize_bilinear_align_corners(x, (prev_resolution, prev_resolution))
+        return classification_uncertainty_weights(prev_model(x_prev), num_classes, alpha)
+
+    return unc_fn
+
+
+class UncertaintyPipeline:
+    """Producer and consumer for one progressive stage (stage > 1).
+
+    ``model``, ``prev_model``: the current and the frozen previous stage;
+    ``optimizer`` holds ``model``'s parameters to train.  ``task_type``:
+    'segmentation' (``probs_up`` handed over, a ``pos_weight`` scalar) or
+    'classification' (per-sample weights, a ``class_weights`` vector).
+    ``n_unc``: devices of the producer, from the tail of ``devices``.
+    ``alpha``, ``augment``, ``fused_loss``, ``accum_steps``,
+    ``aug_quantize``, ``num_classes``, ``normalize``: as the steps take
+    them.  ``depth``: how many batches the producer may run ahead.
+    """
+
+    def __init__(self, model: nn.Module, prev_model: nn.Module,
+                 optimizer: torch.optim.Optimizer, stage: int, resolution: int,
+                 prev_resolution: int, *, task_type: str = "segmentation", n_unc: int = 1,
+                 n_model: int = 1, devices=None, alpha: float = 1.0, augment: bool = False,
+                 fused_loss: bool = False, num_classes: int = 1, normalize: bool = False,
+                 depth: int = 2, accum_steps: int = 1, aug_quantize: int = 0):
+        if stage <= 1:
+            raise ValueError(
+                "pipeline parallelism applies to stages > 1 (stage 1 has no "
+                "frozen previous model to offload)")
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        if task_type not in ("segmentation", "classification"):
+            raise ValueError(f"unknown task_type: {task_type!r}")
+        if task_type == "classification" and aug_quantize:
+            raise ValueError("aug_quantize applies to the segmentation augmentation only")
+        self.train_device, self.unc_device = pipeline_devices(n_unc, devices, n_model)
+        self.task_type = task_type
+        self.depth = depth
+        self.accum_steps = int(accum_steps)
+        self.augment = augment
+        self.aug_quantize = int(aug_quantize)
+        self.model, self.prev_model = model, prev_model
+        if task_type == "segmentation":
+            self._unc_body = lambda prev: _build_seg_unc_body(
+                prev, resolution, prev_resolution, augment, self.aug_quantize)
+            self._step = make_seg_train_step(
+                model, optimizer, stage, resolution, alpha=alpha, augment=augment,
+                fused_loss=fused_loss, accum_steps=self.accum_steps,
+                external_uncertainty=True, aug_quantize=self.aug_quantize)
+        else:
+            self._unc_body = lambda prev: _build_cls_unc_body(
+                prev, resolution, prev_resolution, num_classes, alpha, augment, normalize)
+            self._step = make_cls_train_step(
+                model, optimizer, stage, resolution, num_classes, alpha=alpha,
+                augment=augment, normalize=normalize, accum_steps=self.accum_steps,
+                external_uncertainty=True)
+        self._unc = None  # the producer, once place_prev has put the model
+        self._side = (torch.cuda.Stream(self.unc_device)
+                      if self.unc_device.type == "cuda" else None)
+
+    # ------------------------------------------------------------------
+    def create_state(self) -> nn.Module:
+        """Put the current stage on the train device (its parameters stay
+        the optimizer's); returns the model."""
+        return self.model.to(self.train_device)
+
+    def place_prev(self) -> nn.Module:
+        """The frozen previous stage on the unc device, in eval mode (a copy
+        when it lives elsewhere); the producer runs it from here on."""
+        prev = self.prev_model
+        if next(prev.parameters()).device != self.unc_device:
+            prev = copy.deepcopy(prev).to(self.unc_device)
+        self._unc = self._unc_body(prev.eval())
+        return prev
+
+    # ------------------------------------------------------------------
+    def run_epoch(self, batches: Sequence[tuple], loss_weights, aug=None,
+                  generator: torch.Generator | None = None) -> list[dict[str, Any]]:
+        """Pipelined epoch: produce batch k + 1 .. k + depth before training
+        on batch k.  ``batches``: host ``(images NHWC, masks NHW1)`` or
+        ``(images NHWC, labels (B,))``; ``loss_weights``: ``pos_weight`` or
+        ``class_weights`` (or None).  ``aug`` (with ``augment=True``): a
+        ``torch.Generator`` from which every batch's parameters are drawn
+        in order before the epoch starts, or one drawn dict per batch.
+        ``generator``: the classification step's dropout masks.  Returns
+        the per-step metrics (device scalars)."""
+        batches = list(batches)
+        if not batches:
+            return []
+        if self._unc is None:
+            self.place_prev()
+        self._validate_batches(batches)
+        params = self._draw(batches, aug)
+        metrics: list[dict[str, Any]] = []
+        inflight: deque = deque()
+        for batch, p in zip(batches, params):
+            inflight.append(self._produce(batch, p))
+            if len(inflight) > self.depth:
+                metrics.append(self._consume(inflight.popleft(), loss_weights, generator))
+        while inflight:
+            metrics.append(self._consume(inflight.popleft(), loss_weights, generator))
+        return metrics
+
+    def _draw(self, batches: list, aug) -> list:
+        """The augmentation parameters of every batch (None without)."""
+        if not self.augment:
+            return [None] * len(batches)
+        if aug is None:
+            raise ValueError("augment=True: pass aug, a torch.Generator or one dict per batch")
+        if not isinstance(aug, torch.Generator):
+            if len(aug) < len(batches):
+                raise ValueError(f"need {len(batches)} parameter draws, got {len(aug)}")
+            return list(aug[:len(batches)])
+        out = []
+        for images, _ in batches:
+            b, h, w = images.shape[:3]
+            if self.task_type == "segmentation":
+                def draw(m):
+                    return sample_monuseg_params(aug, m, quantize_angles=self.aug_quantize)
+            else:
+                def draw(m, h=h, w=w):
+                    return sample_herlev_params(aug, m, h, w)
+            out.append(_micro_params(draw, b, self.accum_steps))
+        return out
+
+    def _produce(self, batch: tuple, params: dict | None):
+        """Start the producer on ``batch``: (output, its event or None,
+        batch, params)."""
+        images = _nchw(batch[0], self.unc_device)
+        p_unc = None if params is None else {k: v.to(self.unc_device) for k, v in params.items()}
+        if self._side is None:
+            with annotate("uncertainty_pipeline.produce"):
+                return self._unc(images, p_unc), None, batch, params
+        self._side.wait_stream(torch.cuda.current_stream(self.unc_device))
+        with torch.cuda.stream(self._side), annotate("uncertainty_pipeline.produce"):
+            out = self._unc(images, p_unc)
+            done = torch.cuda.Event()
+            done.record(self._side)
+        # inputs made on the consumer's stream stay allocated until the producer is done
+        for t in (images, *(p_unc or {}).values()):
+            t.record_stream(self._side)
+        return out, done, batch, params
+
+    def _consume(self, item, loss_weights, generator) -> dict[str, Any]:
+        out, done, batch, params = item
+        if done is not None:
+            stream = torch.cuda.current_stream(self.unc_device)
+            stream.wait_event(done)
+            out.record_stream(stream)
+        unc = out.to(self.train_device)
+        p_train = (None if params is None
+                   else {k: v.to(self.train_device) for k, v in params.items()})
+        with annotate("uncertainty_pipeline.train_step"):
+            if self.task_type == "segmentation":
+                return self._step(batch, loss_weights, aug=p_train, unc=unc)
+            return self._step(batch, loss_weights, generator, aug=p_train, unc=unc)
+
+    def _validate_batches(self, batches: Sequence[tuple]) -> None:
+        """Reject a batch that does not split into ``accum_steps``
+        micro-batches before the epoch starts (a ``drop_last=False``
+        loader's short final batch)."""
+        for i, batch in enumerate(batches):
+            b = batch[0].shape[0]
+            if b % self.accum_steps:
+                raise ValueError(
+                    f"batch {i} has size {b}, not divisible into "
+                    f"accum_steps={self.accum_steps} micro-batches; drop or pad the "
+                    f"ragged final batch (loader drop_last=True)")

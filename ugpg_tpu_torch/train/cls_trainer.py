@@ -23,6 +23,10 @@
   resumed run trains the bits an uninterrupted one trains when the loaders
   give the same batches (a shuffling loader restarts its sequence)
 * ``dtype=torch.bfloat16``: bf16 compute over float32 parameters
+* the config's ``remat`` (each encoder DoubleConv recomputed in the
+  backward), ``tb_logdir`` (per-epoch TensorBoard scalars) and
+  ``pipeline_unc`` (stages > 1 through the uncertainty pipeline,
+  ``parallel/pipeline.py``)
 
 The loop reads the device once per epoch.
 """
@@ -50,6 +54,11 @@ from ugpg_tpu_torch.io.checkpoint import (
 )
 from ugpg_tpu_torch.models.blocks import init_parameters
 from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS, HerlevClassificationModel
+from ugpg_tpu_torch.parallel.pipeline import (
+    UncertaintyPipeline,
+    pipeline_check,
+    pipeline_device_list,
+)
 from ugpg_tpu_torch.progressive.transfer import transfer_weights
 from ugpg_tpu_torch.train.optim import (
     ReduceLROnPlateau,
@@ -65,6 +74,7 @@ from ugpg_tpu_torch.train.steps import (
 )
 from ugpg_tpu_torch.utils.anomaly import TrainingDivergedError, nonfinite_metrics
 from ugpg_tpu_torch.utils.profiling import CSVLogger
+from ugpg_tpu_torch.utils.tb import TBWriter
 
 __all__ = ["HerlevTrainer", "create_config"]
 
@@ -111,20 +121,40 @@ class HerlevTrainer:
         compute.  ``device``: ``cuda`` unless given; raises without CUDA.
         ``shard_model`` acts with a mesh only, as in the JAX package.
 
+        The config's ``remat``: each encoder DoubleConv recomputed in the
+        backward (gradients and BN updates unchanged, bit for bit).
+        ``tb_logdir``: per-epoch scalars (``stage{S}/train_loss``,
+        ``val_loss``, ``train_acc``, ``val_acc``) as TensorBoard events, or
+        one warning without the ``tensorboard`` package.
+        ``pipeline_unc=N``: at stages > 1 the frozen previous stage's
+        per-sample weights come from a producer on the last N devices
+        (``parallel/pipeline.py``): the visible cards on ``cuda`` (one card
+        and N = 1 raises ``ValueError``, as in the JAX package), N + 1
+        times the CPU on ``cpu``.  There each epoch's augmentation
+        parameters are drawn from the generator before its dropout masks,
+        so a pipelined run augments otherwise than a plain one.
+
         Not ported, raising ``NotImplementedError``: ``mesh``,
         ``axis_name``, a ``checkpoint_backend`` other than ``"pth"``, and
-        the config's ``scan_epochs``, ``scan_chunk_bytes``, ``tb_logdir``,
-        ``remat`` and ``pipeline_unc``."""
+        the config's ``scan_epochs`` and ``scan_chunk_bytes`` (ROADMAP.md
+        queue A, item 4, and "Not to port"); ``pipeline_unc`` with a
+        ``mesh`` raises ``ValueError``."""
         self.config = dict(config)
         self.device = resolve_device(device)
         cfg = self.config
-        not_ported(
-            mesh=mesh is not None, axis_name=axis_name is not None,
-            checkpoint_backend=checkpoint_backend != "pth",
-            scan_epochs=bool(cfg.get("scan_epochs")),
-            scan_chunk_bytes=cfg.get("scan_chunk_bytes") is not None,
-            tb_logdir=cfg.get("tb_logdir") is not None, remat=bool(cfg.get("remat")),
-            pipeline_unc=bool(cfg.get("pipeline_unc")))
+        self.pipeline_unc = int(cfg.get("pipeline_unc") or 0)
+        if self.pipeline_unc and mesh is not None:
+            raise ValueError(
+                "pipeline_unc and mesh are mutually exclusive: the "
+                "pipeline builds its own (train, uncertainty) device "
+                "split from the visible devices")
+        not_ported(mesh=mesh is not None, axis_name=axis_name is not None)
+        not_ported('ROADMAP.md, "Not to port"', checkpoint_backend=checkpoint_backend != "pth",
+                   scan_epochs=bool(cfg.get("scan_epochs")),
+                   scan_chunk_bytes=cfg.get("scan_chunk_bytes") is not None)
+        if self.pipeline_unc:
+            pipeline_check(self.pipeline_unc, self.device)
+        self.remat = bool(cfg.get("remat"))
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be None, float32 or bfloat16, got {dtype}")
         self.dtype = dtype or torch.float32
@@ -158,6 +188,7 @@ class HerlevTrainer:
         self._scheduler: ReduceLROnPlateau | None = None
         self._train_steps: dict[int, Any] = {}
         self._eval_steps: dict[int, Any] = {}
+        self._pipelines: dict[int, UncertaintyPipeline] = {}
         self.history: dict[str, list] = {
             "train_loss": [], "val_loss": [],
             "train_acc": [], "val_acc": [],
@@ -173,7 +204,7 @@ class HerlevTrainer:
     def _model(self, stage: int) -> HerlevClassificationModel:
         if stage not in self.models:
             model = HerlevClassificationModel(stage, self.num_classes, use_bn=True,
-                                              dtype=self.dtype)
+                                              dtype=self.dtype, remat=self.remat)
             init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
             self.models[stage] = model.to(self.device)
         return self.models[stage]
@@ -201,6 +232,7 @@ class HerlevTrainer:
                                     weight_decay=self.config.get("weight_decay", 1e-4))
         self._scheduler = ReduceLROnPlateau(factor=0.5, patience=5)
         self._train_steps.pop(stage, None)
+        self._pipelines.pop(stage, None)
         return self.optimizer
 
     def transfer_weights(self, prev_stage: int, current_stage: int) -> int:
@@ -237,6 +269,26 @@ class HerlevTrainer:
                 normalize=True, accum_steps=self.accum_steps)
         return self._train_steps[stage]
 
+    def _get_pipeline(self, stage: int) -> UncertaintyPipeline:
+        """The stage's pipeline, built at its first epoch, after the
+        transfer and the optimizer."""
+        if self.optimizer is None:
+            self.setup_optimizer_scheduler(stage)
+        if stage not in self._pipelines:
+            prev_model, prev_res = self._prev(stage)
+            pipe = UncertaintyPipeline(
+                self._model(stage), prev_model, self.optimizer, stage,
+                self.stage_configs[stage]["resolution"], prev_res,
+                task_type="classification", num_classes=self.num_classes,
+                n_unc=self.pipeline_unc,
+                devices=pipeline_device_list(self.pipeline_unc, self.device),
+                alpha=self.uncertainty_alpha, augment=bool(self.config.get("augment", True)),
+                normalize=True, accum_steps=self.accum_steps)
+            pipe.create_state()
+            pipe.place_prev()
+            self._pipelines[stage] = pipe
+        return self._pipelines[stage]
+
     def _get_eval_step(self, stage: int):
         if stage not in self._eval_steps:
             prev_model, prev_res = self._prev(stage)
@@ -266,6 +318,12 @@ class HerlevTrainer:
 
     # ------------------------------------------------------------------
     def train_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
+        if self.pipeline_unc and stage > 1:
+            pipe = self._get_pipeline(stage)
+            augment = bool(self.config.get("augment", True))
+            return self._reduce_epoch(pipe.run_epoch(
+                list(dataloader), self.class_weights,
+                aug=self.generator if augment else None, generator=self.generator))
         step = self._get_train_step(stage)
         log_every = self.config.get("log_interval", 10)
         collected = []
@@ -318,6 +376,7 @@ class HerlevTrainer:
         csv_log = CSVLogger(save_path / "training_log.csv",
                             ["stage", "epoch", "train_loss", "val_loss", "train_acc",
                              "val_acc", "base_loss", "uncertainty_mean", "lr"])
+        tb = TBWriter(self.config.get("tb_logdir"))
         self.preempted = False
         for stage in self.config["stages"]:
             if self.preempted:
@@ -387,6 +446,11 @@ class HerlevTrainer:
                             train_acc=round(tr_acc, 4), val_acc=round(va_acc, 4),
                             base_loss=round(va_base, 6), uncertainty_mean=round(va_um, 6),
                             lr=epoch_lr)
+                tb.scalars(len(self.history["train_loss"]) - 1,
+                           **{f"stage{stage}/train_loss": tr_loss,
+                              f"stage{stage}/val_loss": va_loss,
+                              f"stage{stage}/train_acc": tr_acc,
+                              f"stage{stage}/val_acc": va_acc})
                 self._print(f"Stage {stage} Epoch {epoch + 1}/{cfg['epochs']} | "
                             f"Train {tr_loss:.4f}/{tr_acc:.2f}% | "
                             f"Val {va_loss:.4f}/{va_acc:.2f}%")
@@ -441,6 +505,7 @@ class HerlevTrainer:
                 {"stage": stage, "best_val_acc": best_val_acc, "best_val_loss": best_val_loss})
             self._print(f"Stage {stage} completed. Best Val Acc: {best_val_acc:.2f}%")
 
+        tb.close()
         hist_path = save_path / "training_history.json"
         hist_path.write_text(json.dumps(self.history, indent=2))
         self._print(f"Training history saved to: {hist_path}")

@@ -16,6 +16,10 @@
   ``_last`` and returns with ``preempted`` set
 * ``dtype=torch.bfloat16``: bf16 compute over float32 parameters and
   optimizer state, BN statistics in float32 (``models/blocks.py``)
+* ``remat=True``: every DoubleConv recomputed in the backward
+  (``models/blocks.py``); ``tb_logdir``: per-epoch TensorBoard scalars
+  (``utils/tb.py``); ``pipeline_unc=N``: stages > 1 train through the
+  uncertainty pipeline (``parallel/pipeline.py``)
 
 The loop reads the device once per epoch: the steps return device
 scalars, averaged at the epoch's end.
@@ -44,6 +48,11 @@ from ugpg_tpu_torch.io.checkpoint import (
 from ugpg_tpu_torch.models.blocks import init_parameters
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from ugpg_tpu_torch.parallel.pipeline import (
+    UncertaintyPipeline,
+    pipeline_check,
+    pipeline_device_list,
+)
 from ugpg_tpu_torch.progressive.transfer import transfer_weights
 from ugpg_tpu_torch.train.optim import get_learning_rate, torch_rmsprop
 from ugpg_tpu_torch.train.steps import (
@@ -55,6 +64,7 @@ from ugpg_tpu_torch.train.steps import (
 from ugpg_tpu_torch.uncertainty import generate_uncertainty_map
 from ugpg_tpu_torch.utils.anomaly import TrainingDivergedError, nonfinite_metrics
 from ugpg_tpu_torch.utils.profiling import CSVLogger
+from ugpg_tpu_torch.utils.tb import TBWriter
 
 __all__ = ["UncertaintyGuidedProgressiveTrainer", "DEFAULT_STAGE_CONFIGS"]
 
@@ -113,17 +123,39 @@ class UncertaintyGuidedProgressiveTrainer:
         ``dtype``: None or float32, or bfloat16 compute (parameters and
         optimizer state stay float32).
 
+        ``remat=True``: every DoubleConv is recomputed in the backward
+        instead of keeping its activations; gradients and BN updates are
+        those without it, bit for bit.  ``tb_logdir``: per-epoch scalars
+        (``stage{S}/train_loss``, ``val_loss``, ``train_dice``,
+        ``val_dice``, ``uncertainty_mean``) as TensorBoard events; without
+        the ``tensorboard`` package, one warning and no events.
+        ``pipeline_unc=N``: at stages > 1 the frozen previous stage runs as
+        a producer on the last N of the devices (``parallel/pipeline.py``)
+        while the train step consumes its output; the devices are the
+        visible cards on ``cuda`` (one card and N = 1 raises
+        ``ValueError``, as in the JAX package) and N + 1 times the CPU on
+        ``cpu``.  Stage 1 runs the plain path.
+
         Options of the JAX trainer that are not ported raise
         ``NotImplementedError``: ``mesh``, ``shard_model``, ``axis_name``,
-        ``checkpoint_backend`` other than ``"pth"``, ``scan_epochs``,
-        ``scan_chunk_bytes``, ``tb_logdir``, ``remat`` and
-        ``pipeline_unc``."""
+        ``checkpoint_backend`` other than ``"pth"``, ``scan_epochs`` and
+        ``scan_chunk_bytes`` (ROADMAP.md queue A, item 4, and "Not to
+        port"); ``pipeline_unc`` with a ``mesh`` raises ``ValueError``."""
         self.device = resolve_device(device)
-        not_ported(
-            mesh=mesh is not None, shard_model=shard_model, axis_name=axis_name is not None,
-            checkpoint_backend=checkpoint_backend != "pth", scan_epochs=scan_epochs,
-            scan_chunk_bytes=scan_chunk_bytes is not None, tb_logdir=tb_logdir is not None,
-            remat=remat, pipeline_unc=bool(pipeline_unc))
+        self.pipeline_unc = int(pipeline_unc)
+        if self.pipeline_unc and mesh is not None:
+            raise ValueError(
+                "pipeline_unc and mesh are mutually exclusive: the "
+                "pipeline builds its own (train, uncertainty) device "
+                "split from the visible devices")
+        not_ported(mesh=mesh is not None, shard_model=shard_model,
+                   axis_name=axis_name is not None)
+        not_ported('ROADMAP.md, "Not to port"', checkpoint_backend=checkpoint_backend != "pth",
+                   scan_epochs=scan_epochs, scan_chunk_bytes=scan_chunk_bytes is not None)
+        if self.pipeline_unc:
+            pipeline_check(self.pipeline_unc, self.device)
+        self.tb_logdir = tb_logdir
+        self.remat = bool(remat)
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be None, float32 or bfloat16, got {dtype}")
         self.dtype = dtype or torch.float32
@@ -155,6 +187,7 @@ class UncertaintyGuidedProgressiveTrainer:
         self._optimizer_stage: int | None = None
         self._train_steps: dict[int, Any] = {}
         self._eval_steps: dict[int, Any] = {}
+        self._pipelines: dict[int, UncertaintyPipeline] = {}
         # seconds the steps waited on the prefetch queue, and its batches
         self.loader_stats = {"wait_s": 0.0, "batches": 0}
         self.history: dict[str, list] = {
@@ -168,7 +201,7 @@ class UncertaintyGuidedProgressiveTrainer:
         if stage not in self.models:
             model = STAGE_MODELS[stage](num_classes=self.num_classes, use_bn=True,
                                         width=self.width, in_channels=self.in_channels,
-                                        dtype=self.dtype)
+                                        dtype=self.dtype, remat=self.remat)
             init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
             self.models[stage] = model.to(self.device)
         return self.models[stage]
@@ -180,6 +213,7 @@ class UncertaintyGuidedProgressiveTrainer:
                                        weight_decay=self.weight_decay)
         self._optimizer_stage = stage
         self._train_steps.pop(stage, None)
+        self._pipelines.pop(stage, None)
         return self.optimizer
 
     def transfer_weights(self, prev_stage: int, new_stage: int) -> list[str]:
@@ -210,6 +244,27 @@ class UncertaintyGuidedProgressiveTrainer:
                 accum_steps=self.accum_steps, aug_quantize=self.aug_quantize)
         return self._train_steps[stage]
 
+    def _get_pipeline(self, stage: int) -> UncertaintyPipeline:
+        """The stage's pipeline, built at its first epoch: after the
+        transfer and the optimizer, over the previous stage's final
+        weights."""
+        if self._optimizer_stage != stage:
+            self.setup_optimizer(stage)
+        if stage not in self._pipelines:
+            prev_model, prev_res = self._prev(stage)
+            pipe = UncertaintyPipeline(
+                self._model(stage), prev_model, self.optimizer, stage,
+                self.stage_configs[stage]["resolution"], prev_res,
+                task_type="segmentation", n_unc=self.pipeline_unc,
+                devices=pipeline_device_list(self.pipeline_unc, self.device),
+                alpha=self.uncertainty_alpha, augment=self.augment,
+                fused_loss=self.fused_loss, accum_steps=self.accum_steps,
+                aug_quantize=self.aug_quantize)
+            pipe.create_state()
+            pipe.place_prev()
+            self._pipelines[stage] = pipe
+        return self._pipelines[stage]
+
     def _get_eval_step(self, stage: int):
         if stage not in self._eval_steps:
             prev_model, prev_res = self._prev(stage)
@@ -230,7 +285,15 @@ class UncertaintyGuidedProgressiveTrainer:
     # ------------------------------------------------------------------
     def train_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
         """One training epoch -> the means of (loss, base_loss, dice,
-        accuracy, uncertainty mean, uncertainty std)."""
+        accuracy, uncertainty mean, uncertainty std).  With
+        ``pipeline_unc`` at stages > 1, through the pipeline: the epoch's
+        batches are read first, the augmentation drawn from the trainer's
+        generator in the order the plain steps draw it."""
+        if self.pipeline_unc and stage > 1:
+            batches = list(dataloader)
+            pipe = self._get_pipeline(stage)
+            return self._average(pipe.run_epoch(
+                batches, self.pos_weight, aug=self.aug_generator if self.augment else None))
         step = self._get_train_step(stage)
         acc = []
         # closed on any exit, so the prefetch thread never outlives the epoch
@@ -300,6 +363,7 @@ class UncertaintyGuidedProgressiveTrainer:
             save_path / "training_log.csv",
             ["stage", "epoch", "train_loss", "val_loss", "train_dice", "val_dice",
              "train_acc", "val_acc", "base_loss", "uncertainty_mean", "lr", "epoch_time_s"])
+        tb = TBWriter(self.tb_logdir)
         self._print("Starting Uncertainty-Guided Progressive Growing U-Net Training")
 
         stage_list = list(stages) if stages is not None else list(range(1, max_stages + 1))
@@ -365,6 +429,12 @@ class UncertaintyGuidedProgressiveTrainer:
                     base_loss=round(va_base, 6), uncertainty_mean=round(va_um, 6),
                     lr=get_learning_rate(self.optimizer),
                     epoch_time_s=round(time.time() - t0, 3))
+                tb.scalars(len(self.history["train_loss"]) - 1,
+                           **{f"stage{stage}/train_loss": tr_loss,
+                              f"stage{stage}/val_loss": va_loss,
+                              f"stage{stage}/train_dice": tr_dice,
+                              f"stage{stage}/val_dice": va_dice,
+                              f"stage{stage}/uncertainty_mean": va_um})
                 self._print(
                     f"Stage {stage}, Epoch {epoch + 1}/{cfg['epochs_per_stage']} "
                     f"({time.time() - t0:.2f}s)\n"
@@ -396,6 +466,7 @@ class UncertaintyGuidedProgressiveTrainer:
                         f"rolling checkpoint saved at stage {stage}, epoch {epoch + 1}; "
                         "restart with resume=True to continue")
                     break
+        tb.close()
         self._print("Uncertainty-guided progressive training "
                     + ("preempted — resumable from the _last checkpoint"
                        if self.preempted else "completed!"))

@@ -33,6 +33,13 @@ One classification train step (``make_cls_train_step``) runs, per batch
        of the *unweighted* per-sample CE times the weights
     -> backward -> one optimizer step -> the six metrics
 
+``external_uncertainty=True`` (both tasks) takes the frozen previous
+stage out of the step: the step is handed, as ``unc=``, what that stage
+would give, computed elsewhere (``parallel/pipeline.py``) and detached:
+segmentation's upsampled probabilities ``probs_up`` (B, K, res, res),
+classification's per-sample weights (B,).  They are sliced per
+micro-batch as the images are.
+
 The JAX package's whole-epoch ``lax.scan`` programs have no counterpart in
 eager PyTorch; CUDA graphs would be theirs.
 """
@@ -104,13 +111,25 @@ def _metrics(final, base, logits, y, unc_map) -> Metrics:
     }
 
 
-def not_ported(**asked: bool) -> None:
+def _external(unc, n: int, device: torch.device, spatial: tuple = ()) -> torch.Tensor:
+    """``unc`` of an external-uncertainty step, checked and detached on
+    ``device``: n rows, and the spatial size ``spatial`` where given."""
+    if unc is None:
+        raise ValueError("external_uncertainty=True: pass unc, the previous stage's output")
+    unc = torch.as_tensor(unc).detach().to(device)
+    if unc.shape[0] != n or (spatial and tuple(unc.shape[-2:]) != spatial):
+        raise ValueError(f"unc has shape {tuple(unc.shape)}; the batch has {n} rows"
+                         + (f" at {spatial[0]}x{spatial[1]}" if spatial else ""))
+    return unc
+
+
+def not_ported(where: str = "ROADMAP.md queue A, item 4", **asked: bool) -> None:
     """Raise ``NotImplementedError`` naming every option asked for that the
-    port does not have yet."""
+    port does not have yet, and ``where`` the roadmap places it."""
     missing = [name for name, on in asked.items() if on]
     if missing:
         raise NotImplementedError(
-            f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} (see ROADMAP.md)")
+            f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} ({where})")
 
 
 def make_seg_train_step(
@@ -127,7 +146,7 @@ def make_seg_train_step(
     external_uncertainty: bool = False,
     aug_quantize: int = 0,
 ) -> Callable[..., Metrics]:
-    """``step(batch, pos_weight, aug=None) -> metrics``: one update of
+    """``step(batch, pos_weight, aug=None, unc=None) -> metrics``: one update of
     ``model`` through ``optimizer``.  ``prev_model`` is the frozen previous stage
     (stage > 1).  ``fused_loss=True`` computes the loss and its gradient
     with the ``uncertainty_weighted_bce`` kernels; at stage 1 it passes a
@@ -144,14 +163,21 @@ def make_seg_train_step(
     ``torch.Generator`` on the model's device, from which each micro-batch
     draws its parameters in turn, or the parameters of the whole batch
     drawn before (``data/augment.py::sample_monuseg_params``, sliced per
-    micro-batch).  ``aug_quantize=N`` rotates by one of N grid angles."""
-    not_ported(external_uncertainty=external_uncertainty)
+    micro-batch).  ``aug_quantize=N`` rotates by one of N grid angles.
+
+    ``external_uncertainty=True`` (stage > 1): no ``prev_model``; ``unc`` is
+    ``probs_up`` (B, K, res, res), the previous stage's upsampled
+    probabilities of the batch as augmented here, which the step (and,
+    with ``fused_loss=True``, the loss kernels) uses as the fused step uses
+    its own."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    use_unc = stage > 1 and prev_model is not None
+    external = stage > 1 and external_uncertainty
+    use_unc = external or (stage > 1 and prev_model is not None)
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def micro(images: torch.Tensor, masks: torch.Tensor, pos_weight: float, aug) -> Metrics:
+    def micro(images: torch.Tensor, masks: torch.Tensor, pos_weight: float, aug,
+              unc) -> Metrics:
         x = resize_bilinear_align_corners(images, (resolution, resolution))
         y = resize_nearest(masks, (resolution, resolution))
         if augment:
@@ -161,10 +187,13 @@ def make_seg_train_step(
         probs_up = unc_map = None
         if use_unc:
             with torch.no_grad():
-                prev_model.eval()
-                x_prev = resize_bilinear_align_corners(x, (prev_resolution, prev_resolution))
-                probs_up = resize_bilinear_align_corners(
-                    torch.sigmoid(prev_model(x_prev)), (resolution, resolution))
+                if external:
+                    probs_up = unc
+                else:
+                    prev_model.eval()
+                    x_prev = resize_bilinear_align_corners(x, (prev_resolution, prev_resolution))
+                    probs_up = resize_bilinear_align_corners(
+                        torch.sigmoid(prev_model(x_prev)), (resolution, resolution))
                 unc_map = binary_uncertainty(probs_up)
         model.train()
         logits = model(x)
@@ -179,7 +208,7 @@ def make_seg_train_step(
         final.backward()
         return _metrics(final, base, logits, y, unc_map)
 
-    def step(batch, pos_weight: float, aug=None) -> Metrics:
+    def step(batch, pos_weight: float, aug=None, unc=None) -> Metrics:
         device = params[0].device
         images, masks = _nchw(batch[0], device), _nchw(batch[1], device)
         n = images.shape[0]
@@ -187,6 +216,8 @@ def make_seg_train_step(
             raise ValueError(f"batch size {n} is not divisible by accum_steps={accum_steps}")
         if augment and aug is None:
             raise ValueError("augment=True: pass aug, a torch.Generator or drawn parameters")
+        if external:
+            unc = _external(unc, n, device, (resolution, resolution))
         m = n // accum_steps
         optimizer.zero_grad(set_to_none=True)
         parts = []
@@ -195,7 +226,7 @@ def make_seg_train_step(
             if isinstance(aug, dict):
                 part = {k: v[i * m:(i + 1) * m] for k, v in aug.items()}
             parts.append(micro(images[i * m:(i + 1) * m], masks[i * m:(i + 1) * m], pos_weight,
-                               part))
+                               part, unc[i * m:(i + 1) * m] if external else None))
         if accum_steps > 1:
             for p in params:  # the micro-batches' gradients were summed
                 if p.grad is not None:
@@ -293,49 +324,70 @@ def make_cls_train_step(
     accum_steps: int = 1,
     external_uncertainty: bool = False,
 ) -> Callable[..., Metrics]:
-    """``step(batch, class_weights, generator=None) -> metrics``: one
-    update of the classifier ``model`` through ``optimizer`` (which holds
-    the parameters to train).  ``prev_model`` is the frozen previous stage
-    (stage > 1).  ``generator`` (a ``torch.Generator`` on the model's
-    device) draws the dropout masks and, with ``augment=True``, each
-    micro-batch's augmentation parameters before them; ``augment=True``
-    without it raises.  ``class_weights``: (K,) or None.
+    """``step(batch, class_weights, generator=None, aug=None, unc=None) ->
+    metrics``: one update of the classifier ``model`` through
+    ``optimizer`` (which holds the parameters to train).  ``prev_model`` is
+    the frozen previous stage (stage > 1).  ``generator`` (a
+    ``torch.Generator`` on the model's device) draws the dropout masks and,
+    with ``augment=True``, each micro-batch's augmentation parameters
+    before them.  ``aug``: the augmentation parameters of the whole batch
+    drawn before (``data/augment.py::sample_herlev_params`` per
+    micro-batch, concatenated), sliced per micro-batch; the generator then
+    draws the dropout masks only.  ``augment=True`` with neither raises.
+    ``class_weights``: (K,) or None.
+
+    ``external_uncertainty=True`` (stage > 1): no ``prev_model``; ``unc`` is
+    the previous stage's per-sample weights (B,) of the batch.
 
     ``accum_steps=K`` splits the batch into K micro-batches in order: the
     class-weighted CE normalises per micro-batch (what torch accumulation
     gives), gradients are averaged, BN stats update per micro-batch, one
     optimizer step follows; "correct" and "count" are summed, the other
     metrics averaged."""
-    not_ported(external_uncertainty=external_uncertainty)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    prev_model = prev_model if stage > 1 else None
+    external = stage > 1 and external_uncertainty
+    prev_model = prev_model if stage > 1 and not external else None
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def micro(images, labels, class_weights, generator) -> Metrics:
+    def micro(images, labels, class_weights, generator, aug, unc) -> Metrics:
         if augment:
             b, _, h, w = images.shape
-            images = apply_herlev_params(images, sample_herlev_params(generator, b, h, w))
+            images = apply_herlev_params(
+                images, aug if aug is not None else sample_herlev_params(generator, b, h, w))
         x, weights = _cls_inputs(images, resolution, normalize, prev_model, prev_resolution,
                                  num_classes, alpha)
+        if external:
+            weights = unc
         model.train()
         final, metrics = _cls_metrics(model(x, generator=generator), labels, class_weights,
                                       weights)
         final.backward()
         return metrics
 
-    def step(batch, class_weights=None, generator: torch.Generator | None = None) -> Metrics:
+    def step(batch, class_weights=None, generator: torch.Generator | None = None, aug=None,
+             unc=None) -> Metrics:
         device = params[0].device
         images, labels = _cls_batch(batch, device)
         n = images.shape[0]
         if n % accum_steps:
             raise ValueError(f"batch size {n} is not divisible by accum_steps={accum_steps}")
-        if augment and generator is None:
-            raise ValueError("augment=True: pass generator, a torch.Generator")
+        if augment and generator is None and aug is None:
+            raise ValueError("augment=True: pass generator, a torch.Generator, or aug")
+        if external:
+            unc = _external(unc, n, device)
         m = n // accum_steps
+
+        def part(t, i):
+            if t is None:
+                return None
+            if isinstance(t, dict):
+                return {k: v[i * m:(i + 1) * m] for k, v in t.items()}
+            return t[i * m:(i + 1) * m]
+
         optimizer.zero_grad(set_to_none=True)
         parts = [micro(images[i * m:(i + 1) * m], labels[i * m:(i + 1) * m], class_weights,
-                       generator) for i in range(accum_steps)]
+                       generator, part(aug, i), part(unc, i)) for i in range(accum_steps)]
         if accum_steps > 1:
             for p in params:  # the micro-batches' gradients were summed
                 if p.grad is not None:
