@@ -209,7 +209,24 @@
    --remat --tb_logdir``, one stage-1 epoch (events written, or the one
    warning), and ``--pipeline_unc 1`` on one card exiting 2 with the JAX
    package's message.
-15. Prints a "kernels" JSON line, then as its last line
+15. Serving on a device mesh, every mesh [cuda:0] * n (one card named more
+   than once: the halo and gather overhead, not scaling).  conv3x3 (one
+   launch of the double conv's kernel) against its plain version in bf16
+   and float32 at the stage-4 convs and at the half-channel slices of the
+   column-parallel ones.  spatial_predict at stage 4 on a 1000 px slide
+   padded to each grid's divisor, 2 x 1 and 2 x 2 (W over "model"), float32,
+   against native_forward on the same padded image: probabilities and
+   uncertainty 1e-4, decisions equal away from 1e-4 of the threshold, 18
+   conv3x3 and 1 uncertainty launches per shard (TF32 off, asserted); CUDA-
+   event ms and peak memory beside the unsharded forward; bf16's gap.  The
+   mesh Predictor: data 2 at bucket 64 in bf16 and float32 against the
+   unsharded Predictor (1e-6), shard_model on a 1 x 2 mesh at bucket 8
+   (1e-5), int8 data-parallel (every output and int8 point equal).  serve
+   --mesh 1 bit for bit as without it, test_monuseg --native_res --mesh 1 on
+   phase 10's tree within 1e-4 of the run without it, serve --mesh 2 on one
+   card exiting 2 with the visible-devices message.  conv3x3 timed over one
+   shard's 18 convs of the 2 x 1 grid at 1024 px, float32.
+16. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -236,6 +253,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 import zlib
 from pathlib import Path
 
@@ -267,13 +285,17 @@ from ugpg_tpu_torch.data.herlev import CLASS_NAMES, HerlevDataset  # noqa: E402
 from ugpg_tpu_torch.data.monuseg import AugMoNuSegDataset, MoNuSegDataset  # noqa: E402
 from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator  # noqa: E402
 from ugpg_tpu_torch.eval.exported import ExportedPredictor  # noqa: E402
-from ugpg_tpu_torch.eval.serving import BatchingServer, Predictor  # noqa: E402
+from ugpg_tpu_torch.eval.serving import BatchingServer, Predictor, stage_model  # noqa: E402
 from ugpg_tpu_torch.eval.slide import (  # noqa: E402
     ExportedSlidePredictor,
     SlidePredictor,
     native_forward,
 )
-from ugpg_tpu_torch.io.checkpoint import full_classifier_state_dict, read_checkpoint  # noqa: E402
+from ugpg_tpu_torch.io.checkpoint import (  # noqa: E402
+    full_classifier_state_dict,
+    load_checkpoint,
+    read_checkpoint,
+)
 from ugpg_tpu_torch.models.classifier import (  # noqa: E402
     CLS_STAGE_RESOLUTIONS,
     ENCODER_SPECS,
@@ -322,7 +344,13 @@ from ugpg_tpu_torch.train.seg_trainer import (  # noqa: E402
     DEFAULT_STAGE_CONFIGS,
     UncertaintyGuidedProgressiveTrainer,
 )
+from ugpg_tpu_torch.parallel.mesh import make_mesh, tp_sharded  # noqa: E402
 from ugpg_tpu_torch.parallel.pipeline import UncertaintyPipeline  # noqa: E402
+from ugpg_tpu_torch.parallel.spatial import (  # noqa: E402
+    SpatialWeights,
+    pad_to_divisible,
+    spatial_predict,
+)
 from ugpg_tpu_torch.train.steps import make_cls_train_step, make_seg_train_step  # noqa: E402
 from ugpg_tpu_torch.utils import profiling  # noqa: E402
 
@@ -347,6 +375,8 @@ LOGITS = (1, 256)
 KERNELS = {
     "fused_double_conv": ("ugpg_tpu_torch/csrc/double_conv.cu",
                           "ugpg_tpu/ops/pallas/double_conv.py:196"),
+    # the same kernels, one conv per launch: the sharded and column-parallel forwards
+    "conv3x3": ("ugpg_tpu_torch/csrc/double_conv.cu", "ugpg_tpu/ops/pallas/double_conv.py:196"),
     "upsample2x": ("ugpg_tpu_torch/csrc/upsample2x.cu", "ugpg_tpu/ops/pallas/resize2x.py:126"),
     # the same kernel's bf16 instance with JAX's bf16 resize rounding (the int8 path)
     "upsample2x_bf16_taps": ("ugpg_tpu_torch/csrc/upsample2x.cu",
@@ -3174,6 +3204,382 @@ def options_and_pipeline(tmp: Path, root: Path) -> tuple[dict, dict]:
     return launches, {"bf16_taps": taps, "remat": remat, "pipeline": pipe, "commands": commands}
 
 
+# ------------------------------------------------------------ phase 15: serving on a device mesh
+MESH_PX = TILE_PX  # a MoNuSeg tile, padded to each grid's divisor
+MESH_GRIDS = (((2, 1), None), ((2, 2), "model"))  # (data, model), the W axis
+MESH_BUCKET, TP_BUCKET = 64, 8
+
+
+def conv3x3_shapes(convs: dict, px: int, n: int, parts: int = 1) -> list:
+    """(n, h, w, cin, cout) of every conv of a stage-4 forward's DoubleConvs
+    at ``px`` (``convs``: DOUBLE_CONVS-like at 256 px), each conv's output
+    channels cut into ``parts`` (the column-parallel slices)."""
+    out = []
+    for h, cin, cm, cout in convs.values():
+        side = h * px // 256
+        for ci, co in ((cin, cm), (cm, cout)):
+            out.append((n, side, side, ci, co // parts))
+    return out
+
+
+def conv3x3_inputs(n, h, w, cin, cout, dtype, g):
+    x = torch.randn(n, cin, h, w, device=DEV, generator=g).to(dtype).contiguous(memory_format=CL)
+    wt = (torch.randn(cout, cin, 3, 3, device=DEV, generator=g) * (2 / (9 * cin)) ** 0.5).to(dtype)
+    b = torch.randn(cout, device=DEV, generator=g) * 0.1
+    return x, wt, b
+
+
+def conv3x3_plain(x, wt, b):
+    """The kernel's plain version: in bf16 its own order of sums."""
+    if x.dtype == torch.bfloat16:
+        return double_conv_mod.conv3x3_packed_reference(
+            x, double_conv_mod.pack_conv3x3(wt), b).to(x.dtype)
+    return double_conv_mod.conv3x3_reference(x, wt, b)
+
+
+@tf32(False)
+def check_conv3x3(card: str) -> float:
+    """conv3x3 against its plain version at the stage-4 convs (256 px,
+    batch 2) and at the half-channel slices of the column-parallel ones
+    (batch 8), bfloat16 and float32, phase 3's tolerance."""
+    g = torch.Generator(device=DEV).manual_seed(15)
+    tp = [s for s in conv3x3_shapes(DOUBLE_CONVS, 256, TP_BUCKET, 2) if tp_sharded(2 * s[4], 2)]
+    worst = 0.0
+    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for label, shapes in (("conv", conv3x3_shapes(DOUBLE_CONVS, 256, 2)), ("half", tp)):
+            err_max = 0.0
+            for n, h, w, cin, cout in shapes:
+                x, wt, b = conv3x3_inputs(n, h, w, cin, cout, dtype, g)
+                got = double_conv_mod.conv3x3(x, wt, b)
+                want = conv3x3_plain(x, wt, b)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                assert err <= rel * max(1.0, scale), (label, n, h, cin, cout, dtype, err, scale)
+                err_max = max(err_max, err)
+            log(f"check conv3x3 {label} {str(dtype)[6:]}: {len(shapes)} shapes, max_abs_err="
+                f"{err_max:.3e} tol={rel:g}x -> ok on {card}")
+            worst = max(worst, err_max)
+    return worst
+
+
+@contextlib.contextmanager
+def captured_conv3x3():
+    """The arguments of every ``conv3x3`` operator call made inside (the
+    spatial forward's and the column-parallel convs' own tensors), held to
+    check the kernel on after the counted run."""
+    calls, op = [], library_ops.conv3x3
+
+    def record(*args):
+        calls.append(args)
+        return op(*args)
+
+    library_ops.conv3x3 = record
+    try:
+        yield calls
+    finally:
+        library_ops.conv3x3 = op
+
+
+@torch.inference_mode()
+def hold_conv3x3(calls: list, label: str, card: str) -> float:
+    """conv3x3 against its plain version on the main path's own inputs
+    (``captured_conv3x3``), once per distinct shape, at check_conv3x3's
+    tolerances; returns the max |d|."""
+    rel = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    seen, worst = set(), 0.0
+    for x, wt, b, pw, pb in calls:
+        key = (tuple(x.shape), tuple(wt.shape), x.dtype)
+        if key in seen:
+            continue
+        seen.add(key)
+        got = double_conv_mod.conv3x3(x, wt, b, packed=None if pw is None else (pw, pb))
+        want = conv3x3_plain(x, wt, b)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        assert err <= rel[x.dtype] * max(1.0, scale), (label, key, err, scale)
+        worst = max(worst, err)
+    log(f"check conv3x3 at the main path's shapes and inputs, {label}: {len(seen)} shapes of "
+        f"{len(calls)} calls, max_abs_err={worst:.3e} tol={rel[calls[0][0].dtype]:g}x -> ok "
+        f"on {card}")
+    return worst
+
+
+@torch.inference_mode()
+def time_conv3x3(calls: list, halo_rows: int) -> dict:
+    """Sums over ``calls`` (float32 conv3x3 calls with their own inputs) of
+    conv3x3's CUDA-event ms, its plain version's, cuDNN's conv + ReLU (TF32
+    off) and the FP32 bound of the work the shard keeps: the bound
+    reads every input row once and computes and writes only the kept ones
+    (``halo_rows`` rows of each output: the halo the shard crops)."""
+    t = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"), 0.0)
+    for x, wt, b, pw, pb in calls:
+        n, cin, h, w = x.shape
+        cout, kept = wt.shape[0], x.shape[2] - halo_rows
+        t["ms"] += time_ms(lambda: double_conv_mod.conv3x3(x, wt, b, packed=(pw, pb)), ())
+        t["plain_ms"] += time_ms(double_conv_mod.conv3x3_reference, (x, wt, b), reps=1,
+                                 repeats=3)
+        t["library_ms"] += time_ms(lambda: F.relu(F.conv2d(x, wt, b, padding=1)), ())
+        t["bytes_ms"] += 4 * (n * h * w * cin + n * kept * w * cout + 9 * cin * cout + cout) \
+            / HBM_BYTES_PER_S * 1e3
+        t["ops_ms"] += 2 * n * kept * w * 9 * cin * cout / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return t
+
+
+def mesh_of(shape):
+    return make_mesh(*shape, devices=[DEV] * (shape[0] * shape[1]))
+
+
+def peak_gib(fn) -> float:
+    """Peak device memory of one call of ``fn`` above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def sharded_forwards(seeded: Path, card: str) -> tuple[dict, dict, float]:
+    """Phase 15, the spatially sharded stage-4 forward (the main path):
+    spatial_predict on a 1000 px slide padded to each grid's divisor
+    against native_forward on the same padded image, float32, then bf16
+    against the bf16 native_forward; conv3x3 held against its plain version
+    on every shape each run gave it.  Returns launches, numbers and the
+    largest conv3x3 |d|."""
+    stage, sd = load_checkpoint(seeded)
+    model = stage_model(stage, sd, DEV)
+    model_bf16 = stage_model(stage, sd, DEV, 1, torch.bfloat16)
+    g = np.random.default_rng(15)
+    slide = torch.from_numpy(g.random((1, MESH_PX, MESH_PX, 3), dtype=np.float32)).to(DEV)
+    launches, out, conv_err = {}, {}, 0.0
+    assert not torch.backends.cuda.matmul.allow_tf32  # the resize bands: float32 matmuls
+    for shape, w_axis in MESH_GRIDS:
+        mesh = mesh_of(shape)
+        n_shards = shape[0] * (shape[1] if w_axis else 1)
+        label = f"{shape[0]}x{shape[1]}" + (f" (W over {w_axis})" if w_axis else "")
+        padded, _ = pad_to_divisible(slide, stage, mesh, w_axis=w_axis)
+        weights = SpatialWeights(sd, stage, mesh)
+        want = native_forward(model, padded, (1, 1))
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        with captured_conv3x3() as calls:
+            got = spatial_predict(weights, padded, mesh, stage=stage, w_axis=w_axis)
+        torch.cuda.synchronize()
+        counts = _lib.launch_counts()
+        assert counts == {"conv3x3": 18 * n_shards, "uncertainty_from_logits": n_shards}, counts
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        conv_err = max(conv_err, hold_conv3x3(calls, f"{label} grid, float32", card))
+        if shape == (2, 1):  # the conv3x3 line: shard 0's 18 convs (calls go shard by shard)
+            out["conv3x3_one_shard"] = time_conv3x3(calls[0::n_shards], halo_rows=1)
+            conv_shapes = [tuple(c[0].shape) for c in calls[0::n_shards]]
+        del calls
+        err = max((a - b).abs().max().item() for a, b in zip(got[1:], want[1:]))
+        flips = got[0] != want[0]
+        assert err <= 1e-4, err
+        assert bool(((want[1][flips] - 0.5).abs() < 1e-4).all())
+        ms = time_ms(lambda: spatial_predict(weights, padded, mesh, stage=stage, w_axis=w_axis),
+                     (), reps=1, repeats=3)
+        ms_plain = time_ms(lambda: native_forward(model, padded, (1, 1)), (), reps=1, repeats=3)
+        peak = peak_gib(lambda: spatial_predict(weights, padded, mesh, stage=stage,
+                                                w_axis=w_axis))
+        peak_plain = peak_gib(lambda: native_forward(model, padded, (1, 1)))
+        # bf16: sharded against unsharded on the same padded image; sharding may
+        # move the map at most twice as far as bf16 moves the unsharded one from
+        # float32, and decisions only within that distance of the threshold
+        with captured_conv3x3() as calls:
+            bf16 = spatial_predict(SpatialWeights(sd, stage, mesh, torch.bfloat16), padded,
+                                   mesh, stage=stage, w_axis=w_axis, dtype=torch.bfloat16)
+        conv_err = max(conv_err, hold_conv3x3(calls, f"{label} grid, bfloat16", card))
+        del calls
+        want16 = native_forward(model_bf16, padded, (1, 1))
+        own = (want16[1] - want[1]).abs()
+        gap = (bf16[1] - want16[1]).abs()
+        flips16 = bf16[0] != want16[0]
+        bf16_stats = {"bf16_max_abs_gap": gap.max().item(), "bf16_mean_abs_gap": gap.mean().item(),
+                      "bf16_own_max": own.max().item(), "bf16_own_mean": own.mean().item(),
+                      "bf16_decisions_equal": float((~flips16).float().mean())}
+        assert gap.max() <= 2 * own.max() and gap.mean() <= 2 * own.mean(), bf16_stats
+        assert bool(((want16[1][flips16] - 0.5).abs() <= gap.max()).all()), bf16_stats
+        out[label] = {"padded": list(padded.shape[1:3]), "shards": n_shards,
+                      "max_abs_err": err, "pred_flips": int(flips.sum()),
+                      "positive_share": float(want[0].mean()),
+                      "ms": ms, "unsharded_ms": ms_plain, "peak_gib": peak,
+                      "unsharded_peak_gib": peak_plain, **bf16_stats}
+        log(f"mesh: spatial_predict stage 4, {label} grid on [{DEV}] * {shape[0] * shape[1]}, "
+            f"{MESH_PX} px padded to {tuple(padded.shape[1:3])}, float32: launches "
+            f"{json.dumps(counts)}, max|d| against native_forward {err:.3e}, {int(flips.sum())} "
+            f"decision flips (all within 1e-4 of 0.5), {float(want[0].mean()):.4f} of pixels "
+            f"positive; {ms:.3f} ms against {ms_plain:.3f} unsharded (CUDA events), peak "
+            f"{peak:.3f} GiB against {peak_plain:.3f}; bf16 against the bf16 native_forward: "
+            f"max|d| {bf16_stats['bf16_max_abs_gap']:.3e} (mean "
+            f"{bf16_stats['bf16_mean_abs_gap']:.3e}) within twice bf16's own distance from "
+            f"float32 ({bf16_stats['bf16_own_max']:.3e}, mean {bf16_stats['bf16_own_mean']:.3e}), "
+            f"decisions equal {bf16_stats['bf16_decisions_equal']:.4%}; on {card}")
+        del weights, got, want, bf16, want16
+        torch.cuda.empty_cache()
+    log("time", json.dumps({"kernel": "conv3x3", "shapes": "shard 0 of the 2 x 1 grid, its own "
+                            "inputs: the 1024 x 1008 padded slide's 512 rows per level-1 conv "
+                            "plus one halo row, which the bound does not count as output",
+                            "input_shapes": conv_shapes, "card": card,
+                            **out["conv3x3_one_shard"]}))
+    return launches, out, conv_err
+
+
+def compare_exact(got, want, label: str, atol: float = 0.0) -> float:
+    err = max(float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+              for a, b in zip(got, want))
+    assert err <= atol, (label, err)
+    return err
+
+
+def mesh_predictors(seeded: Path, card: str) -> tuple[dict, dict]:
+    """Phase 15, the mesh Predictor: data-parallel on [cuda:0] * 2 at bucket
+    64 in bf16 and float32 against the unsharded Predictor (1e-6), the
+    column-parallel convs on a 1 x 2 mesh at bucket 8 (1e-5), int8
+    data-parallel (every int8 point equal)."""
+    g = np.random.default_rng(16)
+    x = g.random((MESH_BUCKET, 256, 256, 3), dtype=np.float32)
+    launches, out = {}, {}
+    dp = mesh_of((2, 1))
+    for dtype in (torch.bfloat16, torch.float32):
+        want = Predictor(str(seeded), buckets=(MESH_BUCKET,), dtype=dtype)(x)
+        pm = Predictor(str(seeded), buckets=(MESH_BUCKET,), dtype=dtype, mesh=dp)
+        _lib.reset_launch_counts()
+        got = pm(x)
+        counts = _lib.launch_counts()
+        assert counts == {"fused_double_conv": 18, "upsample2x": 8,
+                          "uncertainty_from_logits": 2}, counts
+        err = compare_exact(got, want, f"data-parallel {dtype}", 1e-6)
+        out[f"data_parallel_{str(dtype)[6:]}"] = err
+        log(f"mesh: Predictor on [{DEV}] * 2 (data 2), bucket {MESH_BUCKET}, {dtype}: launches "
+            f"{json.dumps(counts)}, max|d| against the unsharded Predictor {err:.3e} on {card}")
+    xt = x[:TP_BUCKET]
+    want = Predictor(str(seeded), buckets=(TP_BUCKET,), dtype=None)(xt)
+    pm = Predictor(str(seeded), buckets=(TP_BUCKET,), dtype=None, mesh=mesh_of((1, 2)),
+                   shard_model=True)
+    _lib.reset_launch_counts()
+    with captured_conv3x3() as calls:
+        got = pm(xt)
+    counts = _lib.launch_counts()
+    # down2, down3, down4 and up1 shard both convs (256 or 512 outputs): 2 x 2 launches each
+    assert counts == {"conv3x3": 16, "fused_double_conv": 5, "upsample2x": 4,
+                      "uncertainty_from_logits": 1}, counts
+    launches["conv3x3"] = counts["conv3x3"]
+    out["conv3x3_max_abs_err"] = hold_conv3x3(calls, "column-parallel slices, float32", card)
+    del calls
+    out["tensor_parallel_float32"] = compare_exact(got, want, "tensor-parallel", 1e-5)
+    log(f"mesh: Predictor on [{DEV}] * 2 (model 2, shard_model), bucket {TP_BUCKET}, float32: "
+        f"launches {json.dumps(counts)}, max|d| against the unsharded Predictor "
+        f"{out['tensor_parallel_float32']:.3e} on {card}")
+    calib = [g.random((8, 256, 256, 3), dtype=np.float32)]
+    quant = dict(buckets=(MESH_BUCKET,), quantize=True, calibration_batches=calib)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # both calibrations take the same scales
+    try:
+        with warnings.catch_warnings():  # bucket 64's off-128 int8 warning, known
+            warnings.simplefilter("ignore", UserWarning)
+            ps = Predictor(str(seeded), **quant)
+            pm = Predictor(str(seeded), mesh=dp, **quant)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    compare_exact(pm(x), ps(x), "int8 data-parallel")
+    # on one card both data rows serve the mesh Predictor's own model (one
+    # replica per distinct device): its points, against a second calibration
+    assert pm._rows[1][1] is pm.model
+    points = ({}, {})
+    for predictor, pts in zip((pm.model, ps.model), points):
+        predictor.forward_nhwc(torch.from_numpy(x[:4]).to(DEV), pts)
+    assert sorted(points[0]) == sorted(points[1])
+    assert all(torch.equal(points[0][k], points[1][k]) for k in points[1])
+    log(f"mesh: int8 Predictor on [{DEV}] * 2 (data 2), bucket {MESH_BUCKET}: outputs and all "
+        f"{len(points[1])} int8 points of its model (both rows serve it: one card, no replica) "
+        f"equal to the unsharded int8 Predictor's on {card}")
+    return launches, out
+
+
+def mesh_commands(tmp: Path, root: Path, seeded: Path, card: str) -> dict:
+    """Phase 15, the command lines: serve --mesh 1 bit for bit as without
+    it, test_monuseg --native_res --mesh 1 on phase 10's tree (its trained
+    checkpoint and the seeded one) within 1e-4 of the run without it,
+    --mesh 2 on one card exiting 2 with the visible-devices message."""
+    from ugpg_tpu_torch.cli import serve as serve_cli
+    from ugpg_tpu_torch.eval.http_server import ServingHTTPServer
+
+    registries = []
+    stub = ServingHTTPServer.serve_forever
+    ServingHTTPServer.serve_forever = lambda self: registries.append(self.registry)
+    try:
+        argv = ["--model", f"m={seeded}", "--slide_model", f"s={seeded}", "--buckets", "1", "8",
+                "--port", "0", "--host", "127.0.0.1"]
+        for extra in ([], ["--mesh", "1"]):
+            assert serve_cli.main(argv + extra) == 0
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), contextlib.suppress(SystemExit):
+            serve_cli.main(argv + ["--mesh", "2"])
+    finally:
+        ServingHTTPServer.serve_forever = stub
+    plain, meshed = registries[0], registries[1]
+    assert meshed.get("m").mesh.shape == {"data": 1, "model": 1}
+    x = np.random.default_rng(17).random((5, 256, 256, 3), dtype=np.float32)
+    compare_exact(meshed.predict("m", x), plain.predict("m", x), "serve --mesh 1")
+    tile = (np.random.default_rng(18).random((1, 200, 176, 3)) * 255).astype(np.uint8)
+    slide_err = compare_exact(meshed.predict("s", tile)[1:], plain.predict("s", tile)[1:],
+                              "serve --mesh 1 slide", 1e-4)
+    message = "exceeds the 1 visible device"
+    if torch.cuda.device_count() == 1:
+        assert len(registries) == 2 and message in err.getvalue(), err.getvalue()[-2000:]
+    log(f"command line: serve --mesh 1: a batch of 5 bit for bit as without it, a slide within "
+        f"{slide_err:.3e}; --mesh 2 on {torch.cuda.device_count()} card(s): "
+        + (err.getvalue().strip().splitlines()[-1] if err.getvalue() else "served"))
+
+    # phase 10's trained checkpoint and the seeded one: the first, trained an
+    # epoch a stage, gives a near-constant map on these tiles
+    evals, conv_launches = {}, 0
+    for name, ckpt in (("trained", tmp / "cli" / "ug_pgunet_stage4_best.pth"),
+                       ("seeded", seeded)):
+        argv = ["--model", str(ckpt), "--data", str(root), "--eval_full", "--native_res",
+                "--num_images", "0"]
+        want = test_monuseg.main(argv + ["--output_dir", str(tmp / f"mesh_eval_{name}0")])
+        _lib.reset_launch_counts()
+        got = test_monuseg.main(argv + ["--mesh", "1",
+                                        "--output_dir", str(tmp / f"mesh_eval_{name}1")])
+        counts = _lib.launch_counts()
+        got, want = got["metrics"], want["metrics"]
+        metric_err = max(abs(got[k] - want[k]) for k in want if isinstance(want[k], float))
+        assert metric_err <= 1e-4 and counts == {"conv3x3": 18 * got["num_samples"],
+                                                 "uncertainty_from_logits": got["num_samples"]}, \
+            (name, metric_err, counts)
+        conv_launches += counts["conv3x3"]
+        evals[name] = {"metric_err": metric_err, **{k: got[f"{k}_mean"] for k in (
+            "dice", "recall", "specificity")}}
+        log(f"command line: test_monuseg --native_res --mesh 1 on phase 10's tree, {name} "
+            f"checkpoint: metrics max|d| {metric_err:.3e} against the run without --mesh (dice "
+            f"{got['dice_mean']:.6f} / {want['dice_mean']:.6f}, recall {got['recall_mean']:.4f}, "
+            f"specificity {got['specificity_mean']:.4f}), launches {json.dumps(counts)} on "
+            f"{card}")
+    return {"conv3x3": conv_launches, "evals": evals, "slide_err": slide_err}
+
+
+def mesh_serving(tmp: Path, root: Path, card: str) -> tuple[dict, dict]:
+    """Phase 15: serving on a device mesh of one card named more than once."""
+    t0 = time.perf_counter()
+    seeded = tmp / "seeded_stage4.pth"
+    random_checkpoint(seeded, seed=15)
+    with tf32(False):
+        err = check_conv3x3(card)
+        launches, spatial_out, spatial_err = sharded_forwards(seeded, card)
+        pred_launches, pred_out = mesh_predictors(seeded, card)
+        commands = mesh_commands(tmp, root, seeded, card)
+    launches["conv3x3"] += pred_launches["conv3x3"] + commands["conv3x3"]
+    log(f"mesh: phase 15 in {time.perf_counter() - t0:.1f} s on {card}")
+    return launches, {"conv3x3_max_abs_err": max(err, spatial_err,
+                                                 pred_out.pop("conv3x3_max_abs_err")),
+                      "spatial": spatial_out, "predictors": pred_out, "commands": commands}
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -3240,6 +3646,9 @@ def main():
             t0 = time.perf_counter()
             pipe_launches, phase14 = options_and_pipeline(Path(tmp), Path(mon_tmp) / "MoNuSeg")
             log(f"remat and pipeline: phase 14 in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        # phase 10's tree and trained checkpoint for test_monuseg --mesh
+        mesh_launches, phase15 = mesh_serving(Path(mon_tmp), Path(mon_tmp) / "MoNuSeg", card)
     for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's; the int8 path's
         launches[kernel] += stack_launches[kernel] + int8_launches[kernel]
     # the int8 path is the bf16-taps instance's main path; the pipeline's epoch, the loss
@@ -3249,6 +3658,11 @@ def main():
         launches[kernel] += pipe_launches[kernel]
     totals["upsample2x_bf16_taps"] = phase14["bf16_taps"]
     errors["upsample2x_bf16_taps"] = 0.0  # bit for bit (phase 14), asserted
+    # conv3x3: the sharded forwards', the column-parallel Predictor's and test_monuseg
+    # --mesh's launches; timed over one shard's 18 convs of the 2 x 1 grid at 1024 px
+    launches["conv3x3"] = mesh_launches["conv3x3"]
+    totals["conv3x3"] = phase15["spatial"]["conv3x3_one_shard"]
+    errors["conv3x3"] = phase15["conv3x3_max_abs_err"]
 
     rows = []
     for kernel, (source, replaces) in KERNELS.items():
@@ -3332,6 +3746,13 @@ def main():
         f"{pipe['idle']['fused']['idle_share']:.1%}; bf16-taps upsample "
         f"{phase14['bf16_taps']['ms']:.4f} ms per forward at bucket {TIME_BATCH} (float32 taps "
         f"{phase14['bf16_taps']['float32_taps_ms']:.4f}) on {card}")
+    spatial = phase15["spatial"]
+    log("mesh (one card named twice: the halo and gather overhead, not scaling): "
+        + "; ".join(f"{label} grid {v['ms']:.3f} ms against {v['unsharded_ms']:.3f} unsharded, "
+                    f"peak {v['peak_gib']:.3f} against {v['unsharded_peak_gib']:.3f} GiB, "
+                    f"max|d| {v['max_abs_err']:.3e}, bf16 gap {v['bf16_max_abs_gap']:.3e}"
+                    for label, v in spatial.items() if label != "conv3x3_one_shard")
+        + f"; Predictor max|d| {json.dumps(phase15['predictors'])} on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -641,3 +641,68 @@ def test_exported_artifact_runs_the_kernels(cuda, tmp_path):
     cpu = ExportedPredictor(tmp_path / "art", device="cpu")(x)
     live_cpu = Predictor(str(tmp_path / "s4.pth"), buckets=(2,), dtype=None, device="cpu")(x)
     np.testing.assert_allclose(cpu[1], live_cpu[1], atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------- conv3x3: one launch
+# (n, h, w, cin, cout): the stage-4 convs as the spatially sharded forward
+# launches them on a shard of a 1024 px slide on a 2 x 2 grid (the local
+# extent plus its 1-px inner halo), then half-channel slices of the widest
+# convs as the column-parallel convs launch them (a model axis of 2)
+CONV3X3_SHAPES = [
+    (1, 513, 513, 3, 64),      # inc conv1, one halo row and column
+    (1, 257, 257, 64, 128),    # down1 conv1
+    (1, 65, 65, 512, 512),     # down4 conv1
+    (1, 33, 33, 512, 512),     # down4 conv2 at 1008 / 2 px / 16
+    (1, 129, 129, 1024, 256),  # up1 conv1
+    (8, 32, 32, 3, 256),       # stage 1 inc conv1, half of 512
+    (8, 16, 16, 512, 256),     # stage 1 down4, half of 512
+    (8, 32, 32, 1024, 128),    # stage 1 up1, half of 256
+    (2, 17, 33, 20, 24),       # ragged tiles, a partial K chunk, Cout < one block
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV3X3_SHAPES)
+def test_conv3x3_kernel(cuda, dtype, n, h, w, cin, cout):
+    """One launch against its plain version: in bf16 the kernel's own order
+    of sums (``conv3x3_packed_reference``), in float32 ``F.conv2d``; the
+    wrapper and, in float32, the C side count it."""
+    x, w1, b1, _, _ = _dc_inputs(cuda, dtype, n, h, w, cin, cout, 8)
+    packed = (dc.pack_conv(w1), b1.float().contiguous())
+    _lib.reset_launch_counts()
+    before = f32_launches()
+    got = dc.conv3x3(x, w1, b1, packed=packed)
+    assert _lib.launch_counts() == {"conv3x3": 1}
+    assert f32_launches() - before == int(dtype == torch.float32)
+    assert got.is_contiguous(memory_format=CL) and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        want = dc.conv3x3_packed_reference(x, dc.pack_conv3x3(w1), b1).to(dtype)
+    else:
+        want = dc.conv3x3_reference(x, w1, b1)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_channel_slices_make_the_whole(cuda, dtype):
+    """The column-parallel split: each half of the output channels, launched
+    on its own, is that half of the whole conv."""
+    x, w1, b1, _, _ = _dc_inputs(cuda, dtype, 2, 16, 16, 512, 512, 8)
+    whole = dc.conv3x3(x, w1, b1)
+    halves = [dc.conv3x3(x, w1[s].contiguous(), b1[s].contiguous())
+              for s in (slice(0, 256), slice(256, 512))]
+    _close(torch.cat(halves, dim=1), whole, dtype)
+
+
+def test_conv3x3_operator_and_refusals(cuda):
+    from ugpg_tpu_torch.ops.cuda import library
+
+    x, w1, b1, _, _ = _dc_inputs(cuda, torch.float32, 2, 19, 21, 16, 32, 8)
+    got = library.conv3x3(x, w1, b1, dc.pack_conv(w1), b1.float().contiguous())
+    want = library.conv3x3(*(t.cpu() for t in (x, w1, b1)), None, None)
+    _close(got, want.to(cuda), torch.float32)
+    with pytest.raises(ValueError, match="channels_last"):
+        dc.conv3x3(x.contiguous(), w1, b1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dc.conv3x3(x, w1[:4], b1[:4])
+    with pytest.raises(ValueError, match="pack_conv"):
+        dc.conv3x3(x, w1, b1, packed=(w1, b1))

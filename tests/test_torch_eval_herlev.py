@@ -138,7 +138,7 @@ def test_predictor_mc_dropout(ckpt):
     (dict(task_type="classification", mc_dropout=1), ValueError),
     (dict(mc_dropout=4), ValueError),  # segmentation has no dropout
     (dict(task_type="classification", mc_dropout=4, quantize=True), ValueError),
-    (dict(task_type="classification", quantize=True, mesh=object()), NotImplementedError),
+    (dict(task_type="classification", quantize=True, mesh=object()), ValueError),  # no 'data'
     (dict(task_type="classification", quantize=True), ValueError),  # no calibration
 ])
 def test_predictor_refusals(ckpt, kwargs, error):

@@ -29,6 +29,7 @@ from ugpg_tpu.eval.slide import SlidePredictor as JaxSlidePredictor
 from ugpg_tpu.io.checkpoint import save_checkpoint
 from ugpg_tpu.io.torch_export import export_torch_checkpoint
 from ugpg_tpu.metrics.segmentation import binary_eval_metrics as jax_binary_eval_metrics
+from ugpg_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from ugpg_tpu_torch import native
 from ugpg_tpu_torch.data.monuseg import MoNuSegDataset
 from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator, MoNuSegInferer
@@ -36,6 +37,7 @@ from ugpg_tpu_torch.eval.slide import ExportedSlidePredictor, SlidePredictor
 from ugpg_tpu_torch.io.checkpoint import has_checkpoint, sniff_stage
 from ugpg_tpu_torch.io.png import png_bytes, write_png
 from ugpg_tpu_torch.metrics.segmentation import binary_eval_metrics
+from ugpg_tpu_torch.parallel.mesh import make_mesh
 
 TOL = 1e-4
 
@@ -125,8 +127,10 @@ def test_evaluator_matches_jax(stage, ckpts, tree, tmp_path):
     got = ev.evaluate_dataset_native(ds, output_file=str(tmp_path / "n.json"))
     _metrics_match(got, jax_ev.evaluate_dataset_native(ds))
     assert got["native_resolution"] and got["num_samples"] == 3
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ev.evaluate_dataset_native(ds, mesh=object())
+    # spatially sharded (ported since): H over 2 shards, each tile padded to
+    # the grid's divisor, against JAX's mesh on 2 of its CPU devices
+    _metrics_match(ev.evaluate_dataset_native(ds, mesh=make_mesh(2, devices=["cpu"] * 2)),
+                   jax_ev.evaluate_dataset_native(ds, mesh=jax_make_mesh(n_data=2)))
 
 
 @pytest.mark.parametrize("stage,pad_multiple", [(1, None), (2, None), (2, 24)])
@@ -170,12 +174,18 @@ def test_slide_predictor_shares_the_native_evaluation_forward(ckpts, tree):
 
 
 def test_slide_predictor_options_outside_the_slice_raise(ckpts, tmp_path):
-    """mesh raises; export, ported since, writes an artifact that answers
-    as the live predictor, here at the odd 37 x 45 size."""
+    """mesh, ported since, raises only without a 'data' axis and shards a
+    slide that needs no padding as the live predictor answers it; export,
+    ported since, writes an artifact that answers as the live predictor,
+    here at the odd 37 x 45 size."""
     _, pth = ckpts[1]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="'data' axis"):
         SlidePredictor(pth, mesh=object(), device="cpu")
     live = SlidePredictor(pth, device="cpu")
+    x40 = (np.random.default_rng(4).random((1, 40, 48, 3)) * 255).astype(np.uint8)
+    sharded = SlidePredictor(pth, mesh=make_mesh(2, devices=["cpu"] * 2), device="cpu")
+    for got, want in zip(sharded(x40)[1:], live(x40)[1:]):
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     art = live.export(tmp_path / "out", sizes=((37, 45),))
     x = (np.random.default_rng(3).random((1, 37, 45, 3)) * 255).astype(np.uint8)
     for got, want in zip(ExportedSlidePredictor(art, device="cpu")(x), live(x)):

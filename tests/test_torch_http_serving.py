@@ -231,9 +231,10 @@ def test_error_response_closes_keepalive_connection(served):
 
 
 @pytest.mark.parametrize("case", ["wires", "nothing", "bad-spec", "mesh"])
-def test_serve_cli(case, ckpts, tmp_path, monkeypatch, capsys):
+def test_serve_cli(case, ckpts, tmp_path, monkeypatch):
     """The command line parses specs, registers every kind of model and
-    starts the server (serve_forever stubbed); --mesh exits 2."""
+    starts the server (serve_forever stubbed); with --mesh 2 on the CPU the
+    models serve on a mesh of the CPU twice and answer as without it."""
     seg = ckpts["seg"][1]
     if case == "wires":
         from ugpg_tpu_torch.eval.serving import Predictor
@@ -258,10 +259,20 @@ def test_serve_cli(case, ckpts, tmp_path, monkeypatch, capsys):
                                      "m": "Predictor", "s": "SlidePredictor"}
         assert captured["dtype"] == torch.float32
         return
-    argv = {"nothing": ["--port", "0"], "bad-spec": ["--model", "missing-equals"],
-            "mesh": ["--model", f"m={seg}", "--mesh", "2", "--device", "cpu"]}[case]
-    with pytest.raises(SystemExit) as info:
-        serve_cli.main(argv)
     if case == "mesh":
-        err = capsys.readouterr().err
-        assert info.value.code == 2 and "not ported" in err and "--mesh" in err
+        from ugpg_tpu_torch.eval.serving import Predictor
+
+        captured = {}
+        monkeypatch.setattr(hs.ServingHTTPServer, "serve_forever",
+                            lambda self: captured.setdefault("registry", self.registry))
+        assert serve_cli.main(["--model", f"m={seg}", "--mesh", "2", "--buckets", "2",
+                               "--port", "0", "--device", "cpu"]) == 0
+        p = captured["registry"].get("m")
+        assert p.mesh.shape == {"data": 2, "model": 1}
+        x = _images(2, 7)
+        for got, want in zip(p(x), Predictor(seg, buckets=(2,), dtype=None, device="cpu")(x)):
+            np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+        return
+    argv = {"nothing": ["--port", "0"], "bad-spec": ["--model", "missing-equals"]}[case]
+    with pytest.raises(SystemExit):
+        serve_cli.main(argv)

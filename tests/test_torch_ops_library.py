@@ -5,7 +5,8 @@ on the CPU.
 implementation and dispatch together at small shapes; the fake outputs
 have the real ones' shapes, dtypes and strides (``channels_last`` for the
 double conv and the upsample, as the kernels write NHWC memory; the
-uncertainty map keeps its input's strides).  The CPU implementations are
+uncertainty map keeps its input's strides; the single conv as the double
+conv).  The CPU implementations are
 the plain versions, exactly; an exported graph keeps each operator as one
 call.  The kernels themselves run in ``tests/test_torch_cuda.py``.
 """
@@ -16,7 +17,12 @@ import torch
 
 from ugpg_tpu_torch.models.pgunet import PGUNet2
 from ugpg_tpu_torch.ops.cuda import library
-from ugpg_tpu_torch.ops.cuda.double_conv import fused_double_conv_reference, pack_double_conv
+from ugpg_tpu_torch.ops.cuda.double_conv import (
+    conv3x3_reference,
+    fused_double_conv_reference,
+    pack_conv,
+    pack_double_conv,
+)
 from ugpg_tpu_torch.ops.cuda.resize2x import (
     _tap_weights,
     upsample2x_bf16_taps_reference,
@@ -39,7 +45,18 @@ def _double_conv_args(dtype, packed, layout):
     return (x, w1, b1, w2, b2, *pk)
 
 
+def _conv_args(dtype, packed, layout):
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 5, 6, 9, generator=g).to(dtype).contiguous(memory_format=layout)
+    w = (torch.randn(16, 5, 3, 3, generator=g) * 0.3).to(dtype)
+    b = torch.randn(16, generator=g)
+    return (x, w, b, *((pack_conv(w), b) if packed else (None, None)))
+
+
 CASES = [
+    ("conv3x3", "float32-packed-cl", lambda: _conv_args(torch.float32, True, CL)),
+    ("conv3x3", "bfloat16-unpacked-nchw",
+     lambda: _conv_args(torch.bfloat16, False, torch.contiguous_format)),
     ("double_conv", "float32-packed-cl", lambda: _double_conv_args(torch.float32, True, CL)),
     ("double_conv", "float32-unpacked-nchw",
      lambda: _double_conv_args(torch.float32, False, torch.contiguous_format)),
@@ -65,11 +82,13 @@ CASES = [
      lambda: ((torch.randn(3, 17, generator=torch.Generator().manual_seed(5)) * 4)
               .to(torch.bfloat16),)),
 ]
-OP = {"double_conv": OPS.fused_double_conv.default, "upsample": OPS.upsample2x.default,
+OP = {"double_conv": OPS.fused_double_conv.default, "conv3x3": OPS.conv3x3.default,
+      "upsample": OPS.upsample2x.default,
       "upsample_bf16_taps": OPS.upsample2x_bf16_taps.default,
       "uncertainty": OPS.uncertainty_from_logits.default}
 PLAIN = {
     "double_conv": lambda x, w1, b1, w2, b2, *_: fused_double_conv_reference(x, w1, b1, w2, b2),
+    "conv3x3": lambda x, w, b, *_: conv3x3_reference(x, w, b),
     "upsample": upsample2x_reference,
     "upsample_bf16_taps": upsample2x_bf16_taps_reference,
     "uncertainty": uncertainty_from_logits_reference,

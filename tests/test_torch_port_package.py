@@ -1,9 +1,10 @@
 """Package rules of ugpg_tpu_torch: it imports neither JAX nor ugpg_tpu nor PIL
-(the serving stack and the MoNuSeg tools included), its entry points need
-CUDA unless the CPU is asked for, and the Predictor, SlidePredictor,
-trainer and command-line options not ported yet raise (or exit "not
-ported") instead of being ignored; the options ported since run, and
-raise (or exit 2) only beside a mesh."""
+(the serving stack, the MoNuSeg tools and the mesh modules included), its
+entry points need CUDA unless the CPU is asked for, and the trainer and
+command-line options not ported yet raise (or exit "not ported") instead
+of being ignored; the options ported since run: the trainers' and the
+training commands' only beside a mesh raise (or exit 2), the serving mesh
+options only for a mesh without a 'data' axis or across hosts."""
 
 import pathlib
 import re
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 import ugpg_tpu_torch
-from ugpg_tpu_torch.cli import export_model, serve, test_monuseg, train_monuseg
+from ugpg_tpu_torch.cli import export_model, parse_mesh, serve, test_monuseg, train_monuseg
 from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset
 from ugpg_tpu_torch.device import resolve_device
 from ugpg_tpu_torch.eval.exported import ExportedPredictor
@@ -30,6 +31,7 @@ from ugpg_tpu_torch.io.checkpoint import (
 )
 from ugpg_tpu_torch.models.classifier import HerlevClassificationModel
 from ugpg_tpu_torch.models.pgunet import PGUNet1
+from ugpg_tpu_torch.parallel.mesh import make_mesh
 from ugpg_tpu_torch.train import aug_trainer
 from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer, create_config
 from ugpg_tpu_torch.train.seg_trainer import UncertaintyGuidedProgressiveTrainer
@@ -58,9 +60,10 @@ def test_imports_with_jax_and_ugpg_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 67  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 70  # every module of the package was imported
     imported = proc.stdout.split()[:-1]
-    for name in ("utils.tb", "utils.config", "parallel", "parallel.pipeline"):
+    for name in ("utils.tb", "utils.config", "parallel", "parallel.pipeline", "parallel.mesh",
+                 "parallel.spatial", "parallel.tensor"):
         assert f"ugpg_tpu_torch.{name}" in imported, name
 
 
@@ -116,9 +119,18 @@ def one_torch_thread():
 @pytest.mark.parametrize("kwargs", [
     dict(quantize=True, mesh=object()), dict(mesh=object()), dict(shard_model=True),
 ])
-def test_options_outside_the_slice_raise(kwargs, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Predictor(str(tmp_path / "never_read.pth"), device="cpu", **kwargs)
+def test_options_outside_the_slice_raise(kwargs, stage1_pth):
+    """The mesh options, ported since: a mesh without a 'data' axis raises
+    (before the checkpoint is read, before quantize's calibration check),
+    and shard_model without a mesh serves as without it, as in JAX."""
+    if "mesh" in kwargs:
+        with pytest.raises(ValueError, match="'data' axis"):
+            Predictor(str(stage1_pth.parent / "never_read.pth"), device="cpu", **kwargs)
+        return
+    x = np.random.default_rng(0).random((1, 32, 32, 3), dtype=np.float32)
+    for got, want in zip(Predictor(str(stage1_pth), buckets=(1,), device="cpu", **kwargs)(x),
+                         Predictor(str(stage1_pth), buckets=(1,), device="cpu")(x)):
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -203,16 +215,24 @@ def test_options_ported_since_run(option, stage1_pth, tmp_path):
 
 @pytest.mark.parametrize("part", ["mesh", "w_axis", "export"])
 def test_slide_predictor_parts_outside_the_slice_raise(part, stage1_pth, tmp_path):
-    """mesh and w_axis raise; export, ported since, writes an artifact."""
+    """Ported since: mesh and w_axis shard the slide (H over 'data', W over
+    the w_axis) and answer as the unsharded predictor where no padding
+    differs; w_axis without a mesh raises; export writes an artifact."""
+    x = np.random.default_rng(0).random((1, 32, 32, 3), dtype=np.float32)
+    live = SlidePredictor(str(stage1_pth), device="cpu")
     if part == "export":
-        live = SlidePredictor(str(stage1_pth), device="cpu")
         art = live.export(tmp_path / "slide", sizes=((32, 32),))
-        x = np.random.default_rng(0).random((1, 32, 32, 3), dtype=np.float32)
         for got, want in zip(ExportedSlidePredictor(art, device="cpu")(x), live(x)):
             np.testing.assert_array_equal(got, want)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SlidePredictor(str(stage1_pth), device="cpu", **{part: object()})
+    shape, w_axis = ((2, 1), None) if part == "mesh" else ((2, 2), "model")
+    mesh = make_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1]))
+    sharded = SlidePredictor(str(stage1_pth), device="cpu", mesh=mesh, w_axis=w_axis)
+    for got, want in zip(sharded(x), live(x)):
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    if part == "w_axis":
+        with pytest.raises(ValueError, match="mesh"):
+            SlidePredictor(str(stage1_pth), device="cpu", w_axis="model")
 
 
 @pytest.mark.parametrize("command,flags", [
@@ -227,7 +247,9 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
                                                         monkeypatch):
     """Never ignored: the command exits 2 naming the flag.  --tb_logdir,
     --remat and --pipeline_unc, ported since, reach the trainer; beside
-    --mesh the command still exits 2, naming --mesh."""
+    --mesh the command still exits 2, naming --mesh.  --mesh of test and
+    serve, ported since, builds the mesh; across hosts (a coordinator
+    address set) they exit 2, naming --mesh and item 4b."""
     if command == "train":
         argv = ["--data_dir", str(tmp_path), "--device", "cpu", *flags]
         main = train_monuseg.main
@@ -247,6 +269,7 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
     elif command == "serve":
         argv = ["--model", f"m={tmp_path / 'm.pth'}", "--device", "cpu", *flags]
         main = serve.main
+        monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
     elif command == "export":
         argv = ["--model", str(tmp_path / "m.pth"), "--out", str(tmp_path), "--device", "cpu",
                 *flags]
@@ -255,12 +278,16 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
         argv = ["--model", str(tmp_path / "m.pth"), "--eval_full", "--native_res",
                 "--device", "cpu", *flags]
         main = test_monuseg.main
+        assert parse_mesh("2,2", "cpu").shape == {"data": 2, "model": 2}
+        monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
     with pytest.raises(SystemExit) as info:
         main(argv)
     err = capsys.readouterr().err
     # --quantize is ported, but never without its calibration images
     missing = "requires --calibration" if flags == ["--quantize"] else "not ported"
     assert info.value.code == 2 and missing in err and flags[0] in err
+    if command in ("test", "serve"):
+        assert "item 4b" in err
 
 
 def test_load_checkpoint_container_and_bare_state_dict(tmp_path):

@@ -2,12 +2,16 @@
 ``ugpg_tpu/cli/test_monuseg.py``).
 
     python -m ugpg_tpu_torch.cli.test_monuseg --model OUT/ug_pgunet_stage4_best.pth \\
-        --data DIR --eval_full [--native_res] [--save_uncertainty] [--infer_dir DIR]
+        --data DIR --eval_full [--native_res [--mesh H[,W]]] [--save_uncertainty] \\
+        [--infer_dir DIR]
 
 Takes the JAX command's flags, plus ``--device`` (default ``cuda``; ``cpu``
-runs the plain PyTorch path).  ``--mesh`` (the spatially sharded native
-evaluation) is not ported yet: given, it exits with status 2 and a "not
-ported" message.  PNGs are written by the port's own writer (``io/png.py``).
+runs the plain PyTorch path).  ``--mesh H[,W]`` shards ``--native_res``
+spatially: H-way over the mesh's ``data`` axis and, with W > 1, W-way over
+``model`` ('auto': every visible card H-way); on ``--device cpu`` the mesh
+repeats the CPU, on ``cuda`` it takes the visible cards and a mesh larger
+than they are exits 2.  As in the JAX command, it does nothing without
+``--native_res``.  PNGs are written by the port's own writer (``io/png.py``).
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="with --eval_full: evaluate at native slide resolution (padded "
                         "full-resolution forward, no downsizing to the stage resolution)")
     p.add_argument("--mesh", type=str, default=None, metavar="H[,W]",
-                   help="not ported: spatially sharded --native_res")
+                   help="spatial shard grid for --native_res: H-way over 'data' (and W-way "
+                        "over 'model'), e.g. '4' or '4,2'; 'auto' = all devices H-way")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the plain PyTorch path)")
     p.add_argument("--output_dir", type=str, default="./test_results")
@@ -63,12 +68,18 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.mesh is not None:
-        parser.error("not ported to ugpg_tpu_torch yet: --mesh (ROADMAP.md queue A, item 4)")
     try:
         data_dir = resolve_dataset_path(args.data)
     except ValueError as e:
         parser.error(str(e))
+    mesh = None
+    if args.eval_full and args.native_res and args.mesh:
+        from ugpg_tpu_torch.cli import parse_mesh
+
+        try:
+            mesh = parse_mesh(args.mesh, args.device)
+        except (NotImplementedError, ValueError) as e:
+            parser.error(f"--mesh {args.mesh}: {e}")
 
     from ugpg_tpu_torch.data.monuseg import MoNuSegDataset
     from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator, MoNuSegInferer
@@ -106,8 +117,9 @@ def main(argv=None):
                 write_png(os.path.join(args.output_dir, f"uncertainty_{idx}.png"), heat)
     if args.eval_full:
         if args.native_res:
+            w_axis = "model" if mesh is not None and mesh.shape["model"] > 1 else None
             results["metrics"] = evaluator.evaluate_dataset_native(
-                dataset,
+                dataset, mesh=mesh, w_axis=w_axis,
                 output_file=os.path.join(args.output_dir, "evaluation_results_native.json"))
         else:
             results["metrics"] = evaluator.evaluate_dataset(

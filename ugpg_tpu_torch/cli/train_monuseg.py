@@ -108,7 +108,7 @@ def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
         "--scan_chunk_mb": args.scan_chunk_mb is not None,
         f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
     }
-    for asked, where in ((multi_device, "ROADMAP.md queue A, item 4"),
+    for asked, where in ((multi_device, "ROADMAP.md queue A, item 4b"),
                          (never, 'ROADMAP.md, "Not to port"')):
         missing = [flag for flag, on in asked.items() if on]
         if missing:

@@ -7,7 +7,11 @@
 //   bytes per pixel of input and output (61.8 GFLOP per 256 px image), far
 //   above the card's ~295 operations per byte in bf16.
 //
-// Two kernels, one per dtype; neither dtype takes the other's path.
+// Two kernels, one per dtype; neither dtype takes the other's path.  Each
+// also has an entry that launches it once (ugpg_conv3x3_f32,
+// ugpg_conv3x3_bf16): the spatially sharded forward exchanges halos between
+// the two convs of a DoubleConv, and the column-parallel forward gathers
+// channels between them.
 //
 // bfloat16: conv3x3_mma_kernel, an implicit GEMM on the tensor cores,
 //   launched twice per DoubleConv (conv1 -> bf16 middle activation in a
@@ -547,6 +551,16 @@ extern "C" int ugpg_double_conv_f32(const void* x, const void* w1, const float* 
   return (int)f32::conv3x3(mid, w2, b2, out, N, H, W, Cm, Cout, bn2, s);
 }
 
+// float32: one launch of the CUDA-core conv, for the spatially sharded
+// forward and the column-parallel convs (a halo or a channel slice between
+// the two convs of a DoubleConv).  x: (N, H, W, Cin) dense NHWC; w: (3, 3,
+// Cin, Cout) dense HWIO; b float32; y: (N, H, W, Cout); bn: the output
+// channels per block (32 or 64).  Counted by ugpg_conv3x3_f32_launches.
+extern "C" int ugpg_conv3x3_f32(const void* x, const void* w, const float* b, void* y, int N,
+                                int H, int W, int Cin, int Cout, int bn, void* stream) {
+  return (int)f32::conv3x3(x, w, b, y, N, H, W, Cin, Cout, bn, static_cast<cudaStream_t>(stream));
+}
+
 // Launches of conv3x3_f32_kernel in this process so far, modulo 2^31.
 extern "C" int ugpg_conv3x3_f32_launches() { return (int)(f32::launches.load() & 0x7fffffffu); }
 
@@ -562,4 +576,11 @@ extern "C" int ugpg_double_conv_bf16(const void* x, const void* w1, const float*
   cudaError_t e = tc::conv3x3(x, w1, b1, mid, N, H, W, Cin, Cm, kc1, s);
   if (e != cudaSuccess) return (int)e;
   return (int)tc::conv3x3(mid, w2, b2, out, N, H, W, Cm, Cout, kc2, s);
+}
+
+// bfloat16: one launch of the tensor-core conv (see ugpg_conv3x3_f32).  w:
+// (9, Cout, Cpad) packed, Cpad = Cin rounded up to kc (16 or 32).
+extern "C" int ugpg_conv3x3_bf16(const void* x, const void* w, const float* b, void* y, int N,
+                                 int H, int W, int Cin, int Cout, int kc, void* stream) {
+  return (int)tc::conv3x3(x, w, b, y, N, H, W, Cin, Cout, kc, static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,8 @@
   prediction (mask resized back by nearest, confidence = mean
   probability), the per-sample metric suite over a dataset with mean and
   std and a JSON dump, the native-resolution evaluation (the padded
-  forward of ``eval/slide.py``, scored against the full-resolution mask),
+  forward of ``eval/slide.py``, or under a mesh the spatially sharded one
+  of ``parallel/spatial.py``, scored against the full-resolution mask),
   ground-truth-vs-prediction panels (with matplotlib) and a seeded random
   spot check.
 * ``MoNuSegInferer``: single-image and directory inference writing
@@ -38,6 +39,7 @@ from ugpg_tpu_torch.metrics.segmentation import binary_eval_metrics
 from ugpg_tpu_torch.models.pgunet import STAGE_RESOLUTIONS
 from ugpg_tpu_torch.ops.cuda.library import uncertainty_from_logits
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
+from ugpg_tpu_torch.parallel.spatial import SpatialWeights, spatial_predict
 
 __all__ = ["MoNuSegEvaluator", "MoNuSegInferer"]
 
@@ -74,8 +76,10 @@ class MoNuSegEvaluator:
         self.resolution = STAGE_RESOLUTIONS[self.stage]
         self.metadata = {k: v for k, v in obj.items()
                          if k not in ("model_state_dict", "optimizer_state_dict")}
-        self.model = stage_model(self.stage, obj["model_state_dict"], self.device, num_classes,
+        self._state_dict = obj["model_state_dict"]
+        self.model = stage_model(self.stage, self._state_dict, self.device, num_classes,
                                  dtype or torch.float32)
+        self._spatial: dict = {}  # (mesh, dtype) -> SpatialWeights
         print(f"Loaded stage-{self.stage} model from {model_path}")
 
     @torch.inference_mode()
@@ -141,21 +145,30 @@ class MoNuSegEvaluator:
         """The metric suite at each image's own resolution, against the
         full-resolution mask: the padded forward of
         ``eval/slide.py::native_forward``.  ``dataset`` must have
-        ``load_raw(idx) -> (uint8 HWC image, uint8 HW mask)``.  ``mesh``,
-        ``w_axis`` and ``dtype`` (in the JAX package, options of the
-        spatially sharded path) are not ported yet and raise."""
-        if mesh is not None or w_axis is not None or dtype is not None:
-            raise NotImplementedError("not ported to ugpg_tpu_torch yet: "
-                                      "evaluate_dataset_native(mesh=..., w_axis=..., dtype=...) "
-                                      "(ROADMAP.md queue A, item 4)")
+        ``load_raw(idx) -> (uint8 HWC image, uint8 HW mask)``.
+
+        Under a ``mesh`` the image is spatially sharded, H over ``data``
+        and W over ``w_axis`` when given, with 1-px halo exchange
+        (``parallel/spatial.py::spatial_predict(..., pad=True)``), the
+        body in ``dtype`` (None: float32); without one ``dtype`` is not
+        read and the evaluator's own model runs, as in the JAX package."""
         div = native_divisor(self.stage)
+        if mesh is not None:
+            key = (mesh, dtype)
+            if key not in self._spatial:
+                self._spatial[key] = SpatialWeights(self._state_dict, self.stage, mesh, dtype)
+            weights = self._spatial[key]
         n = len(dataset) if max_samples is None else min(len(dataset), max_samples)
         per_sample: dict[str, list[float]] = {}
         for idx in range(n):
             img_u8, mask_u8 = dataset.load_raw(idx)
-            x = torch.from_numpy(img_u8.astype(np.float32) / 255.0)[None].to(self.device)
-            preds = native_forward(self.model, x, (div, div))[0]
-            gt = torch.from_numpy(mask_u8.astype(np.float32))[None].to(self.device)
+            x = torch.from_numpy(img_u8.astype(np.float32) / 255.0)[None]
+            if mesh is None:
+                preds = native_forward(self.model, x.to(self.device), (div, div))[0]
+            else:
+                preds = spatial_predict(weights, x, mesh, stage=self.stage, w_axis=w_axis,
+                                        dtype=dtype, pad=True)[0]
+            gt = torch.from_numpy(mask_u8.astype(np.float32))[None].to(preds.device)
             batch_m = binary_eval_metrics(preds[..., 0], gt)
             for k, v in batch_m.items():
                 per_sample.setdefault(k, []).extend(v.cpu().tolist())

@@ -23,6 +23,17 @@ the JAX package's live-BN ``Predictor`` runs it in XLA; the uncertainty map
 keeps its kernel.  ``stream`` overlaps the copy of batch k + 1 to the
 device with batch k's forward (``data/loader.py::prefetch_to_device``).
 
+``mesh`` (``parallel/mesh.py``; one process drives every device of it):
+each bucket's rows split over the mesh's ``data`` axis, each part served
+by a replica on its data row's first device (one per distinct device, the
+weights packed once there), and the outputs gather on the mesh's first
+device in request order.  ``shard_model=True`` with a ``model`` axis of
+more than one device runs the wide convs column-parallel over each data
+row (``parallel/tensor.py``).  Both compose with either task,
+``quantize``, ``mc_dropout`` (the masks of the whole bucket, drawn as one
+device draws them, split by row) and ``stream``; ``export`` writes the
+unsharded artifact.
+
 ``stage_model`` and ``classifier_model`` build a checkpoint's model the
 way the serving paths run it, for the evaluators and the slide predictor
 too.
@@ -30,6 +41,7 @@ too.
 
 from __future__ import annotations
 
+import copy
 import json
 import queue
 import threading
@@ -58,6 +70,8 @@ from ugpg_tpu_torch.models.folding import fold_batchnorm
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS, STAGE_RESOLUTIONS
 from ugpg_tpu_torch.ops.cuda.library import uncertainty_from_logits
 from ugpg_tpu_torch.ops.quant import QuantizedClassifier, QuantizedModel
+from ugpg_tpu_torch.parallel.mesh import data_axis_size, shard_batch
+from ugpg_tpu_torch.parallel.tensor import column_parallel
 from ugpg_tpu_torch.uncertainty import mc_dropout_uncertainty
 
 __all__ = ["Predictor", "BatchingServer", "ServingRegistry", "stage_model", "classifier_model"]
@@ -176,7 +190,15 @@ class Predictor(_BucketRouter):
         bf16 walker on ``calibration_batches`` (an iterable of (B, H, W, 3)
         float images from the real input distribution; required, there is
         no default); ``dtype`` does not apply to it.
-        ``device``: ``cuda`` unless given; raises without CUDA."""
+        ``mesh`` (``parallel/mesh.py::make_mesh``; it must have a ``data``
+        axis that divides every bucket): data-parallel serving, the rows of
+        each bucket split over ``data``, answering as one device does.
+        ``shard_model=True`` with a ``model`` axis of more than one device
+        also runs the convs of at least 256 output channels column-parallel
+        over each data row (the TP layout of ``param_shardings``).
+        ``device``: ``cuda`` unless given; raises without CUDA.  With a
+        mesh the predictor's device is the mesh's first, and ``device``, if
+        given, must be of its type."""
         _BucketRouter.__init__(self)
         self.device = resolve_device(device)
         if task_type not in ("segmentation", "classification"):
@@ -195,18 +217,26 @@ class Predictor(_BucketRouter):
             if mc_dropout < 2:
                 raise ValueError(f"mc_dropout={mc_dropout}: need >= 2 stochastic passes "
                                  "for a variance")
-        deferred = {"mesh": mesh is not None, "shard_model": shard_model}
-        missing = [name for name, asked in deferred.items() if asked]
-        if missing:
-            raise NotImplementedError(
-                f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} "
-                "(ROADMAP.md queue A, item 4)")
         self.input_dtype = _INPUT_DTYPES.get(input_dtype) or np.dtype(input_dtype)
         if self.input_dtype not in (np.dtype(np.float32), np.dtype(np.uint8)):
             raise ValueError("input_dtype must be float32 or uint8")
         self.task_type = task_type
         self.buckets = tuple(sorted(set(buckets or (batch_size,))))
         self.batch_size = self.buckets[-1]
+        self.mesh = mesh
+        n_data = 1
+        if mesh is not None:
+            n_data = data_axis_size(mesh)
+            bad = [b for b in self.buckets if b % n_data]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} do not divide by the mesh 'data' axis size ({n_data}): "
+                    "each bucket's rows split evenly over the data axis")
+            if device is not None and self.device.type != mesh.first.type:
+                raise ValueError(f"device {self.device} is not of the mesh's type ({mesh.first})")
+            self.device = mesh.first
+        self._shard_model = bool(shard_model) and mesh is not None \
+            and mesh.shape.get("model", 1) > 1
         self.quantize = bool(quantize)
         if quantize:
             if calibration_batches is None:
@@ -214,13 +244,14 @@ class Predictor(_BucketRouter):
                     "quantize=True requires calibration_batches: an iterable of (B, H, W, 3) "
                     "float arrays from the real input distribution (scales calibrated on "
                     "random data silently degrade accuracy, so there is no default)")
-            if task_type == "segmentation" and self.batch_size >= 32 \
-                    and self.batch_size % 128:
+            # per device: under a mesh each data row sees bucket / n_data images
+            per_device = self.batch_size // n_data
+            if task_type == "segmentation" and per_device >= 32 and per_device % 128:
                 warnings.warn(
-                    f"quantize=True with largest bucket {self.batch_size}: the JAX package "
-                    "asks for a multiple of 128 for int8 segmentation throughput buckets "
-                    "(latency buckets under 32 are exempt), a rule measured on its TPU; "
-                    "PERF.md has this port's int8 numbers per bucket", stacklevel=2)
+                    f"quantize=True with largest per-device bucket {per_device}: the JAX "
+                    "package asks for a multiple of 128 for int8 segmentation throughput "
+                    "buckets (latency buckets under 32 are exempt), a rule measured on its "
+                    "TPU; PERF.md has this port's int8 numbers per bucket", stacklevel=2)
         self.threshold = float(threshold)
         self.emit_uncertainty = emit_uncertainty
         self.mc_dropout = int(mc_dropout)
@@ -250,22 +281,59 @@ class Predictor(_BucketRouter):
                 self.model = stage_model(self.stage, state_dict, self.device, num_classes,
                                          dtype, fold_bn)
             self._n_outputs = 3
+        if mesh is not None:
+            self._rows = self._place(mesh, n_data)
+
+    def _place(self, mesh, n_data: int) -> list[tuple[torch.device, torch.nn.Module]]:
+        """(device, model) of each data row: a replica of ``self.model`` on
+        the row's first device (one per distinct device), column-parallel
+        over the row's devices with ``shard_model``."""
+        n_model = mesh.shape.get("model", 1)
+        replicas = {self.device: self.model}
+        parallel = {}
+        rows = []
+        for i in range(n_data):
+            devices = tuple(mesh.device_at(data=i, model=j) for j in range(n_model))
+            home = devices[0]
+            if home not in replicas:
+                replicas[home] = copy.deepcopy(self.model).to(home)
+            model = replicas[home]
+            if self._shard_model:
+                if devices not in parallel:
+                    parallel[devices] = column_parallel(model, devices)
+                model = parallel[devices]
+            rows.append((home, model))
+        return rows
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        """(B, H, W, 3) request images on the device -> NHWC (preds, probs,
-        uncertainty), or (labels, probs[, variance]), on the device."""
-        return self._graph(x)
+        """(B, H, W, 3) request images (on the device; under a mesh on any
+        device) -> NHWC (preds, probs, uncertainty), or (labels, probs[,
+        variance]), on the device."""
+        if self.mesh is None:
+            return self._graph(x)
+        masks = self._mc_masks(x.shape[0]) if self.mc_dropout else None
+        rows = x.shape[0] // len(self._rows)
+        outs = []
+        for i, ((home, model), part) in enumerate(zip(self._rows, shard_batch(x, self.mesh))):
+            row_masks = None if masks is None else [
+                [None if m is None else m[i * rows:(i + 1) * rows].to(home) for m in layer]
+                for layer in masks]
+            outs.append(self._graph(part, row_masks, model))
+        return tuple(torch.cat([o[k].to(self.device, non_blocking=True) for o in outs])
+                     for k in range(len(outs[0])))
 
-    def _graph(self, x: torch.Tensor, masks=None) -> tuple[torch.Tensor, ...]:
-        """``_forward``'s body, which an exported bucket runs too (``masks``:
-        the MC-dropout head masks baked into it, see ``export``)."""
+    def _graph(self, x: torch.Tensor, masks=None, model=None) -> tuple[torch.Tensor, ...]:
+        """``_forward``'s body on ``model`` (default ``self.model``), which an
+        exported bucket runs too (``masks``: the MC-dropout head masks baked
+        into it, see ``export``)."""
+        model = self.model if model is None else model
         x = x.permute(0, 3, 1, 2).float()  # NCHW view of NHWC (channels_last) memory
         if self.input_dtype == np.uint8:
             x = x / 255.0
         if self.task_type == "classification":
-            return self._classify(x, masks)
-        logits = self.model(x)
+            return self._classify(model, x, masks)
+        logits = model(x)
         probs = torch.sigmoid(logits)
         preds = (probs > self.threshold).to(self._pred_dtype)
         if self.emit_uncertainty:
@@ -275,23 +343,23 @@ class Predictor(_BucketRouter):
         outs = (preds, probs.to(self._map_dtype), unc.to(self._map_dtype))
         return tuple(o.permute(0, 2, 3, 1) for o in outs)
 
-    def _classify(self, x: torch.Tensor, masks=None) -> tuple[torch.Tensor, ...]:
+    def _classify(self, model, x: torch.Tensor, masks=None) -> tuple[torch.Tensor, ...]:
         if not self.mc_dropout:
-            probs = torch.softmax(self.model(x).float(), dim=-1)
+            probs = torch.softmax(model(x).float(), dim=-1)
             return probs.argmax(-1).to(torch.int32), probs
         # the encoder has no dropout and its BN is in eval mode: one pass of
         # it, then the head's N stochastic passes
-        feats = self.model.features(x)
+        feats = model.features(x)
         if masks is None:
             generator = torch.Generator(device=self.device).manual_seed(self.mc_seed)
 
             def head(h, g):
-                return self.model.head(h, active=True, generator=g)
+                return model.head(h, active=True, generator=g)
         else:
             generator, passes = None, iter(masks)
 
             def head(h, g):
-                return self.model.head(h, active=True, keep=next(passes))
+                return model.head(h, active=True, keep=next(passes))
         mean, var = mc_dropout_uncertainty(head, feats, generator, num_samples=self.mc_dropout,
                                            task_type="classification")
         return mean.argmax(-1).to(torch.int32), mean, var
@@ -305,7 +373,9 @@ class Predictor(_BucketRouter):
                 for _ in range(self.mc_dropout)]
 
     def _dispatch(self, bucket: int, chunk: np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+        x = torch.from_numpy(np.ascontiguousarray(chunk))
+        if self.mesh is None:  # under a mesh each row's part goes to its own device
+            x = x.to(self.device)
         return tuple(o.cpu().numpy() for o in self._forward(x))
 
     def export(self, path, platforms: Sequence[str] = PLATFORMS):
@@ -321,6 +391,8 @@ class Predictor(_BucketRouter):
         device.  Plus ``manifest.json``.  The programs serve on the CPU and
         the GPU (``platforms`` records that).  Answers bit for bit as this
         predictor on the same device (``tests/test_torch_artifact.py``).
+        Under a mesh the artifact is the unsharded model (its replica on
+        the mesh's first device): the loader picks its own device.
         Returns ``path``."""
         platforms = check_platforms(platforms)
         path = Path(path)
@@ -351,7 +423,9 @@ class Predictor(_BucketRouter):
         """Yield the numpy outputs (as ``__call__`` returns them) for each
         batch of ``batches`` (any size up to the largest bucket, padded to
         it), with the copy of the next ``prefetch`` batches to the device
-        overlapped with the current one's forward."""
+        overlapped with the current one's forward.  Under a mesh a batch
+        arrives on the mesh's first device and its rows move to their
+        devices from there."""
         top = self.batch_size
         sizes = deque()  # each batch's real size, in order: the producer runs ahead
 
@@ -535,8 +609,9 @@ class ServingRegistry:
         return p
 
     def register(self, name: str, checkpoint: str, **predictor_kwargs) -> Predictor:
-        """Load a checkpoint as a ``Predictor`` under ``name``; duplicate
-        names are rejected."""
+        """Load a checkpoint as a ``Predictor`` under ``name`` (its options
+        in ``predictor_kwargs``, ``mesh`` and ``shard_model`` included);
+        duplicate names are rejected."""
         return self._add(name, lambda: Predictor(checkpoint, **predictor_kwargs))
 
     def register_artifact(self, name: str, path, **kwargs):
@@ -556,7 +631,8 @@ class ServingRegistry:
     def register_slide(self, name: str, checkpoint: str, **slide_kwargs):
         """Register a native-resolution ``SlidePredictor`` under ``name``:
         requests of any size run on the whole image instead of being
-        resized to the stage resolution (``eval/slide.py``).  The
+        resized to the stage resolution (``eval/slide.py``; spatially
+        sharded with ``mesh=`` and ``w_axis=`` in ``slide_kwargs``).  The
         micro-batcher is bypassed: slides of different sizes cannot share a
         call."""
         from ugpg_tpu_torch.eval.slide import SlidePredictor

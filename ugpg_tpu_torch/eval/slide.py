@@ -1,5 +1,5 @@
 """Whole-slide (native-resolution) serving (counterpart of
-``ugpg_tpu/eval/slide.py``, one device).
+``ugpg_tpu/eval/slide.py``).
 
 ``SlidePredictor`` serves segmentation at the request's own size instead of
 downsizing it to the stage resolution: the image is zero-padded up to the
@@ -13,8 +13,14 @@ uncertainty map run the port's kernels.
 
 The multi-scale heads interpolate at the padded size, so a different
 ``pad_multiple`` moves boundary values by interpolation round-off: leave
-it unset to match the evaluation path.  The spatially sharded path
-(``mesh``) is not ported yet and raises.
+it unset to match the evaluation path.
+
+With ``mesh`` (``parallel/mesh.py``) the slide is spatially sharded, H
+over the mesh's ``data`` axis and W over ``w_axis`` when given, with 1-px
+halo exchange (``parallel/spatial.py::spatial_predict``, the program
+``MoNuSegEvaluator.evaluate_dataset_native(mesh=...)`` runs): padded to
+``shards * 2 ** pools`` per axis, so that it equals the unsharded forward
+on the same padded image, not on the unsharded divisor's.
 
 ``SlidePredictor.export`` writes one ``torch.export`` program per (H, W)
 size, which ``ExportedSlidePredictor`` serves without model code: each
@@ -45,6 +51,8 @@ from ugpg_tpu_torch.eval.exported import (
 from ugpg_tpu_torch.eval.serving import stage_model
 from ugpg_tpu_torch.io.checkpoint import load_checkpoint
 from ugpg_tpu_torch.ops.cuda.library import uncertainty_from_logits
+from ugpg_tpu_torch.parallel.mesh import data_axis_size
+from ugpg_tpu_torch.parallel.spatial import SpatialWeights, spatial_divisor, spatial_predict
 
 __all__ = ["SlidePredictor", "ExportedSlidePredictor", "native_forward", "native_divisor"]
 
@@ -138,10 +146,16 @@ class SlidePredictor(_SlideBase):
         p = SlidePredictor("out/ug_pgunet_stage4_best.pth")
         preds, probs, unc = p(slides)           # (B, 1000, 1000, 3) in and out
 
-    ``dtype``: compute dtype of the body (None = float32).  ``max_batch``:
-    slides per device call.  ``pad_multiple``: quantise the padded sizes up
-    to multiples of N.  ``compact_output``: uint8 preds, float16 maps.
-    ``device``: ``cuda`` unless given; raises without CUDA.
+        # slides larger than one device: the spatial halo-exchange grid
+        p = SlidePredictor("out/ug_pgunet_stage4_best.pth",
+                           mesh=make_mesh(2, 2), w_axis="model")
+
+    ``dtype``: compute dtype of the body (None = float32).  ``mesh``: H
+    shards over its ``data`` axis (and W over ``w_axis``, a second mesh
+    axis, when given), the predictor's device the mesh's first.
+    ``max_batch``: slides per device call.  ``pad_multiple``: quantise the
+    padded sizes up to multiples of N.  ``compact_output``: uint8 preds,
+    float16 maps.  ``device``: ``cuda`` unless given; raises without CUDA.
     """
 
     def __init__(self, checkpoint: str, num_classes: int = 1, dtype: torch.dtype | None = None,
@@ -150,24 +164,41 @@ class SlidePredictor(_SlideBase):
                  device: str | torch.device | None = None):
         _SlideBase.__init__(self, max_batch, compact_output)
         self.device = resolve_device(device)
-        if mesh is not None or w_axis is not None:
-            raise NotImplementedError(
-                "not ported to ugpg_tpu_torch yet: SlidePredictor(mesh=...) "
-                "(ROADMAP.md queue A, item 4)")
         if num_classes != 1:
             raise ValueError("SlidePredictor is the binary-segmentation slide path "
                              f"(num_classes=1), got num_classes={num_classes}")
         self.stage, state_dict = load_checkpoint(checkpoint)
-        div = native_divisor(self.stage)
+        self.mesh, self._w_axis, self._dtype = mesh, w_axis, dtype
+        self._pad_multiple = pad_multiple
+        if mesh is not None:
+            data_axis_size(mesh)
+            if w_axis is not None and w_axis not in mesh.axis_names:
+                raise ValueError(f"w_axis {w_axis!r} is not a mesh axis ({mesh.axis_names})")
+            h_div, w_div = spatial_divisor(self.stage, mesh, "data", w_axis)
+            self.device = mesh.first
+        elif w_axis is not None:
+            raise ValueError("w_axis names an axis of a mesh: pass mesh= too")
+        else:
+            h_div = w_div = native_divisor(self.stage)
         if pad_multiple:
-            div = math.lcm(div, int(pad_multiple))
-        self._divisor = (div, div)
-        self.model = stage_model(self.stage, state_dict, self.device, 1,
-                                 dtype or torch.float32)
+            h_div, w_div = math.lcm(h_div, int(pad_multiple)), math.lcm(w_div, int(pad_multiple))
+        self._divisor = (h_div, w_div)
+        if mesh is None:
+            self.model = stage_model(self.stage, state_dict, self.device, 1,
+                                     dtype or torch.float32)
+        else:
+            self._state_dict = state_dict  # export builds the unsharded model from it
+            self._weights = SpatialWeights(state_dict, self.stage, mesh, dtype)
 
     def _run(self, chunk: np.ndarray) -> tuple[np.ndarray, ...]:
-        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-        return tuple(t.cpu().numpy() for t in native_forward(self.model, x, self._divisor))
+        x = torch.from_numpy(np.ascontiguousarray(chunk))
+        if self.mesh is None:
+            outs = native_forward(self.model, x.to(self.device), self._divisor)
+        else:  # the program evaluate_dataset_native(mesh=) runs
+            outs = spatial_predict(self._weights, x, self.mesh, stage=self.stage,
+                                   w_axis=self._w_axis, dtype=self._dtype, pad=True,
+                                   pad_multiple=self._pad_multiple)
+        return tuple(t.cpu().numpy() for t in outs)
 
     def export(self, path, sizes: Sequence[tuple[int, int]] = ((1024, 1024),),
                platforms: Sequence[str] = PLATFORMS):
@@ -176,13 +207,16 @@ class SlidePredictor(_SlideBase):
         of ``sizes``, ``slide_{h}x{w}.pt2``, batch 1, float32 in [0, 1].
         Each pads to the stage's divisor, runs ``native_forward``'s body on
         this predictor's weights and crops back.  Plus ``manifest.json``
-        (format 2, kind "slide").  Returns ``path``."""
+        (format 2, kind "slide").  Under a mesh the artifact is the
+        unsharded model on the mesh's first device.  Returns ``path``."""
         platforms = check_platforms(platforms)
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
         sizes = sorted({(int(h), int(w)) for h, w in sizes})
         div = native_divisor(self.stage)
-        entry = _SlideEntry(self.model, (div, div))
+        model = self.model if self.mesh is None else stage_model(
+            self.stage, self._state_dict, self.device, 1, self._dtype or torch.float32)
+        entry = _SlideEntry(model, (div, div))
         for h, w in sizes:
             example = torch.zeros((1, h, w, 3), dtype=torch.float32, device=self.device)
             with torch.no_grad():

@@ -16,9 +16,16 @@ rounded to ``x.dtype``; sums are float32.  Any H and W are accepted: the
 kernels mask the ragged edge (the JAX kernel's ``tile_h`` divisibility
 rule was a TPU constraint).
 
-The kernels take their weights in their own layouts (``pack_double_conv``);
-``DoubleConv.pack`` keeps them on the module so that a call does not
-repack, and calls without them pack on the fly.
+The kernels take their weights in their own layouts (``pack_conv``,
+``pack_double_conv``); ``DoubleConv.pack`` keeps them on the module so that
+a call does not repack, and calls without them pack on the fly.
+
+``conv3x3`` launches the dtype's kernel once, one conv + bias + ReLU: the
+spatially sharded forward (``parallel/spatial.py``) exchanges halos between
+a DoubleConv's two convs, and the column-parallel convs
+(``parallel/tensor.py``) gather channels between them.  Its plain version
+is ``conv3x3_packed_reference`` in bfloat16 (the kernel's order of sums)
+and ``conv3x3_reference`` in float32.
 """
 
 from __future__ import annotations
@@ -38,7 +45,10 @@ __all__ = [
     "f32_launches",
     "f32_plan",
     "pack_conv3x3",
+    "pack_conv",
     "pack_double_conv",
+    "conv3x3",
+    "conv3x3_reference",
     "conv3x3_packed_reference",
     "fused_double_conv",
     "fused_double_conv_reference",
@@ -46,6 +56,7 @@ __all__ = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
+_CONV_ARGTYPES = (_P,) * 4 + (_I,) * 6 + (_P,)
 
 F32_TILE = (8, 16)  # the float32 conv's output tile: rows, columns
 F32_MIN_BLOCKS = 256  # about two blocks per SM on the H100's 132
@@ -80,7 +91,8 @@ def _padded(cin: int) -> int:
 
 def f32_launches() -> int:
     """Launches of the float32 conv kernel in this process so far, modulo
-    2^31: the C side's own count, two per float32 ``fused_double_conv``."""
+    2^31: the C side's own count, two per float32 ``fused_double_conv`` and
+    one per float32 ``conv3x3``."""
     return _lib.function("double_conv", "ugpg_conv3x3_f32_launches", ())()
 
 
@@ -93,15 +105,18 @@ def pack_conv3x3(w: torch.Tensor) -> torch.Tensor:
     return F.pad(taps, (0, _padded(cin) - cin)).contiguous()
 
 
+def pack_conv(w: torch.Tensor) -> torch.Tensor:
+    """The kernel's layout of one conv's (Cout, Cin, 3, 3) weights, by their
+    dtype: bfloat16 ``pack_conv3x3``, float32 (3, 3, Cin, Cout)."""
+    if w.dtype == torch.bfloat16:
+        return pack_conv3x3(w)
+    return w.permute(2, 3, 1, 0).contiguous()
+
+
 def pack_double_conv(w1, b1, w2, b2) -> tuple[torch.Tensor, ...]:
-    """The kernels' layouts of a DoubleConv's weights, by their dtype:
-    bfloat16 ``pack_conv3x3`` each, float32 (3, 3, Cin, Cout); biases
-    float32.  Returns (w1, b1, w2, b2)."""
-    if w1.dtype == torch.bfloat16:
-        w1k, w2k = pack_conv3x3(w1), pack_conv3x3(w2)
-    else:
-        w1k, w2k = (w.permute(2, 3, 1, 0).contiguous() for w in (w1, w2))
-    return w1k, b1.float().contiguous(), w2k, b2.float().contiguous()
+    """The kernels' layouts of a DoubleConv's weights (``pack_conv``),
+    biases float32.  Returns (w1, b1, w2, b2)."""
+    return pack_conv(w1), b1.float().contiguous(), pack_conv(w2), b2.float().contiguous()
 
 
 def conv3x3_packed_reference(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -184,4 +199,57 @@ def fused_double_conv(x, w1, b1, w2, b2, packed=None) -> torch.Tensor:
                 b2f.data_ptr(), out.data_ptr(), n, h, w, cin, cm, cout, k1, k2, _lib.stream(x))
     _lib.check(rc, "double_conv", "fused_double_conv")
     _lib.count("fused_double_conv")
+    return out
+
+
+def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of one ``conv3x3``: ``F.conv2d`` (zero pad 1)
+    in float32, bias, ReLU; result in ``x.dtype``."""
+    return F.relu(F.conv2d(x.float(), w.float(), b.float(), padding=1)).to(x.dtype)
+
+
+def conv3x3(x, w, b, packed=None) -> torch.Tensor:
+    """(N, Cin, H, W) -> (N, Cout, H, W) in ``x.dtype`` (float32 or
+    bfloat16): conv3x3 with zero padding, bias, ReLU, one launch of the
+    dtype's kernel.  ``w`` (Cout, Cin, 3, 3) in ``x.dtype``, any bias dtype;
+    ``packed``: ``(pack_conv(w), b as float32)`` made ahead, or None to pack
+    here."""
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3: unsupported device {x.device}")
+    _lib.dtype_code(x, "conv3x3")
+    n, cin, h, wd = x.shape
+    cout = w.shape[0]
+    if tuple(w.shape) != (cout, cin, 3, 3) or tuple(b.shape) != (cout,):
+        raise ValueError(f"conv3x3: weights {tuple(w.shape)} and bias {tuple(b.shape)} do not "
+                         f"fit {cin} input channels")
+    if cout % 8:
+        raise ValueError(f"conv3x3: {cout} output channels, a multiple of 8 expected")
+    if w.device != x.device or b.device != x.device:
+        raise ValueError("conv3x3: all tensors must be on x's device")
+    if w.dtype != x.dtype:
+        raise TypeError(f"conv3x3: weights must be {x.dtype}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("conv3x3: x must be channels_last (NHWC memory)")
+    out = torch.empty((n, cout, h, wd), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    wk, bf = packed if packed is not None else (pack_conv(w), b.float().contiguous())
+    bf16 = x.dtype == torch.bfloat16
+    want = (9, cout, _padded(cin)) if bf16 else (3, 3, cin, cout)
+    if tuple(wk.shape) != want or tuple(bf.shape) != (cout,) or any(
+            t.dtype != d or t.device != x.device or not t.is_contiguous()
+            for t, d in ((wk, x.dtype), (bf, torch.float32))):
+        raise ValueError("conv3x3: packed weights do not match pack_conv")
+    if bf16:
+        symbol, k = "ugpg_conv3x3_bf16", conv_chunk(cin)
+    else:
+        symbol, k = "ugpg_conv3x3_f32", f32_plan(n, h, wd, cout)
+    fn = _lib.function("double_conv", symbol, _CONV_ARGTYPES)
+    rc = _lib.on_device(fn, x.device, x.data_ptr(), wk.data_ptr(), bf.data_ptr(), out.data_ptr(),
+                        n, h, wd, cin, cout, k, _lib.stream(x))
+    _lib.check(rc, "double_conv", "conv3x3")
+    _lib.count("conv3x3")
     return out

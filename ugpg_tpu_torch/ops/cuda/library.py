@@ -1,12 +1,15 @@
 """The serving kernels as PyTorch operators, namespace ``ugpg_torch``.
 
     torch.ops.ugpg_torch.fused_double_conv(x, w1, b1, w2, b2, pw1, pb1, pw2, pb2)
+    torch.ops.ugpg_torch.conv3x3(x, w, b, pw, pb)
     torch.ops.ugpg_torch.upsample2x(x)
     torch.ops.ugpg_torch.upsample2x_bf16_taps(x)
     torch.ops.ugpg_torch.uncertainty_from_logits(logits)
 
 ``upsample2x_bf16_taps`` is the upsample kernel's bf16 instance that
 rounds as the JAX package's bf16 resize (the int8 path's Up blocks).
+``conv3x3`` is one launch of the double conv's kernel (one conv + bias +
+ReLU), for the spatially sharded and the column-parallel forwards.
 
 Each operator has a ``CUDA`` implementation, the kernel's wrapper in
 ``ops/cuda/`` (its argument checks, its launch and its count in
@@ -18,12 +21,12 @@ device, so the eager models and a ``torch.export`` program of them
 of the operator where the model calls it, never the plain version traced
 into its parts, and serves on either device.
 
-The double conv and the upsample return ``channels_last`` tensors on every
+The convs and the upsample return ``channels_last`` tensors on every
 device, as the kernels write NHWC memory; the uncertainty map keeps its
 input's strides.  ``pw1, pb1, pw2, pb2`` are ``pack_double_conv``'s
-layouts of the weights, made once by ``DoubleConv.pack``; when they are
-None the CUDA implementation packs on the fly and the CPU one does not
-need them.
+layouts of the weights, made once by ``DoubleConv.pack`` (``pw, pb``:
+``pack_conv``'s, made once by their callers); when they are None the CUDA
+implementation packs on the fly and the CPU one does not need them.
 
 The operators are defined with ``torch.library.Library`` and ``impl``: on
 the H100 that dispatcher path cost less host time per call than the
@@ -38,7 +41,7 @@ import torch
 
 from ugpg_tpu_torch.ops.cuda import double_conv, resize2x, uncertainty
 
-__all__ = ["NAMESPACE", "fused_double_conv", "upsample2x", "upsample2x_bf16_taps",
+__all__ = ["NAMESPACE", "fused_double_conv", "conv3x3", "upsample2x", "upsample2x_bf16_taps",
            "uncertainty_from_logits"]
 
 NAMESPACE = "ugpg_torch"
@@ -47,6 +50,7 @@ _CL = torch.channels_last
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("fused_double_conv(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
             "Tensor? pw1, Tensor? pb1, Tensor? pw2, Tensor? pb2) -> Tensor")
+_LIB.define("conv3x3(Tensor x, Tensor w, Tensor b, Tensor? pw, Tensor? pb) -> Tensor")
 _LIB.define("upsample2x(Tensor x) -> Tensor")
 _LIB.define("upsample2x_bf16_taps(Tensor x) -> Tensor")
 _LIB.define("uncertainty_from_logits(Tensor logits) -> Tensor")
@@ -66,6 +70,20 @@ def _double_conv_cpu(x, w1, b1, w2, b2, pw1, pb1, pw2, pb2):
 def _double_conv_fake(x, w1, b1, w2, b2, pw1, pb1, pw2, pb2):
     n, _, h, w = x.shape
     return torch.empty((n, w2.shape[0], h, w), dtype=x.dtype, device=x.device, memory_format=_CL)
+
+
+# ---------------------------------------------------------------- conv3x3
+def _conv_cuda(x, w, b, pw, pb):
+    return double_conv.conv3x3(x, w, b, packed=None if pw is None else (pw, pb))
+
+
+def _conv_cpu(x, w, b, pw, pb):
+    return double_conv.conv3x3_reference(x, w, b).contiguous(memory_format=_CL)
+
+
+def _conv_fake(x, w, b, pw, pb):
+    n, _, h, wd = x.shape
+    return torch.empty((n, w.shape[0], h, wd), dtype=x.dtype, device=x.device, memory_format=_CL)
 
 
 # ---------------------------------------------------------------- upsample2x
@@ -90,6 +108,7 @@ def _uncertainty_fake(logits):
 
 _IMPLS = {
     "fused_double_conv": (_double_conv_cuda, _double_conv_cpu, _double_conv_fake),
+    "conv3x3": (_conv_cuda, _conv_cpu, _conv_fake),
     "upsample2x": (lambda x: resize2x.upsample2x(x), _upsample_cpu, _upsample_fake),
     "upsample2x_bf16_taps": (lambda x: resize2x.upsample2x_bf16_taps(x),
                              lambda x: resize2x.upsample2x_bf16_taps_reference(x),
@@ -103,6 +122,7 @@ for _name, (_cuda, _cpu, _fake) in _IMPLS.items():
     torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake, lib=_LIB)
 
 fused_double_conv = torch.ops.ugpg_torch.fused_double_conv.default
+conv3x3 = torch.ops.ugpg_torch.conv3x3.default
 upsample2x = torch.ops.ugpg_torch.upsample2x.default
 upsample2x_bf16_taps = torch.ops.ugpg_torch.upsample2x_bf16_taps.default
 uncertainty_from_logits = torch.ops.ugpg_torch.uncertainty_from_logits.default

@@ -1,1 +1,3 @@
-"""Device-level parallelism of the port: the uncertainty pipeline."""
+"""Device-level parallelism of the port: the device mesh (``mesh.py``),
+spatially sharded and column-parallel serving (``spatial.py``,
+``tensor.py``) and the uncertainty pipeline (``pipeline.py``)."""

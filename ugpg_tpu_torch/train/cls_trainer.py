@@ -137,7 +137,7 @@ class HerlevTrainer:
         Not ported, raising ``NotImplementedError``: ``mesh``,
         ``axis_name``, a ``checkpoint_backend`` other than ``"pth"``, and
         the config's ``scan_epochs`` and ``scan_chunk_bytes`` (ROADMAP.md
-        queue A, item 4, and "Not to port"); ``pipeline_unc`` with a
+        queue A, item 4b, and "Not to port"); ``pipeline_unc`` with a
         ``mesh`` raises ``ValueError``."""
         self.config = dict(config)
         self.device = resolve_device(device)

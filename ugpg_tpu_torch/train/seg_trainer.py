@@ -139,7 +139,7 @@ class UncertaintyGuidedProgressiveTrainer:
         Options of the JAX trainer that are not ported raise
         ``NotImplementedError``: ``mesh``, ``shard_model``, ``axis_name``,
         ``checkpoint_backend`` other than ``"pth"``, ``scan_epochs`` and
-        ``scan_chunk_bytes`` (ROADMAP.md queue A, item 4, and "Not to
+        ``scan_chunk_bytes`` (ROADMAP.md queue A, item 4b, and "Not to
         port"); ``pipeline_unc`` with a ``mesh`` raises ``ValueError``."""
         self.device = resolve_device(device)
         self.pipeline_unc = int(pipeline_unc)

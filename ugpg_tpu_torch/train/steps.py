@@ -123,7 +123,7 @@ def _external(unc, n: int, device: torch.device, spatial: tuple = ()) -> torch.T
     return unc
 
 
-def not_ported(where: str = "ROADMAP.md queue A, item 4", **asked: bool) -> None:
+def not_ported(where: str = "ROADMAP.md queue A, item 4b", **asked: bool) -> None:
     """Raise ``NotImplementedError`` naming every option asked for that the
     port does not have yet, and ``where`` the roadmap places it."""
     missing = [name for name, on in asked.items() if on]
