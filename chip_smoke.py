@@ -226,7 +226,23 @@
    phase 10's tree within 1e-4 of the run without it, serve --mesh 2 on one
    card exiting 2 with the visible-devices message.  conv3x3 timed over one
    shard's 18 convs of the 2 x 1 grid at 1024 px, float32.
-16. Prints a "kernels" JSON line, then as its last line
+16. Training on a device mesh, every mesh [cuda:0] * n (the overhead,
+   not scaling), TF32 off.  The trainer at full width on synthetic disks
+   (batch 8, fused loss, stages 1-2) on 2 x 1 and on 2 x 2 with
+   shard_model: each stage's first step against the unsharded trainer from
+   the same seed (metrics rtol 2e-5), one loss forward and one backward
+   launch per data shard, the loss kernels held against their plain
+   versions on those shards' own inputs, stage-2 images/s against the
+   unsharded trainer in turns.  The spatial train step at stage 4, full
+   width, on a 992 x 992 crop of a phase-9 tile (the seeded stage 3 as the
+   uncertainty source), 2 x 1 and 2 x 2 (W over "model"): step 0 against
+   the unsharded make_seg_train_step on the crop (metrics rtol 2e-4, BN
+   stats 1e-4), 14 conv3x3 and one loss forward and backward launch per
+   shard, both held on their own inputs, seconds per step and peak memory
+   against the unsharded step.  train_monuseg --mesh 2 --native_finetune 1
+   on phase 9's tree and its _native.pth served by SlidePredictor;
+   train_herlev --mesh 2 on phase 11's tree.
+17. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -309,6 +325,7 @@ from ugpg_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import double_conv as double_conv_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import resize2x as resize2x_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import uncertainty as uncertainty_mod  # noqa: E402
+from ugpg_tpu_torch.ops.cuda import uncertainty_bce as uncertainty_bce_mod  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import library as library_ops  # noqa: E402
 from ugpg_tpu_torch.ops.cuda.double_conv import (  # noqa: E402
     F32_TILE,
@@ -348,6 +365,7 @@ from ugpg_tpu_torch.parallel.mesh import make_mesh, tp_sharded  # noqa: E402
 from ugpg_tpu_torch.parallel.pipeline import UncertaintyPipeline  # noqa: E402
 from ugpg_tpu_torch.parallel.spatial import (  # noqa: E402
     SpatialWeights,
+    make_spatial_train_step,
     pad_to_divisible,
     spatial_predict,
 )
@@ -3580,6 +3598,305 @@ def mesh_serving(tmp: Path, root: Path, card: str) -> tuple[dict, dict]:
                       "spatial": spatial_out, "predictors": pred_out, "commands": commands}
 
 
+# ------------------------------------------------------------ phase 16: training on a device mesh
+MESH_TRAIN_GRIDS = (((2, 1), False), ((2, 2), True))  # (data, model), shard_model
+MESH_TRAIN_TURNS = 5  # stage-2 epochs of the mesh and the unsharded trainer, in turns
+MESH_TRAIN_WIDTH = 1.0
+SPATIAL_PX = 992  # a phase-9 tile cropped to the stage-4 grids' divisor (2 * 16 and 2 * 16)
+SPATIAL_GRIDS = (((2, 1), None), ((2, 2), "model"))
+SPATIAL_TIMED = 3
+SEG_STEP_KEYS = ("final_loss", "base_loss", "dice", "accuracy", "uncertainty_weight_mean",
+                 "uncertainty_weight_std")
+
+
+@contextlib.contextmanager
+def captured_loss():
+    """The arguments of every loss-kernel forward made inside (each data
+    shard's own logits, masks and probabilities), held to check the
+    kernels on after the counted run."""
+    calls, fwd = [], uncertainty_bce_mod.uncertainty_weighted_bce_forward
+
+    def record(x, z, p, pos_weight, alpha):
+        calls.append((x, z, p, pos_weight, alpha))
+        return fwd(x, z, p, pos_weight, alpha)
+
+    uncertainty_bce_mod.uncertainty_weighted_bce_forward = record
+    try:
+        yield calls
+    finally:
+        uncertainty_bce_mod.uncertainty_weighted_bce_forward = fwd
+
+
+@torch.no_grad()
+def hold_loss(calls: list, g: float, label: str, card: str) -> dict:
+    """Both loss kernels against their plain versions on the main path's
+    own per-shard inputs, the backward at the shard's upstream gradient
+    ``g`` (1 / shards): phase 6's tolerances."""
+    worst = dict.fromkeys(LOSS_KERNELS, 0.0)
+    gup = torch.full((), g, device=DEV)
+    for x, z, p, pw, alpha in calls:
+        got = uncertainty_weighted_bce_forward(x, z, p, pw, alpha)
+        want = uncertainty_weighted_bce_reference(x, z, p, pw, alpha)
+        dx = uncertainty_weighted_bce_backward(x, z, p, pw, alpha, gup)
+        want_dx = uncertainty_weighted_bce_backward_reference(x, z, p, pw, alpha, gup)
+        torch.cuda.synchronize()
+        rel = max(abs(a.item() - b.item()) / abs(b.item()) for a, b in zip(got, want))
+        err = (dx - want_dx).abs().max().item()
+        assert rel <= 1e-5 and err <= 1e-5 * want_dx.abs().max().item(), (label, rel, err)
+        worst["uncertainty_weighted_bce_fwd"] = max(
+            worst["uncertainty_weighted_bce_fwd"],
+            max(abs(a.item() - b.item()) for a, b in zip(got, want)))
+        worst["uncertainty_weighted_bce_bwd"] = max(worst["uncertainty_weighted_bce_bwd"], err)
+    log(f"check loss kernels at the main path's shapes and inputs, {label}: {len(calls)} "
+        f"shard calls of shapes {sorted({tuple(c[0].shape) for c in calls})}, max_abs_err "
+        f"{json.dumps(worst)} -> ok on {card}")
+    return worst
+
+
+def _assert_close(got: dict, want: dict, keys, rtol: float, atol: float, label: str) -> float:
+    worst = 0.0
+    for k in keys:
+        a, b = float(got[k]), float(want[k])
+        assert abs(a - b) <= atol + rtol * abs(b), (label, k, a, b)
+        worst = max(worst, abs(a - b) / max(abs(b), 1e-12))
+    return worst
+
+
+def mesh_trainers(card: str) -> tuple[dict, dict, dict]:
+    """Phase 16, the mesh trainer at full width: synthetic disks, batch 8,
+    fused loss, stages 1 and 2 on [cuda:0] * 2 (2 x 1) and [cuda:0] * 4
+    (2 x 2, shard_model).  Each stage's first epoch (one step) against the
+    unsharded trainer built from the same seed: metrics rtol 2e-5.  The
+    counters, reset just before the mesh epoch, must show one loss forward
+    and one backward per data shard; the kernels are then held on those
+    shards' inputs (stage 2 from the mesh trainer's stage-1 result in
+    both).  Stage-2 images/s, mesh and unsharded epochs in turns."""
+    images, masks = disk_dataset(40, 64, seed=16)
+    noise = np.random.default_rng(16).standard_normal(images.shape).astype(np.float32)
+    images = np.clip(images + 0.05 * noise, 0.0, 1.0)  # no exact ties between the two runs
+    first = ArrayLoader(images[:TRAIN_BATCH], masks[:TRAIN_BATCH], batch_size=TRAIN_BATCH)
+    timed = ArrayLoader(images[8:], masks[8:], batch_size=TRAIN_BATCH)
+    cfgs = {s: {**DEFAULT_STAGE_CONFIGS[s], "epochs_per_stage": 1} for s in (1, 2)}
+    launches, errors, out = dict.fromkeys(LOSS_KERNELS, 0), dict.fromkeys(LOSS_KERNELS, 0.0), {}
+    for shape, shard_model in MESH_TRAIN_GRIDS:
+        label = f"{shape[0]}x{shape[1]}" + (" shard_model" if shard_model else "")
+        trainers = {name: UncertaintyGuidedProgressiveTrainer(
+            fused_loss=True, width=MESH_TRAIN_WIDTH, stage_configs=cfgs, verbose=False, seed=16,
+            mesh=mesh, shard_model=shard_model) for name, mesh in (("mesh", mesh_of(shape)),
+                                                                   ("unsharded", None))}
+        worst = 0.0
+        for stage in (1, 2):
+            if stage > 1:
+                # stage 2 from the mesh trainer's weights in both: RMSprop's first step
+                # moves a near-zero gradient's element by ~10 lr either way
+                trainers["mesh"].transfer_weights(1, 2)
+                for s in (1, 2):
+                    trainers["unsharded"]._model(s).load_state_dict(
+                        trainers["mesh"]._model(s).state_dict())
+            _lib.reset_launch_counts()
+            with captured_loss() as calls:
+                got = trainers["mesh"].train_epoch(first, stage)
+            torch.cuda.synchronize()
+            counts = _lib.launch_counts()
+            assert counts == {k: shape[0] for k in LOSS_KERNELS}, (label, stage, counts)
+            for k in LOSS_KERNELS:
+                launches[k] += counts[k]
+            for k, v in hold_loss(calls, 1.0 / shape[0], f"mesh trainer {label}, stage {stage}",
+                                  card).items():
+                errors[k] = max(errors[k], v)
+            del calls
+            want = trainers["unsharded"].train_epoch(first, stage)
+            worst = max(worst, _assert_close(dict(zip(SEG_STEP_KEYS, got)),
+                                             dict(zip(SEG_STEP_KEYS, want)), SEG_STEP_KEYS,
+                                             2e-5, 1e-7, f"mesh trainer {label} stage {stage}"))
+        ips = {name: [] for name in trainers}
+        for _ in range(MESH_TRAIN_TURNS):
+            for name, tr in trainers.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train_epoch(timed, 2)  # ends by reading the epoch's metrics back
+                ips[name].append(len(timed) * TRAIN_BATCH / (time.perf_counter() - t0))
+        out[label] = {"step0_max_rel_err": worst,
+                      **{f"{name}_images_per_s": statistics.median(v) for name, v in ips.items()},
+                      **{f"{name}_images_per_s_spread": [min(v), max(v)]
+                         for name, v in ips.items()}}
+        log(f"mesh training: trainer on [{DEV}] * {shape[0] * shape[1]} ({label}), full width, "
+            f"fused loss, batch {TRAIN_BATCH}: step 0 of stages 1-2 against the unsharded trainer "
+            f"max rel err {worst:.2e}; loss launches per step {shape[0]} + {shape[0]} (one "
+            f"forward and one backward per data shard); stage-2 images/s, median of "
+            f"{MESH_TRAIN_TURNS} epochs in turns: mesh {out[label]['mesh_images_per_s']:.2f} "
+            f"against unsharded {out[label]['unsharded_images_per_s']:.2f} (spreads "
+            f"{out[label]['mesh_images_per_s_spread']}, "
+            f"{out[label]['unsharded_images_per_s_spread']}) on {card}")
+        del trainers
+        torch.cuda.empty_cache()
+    return launches, errors, out
+
+
+def spatial_training(mon_root: Path, card: str) -> tuple[dict, dict, dict]:
+    """Phase 16, the spatial train step at stage 4, full width, on a 992 x
+    992 crop of a phase-9 tile with the seeded stage 3 as the uncertainty
+    source (BN folded, conv3x3 per shard), fused loss, float32, TF32 off:
+    step 0 on the 2 x 1 and 2 x 2 (W over 'model') grids against the
+    unsharded make_seg_train_step on the same crop (metrics rtol 2e-4 /
+    atol 1e-5, BN stats rtol 1e-4 / atol 1e-6); the counters, reset just
+    before, must show 14 conv3x3 launches and one loss forward and backward
+    per shard; conv3x3 and the loss kernels held on those inputs; seconds
+    per step and peak memory, sharded against unsharded."""
+    ds = MoNuSegDataset(str(mon_root), image_size=TILE_PX, split="train", augment=False)
+    image, mask = ds[0]
+    batch = (np.ascontiguousarray(image[None, :SPATIAL_PX, :SPATIAL_PX]),
+             np.ascontiguousarray(mask[None, :SPATIAL_PX, :SPATIAL_PX]))
+    prev = _seeded(PGUNet3(use_bn=True, width=MESH_TRAIN_WIDTH), 31).eval()
+    base = _seeded(PGUNet4(use_bn=True, width=MESH_TRAIN_WIDTH), 41)
+    launches = {"conv3x3": 0, **dict.fromkeys(LOSS_KERNELS, 0)}
+    errors, out = {"conv3x3": 0.0, **dict.fromkeys(LOSS_KERNELS, 0.0)}, {}
+
+    def fresh():
+        model = copy.deepcopy(base)
+        return model, torch_rmsprop(model.parameters(), 1e-4, weight_decay=1e-4)
+
+    plain, opt = fresh()
+    plain_step = make_seg_train_step(plain, opt, 4, SPATIAL_PX, prev_model=prev,
+                                     prev_resolution=SPATIAL_PX // 2, fused_loss=True)
+    want = plain_step(batch, PW)
+    want_stats = {k: v.clone() for k, v in plain.state_dict().items() if "running" in k}
+    plain_s = time_ms(lambda: plain_step(batch, PW), (), reps=1, repeats=SPATIAL_TIMED) / 1e3
+    plain_peak = peak_gib(lambda: plain_step(batch, PW))
+    del plain, opt, plain_step
+    for shape, w_axis in SPATIAL_GRIDS:
+        mesh = mesh_of(shape)
+        shards = shape[0] * (shape[1] if w_axis else 1)
+        label = f"{shape[0]}x{shape[1]}" + (f" (W over {w_axis})" if w_axis else "")
+        model, opt = fresh()
+        step = make_spatial_train_step(model, opt, 4, mesh, w_axis=w_axis, prev_model=prev,
+                                       fused_loss=True)
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        with captured_conv3x3() as convs, captured_loss() as losses:
+            got = step(batch, PW)
+        torch.cuda.synchronize()
+        counts = _lib.launch_counts()
+        assert counts == {"conv3x3": 14 * shards, **{k: shards for k in LOSS_KERNELS}}, \
+            (label, counts)
+        for k, v in counts.items():
+            launches[k] += v
+        errors["conv3x3"] = max(errors["conv3x3"], hold_conv3x3(convs, f"spatial step {label}",
+                                                                card))
+        for k, v in hold_loss(losses, 1.0 / shards, f"spatial step {label}", card).items():
+            errors[k] = max(errors[k], v)
+        del convs, losses
+        metric_err = _assert_close(got, want, SEG_STEP_KEYS, 2e-4, 1e-5, f"spatial {label}")
+        stats = model.state_dict()
+        stat_err = 0.0
+        for k, v in want_stats.items():
+            d = (stats[k] - v).abs()
+            assert bool((d <= 1e-6 + 1e-4 * v.abs()).all()), (label, k, d.max().item())
+            stat_err = max(stat_err, d.max().item())
+        step_s = time_ms(lambda: step(batch, PW), (), reps=1, repeats=SPATIAL_TIMED) / 1e3
+        peak = peak_gib(lambda: step(batch, PW))
+        out[label] = {"shards": shards, "metric_max_rel_err": metric_err,
+                      "bn_stats_max_abs_err": stat_err, "s_per_step": step_s,
+                      "unsharded_s_per_step": plain_s, "peak_gib": peak,
+                      "unsharded_peak_gib": plain_peak, "dice": float(got["dice"]),
+                      "uncertainty_mean": float(got["uncertainty_weight_mean"])}
+        log(f"mesh training: spatial train step, stage 4, full width, {SPATIAL_PX} px crop, "
+            f"{label} grid on [{DEV}] * {shape[0] * shape[1]}: launches {json.dumps(counts)}; "
+            f"metrics max rel err {metric_err:.2e} and BN stats max|d| {stat_err:.2e} against the "
+            f"unsharded step; {step_s:.4f} s per step against {plain_s:.4f} unsharded (CUDA "
+            f"events, median of {SPATIAL_TIMED}), peak {peak:.3f} GiB against {plain_peak:.3f} "
+            f"on {card}")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return launches, errors, out
+
+
+def mesh_train_commands(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dict]:
+    """Phase 16, the command lines in this process: train_monuseg --mesh 2
+    --native_finetune 1 on phase 9's tree (stages 1-2, one epoch, batch 8,
+    then stage 2 fine-tuned on the 1000 px tiles over the 2 x 1 grid, its
+    uncertainty source's conv3x3 per shard: 6 launches per shard and
+    native step, train and validation), its _native.pth served by
+    SlidePredictor on a tile (5 double-conv, 2 upsample, 1 uncertainty
+    launches); train_herlev --mesh 2 on phase 11's tree (stage 1, one
+    epoch, batch 16).  Both commands' --mesh 2 names cuda:0 twice."""
+    import ugpg_tpu_torch.cli as cli_pkg
+    from ugpg_tpu_torch.cli import train_monuseg as train_monuseg_cli
+
+    # --mesh takes the visible cards and exits 2 asking for more (phase 15); on one
+    # card the commands' mesh names cuda:0 as often as the spec asks
+    def one_card_mesh(spec, device="cuda"):
+        n_data, n_model = ([int(v) for v in spec.split(",")] + [1])[:2]
+        return mesh_of((n_data, n_model))
+
+    parse_mesh = cli_pkg.parse_mesh
+    cli_pkg.parse_mesh = one_card_mesh
+    try:
+        out = tmp / "mesh_cli"
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_monuseg_cli.main([
+            "--data_dir", str(mon_root), "--output_dir", str(out), "--stages", "1", "2",
+            "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--mesh", "2",
+            "--native_finetune", "1", "--native_size", str(TILE_PX)])
+        wall = time.perf_counter() - t0
+        counts = _lib.launch_counts()
+        herlev_root = tmp / "mesh_herlev"
+        write_herlev_tree(herlev_root)
+        t0 = time.perf_counter()
+        cls = train_herlev.main(["--data_dir", str(herlev_root), "--output_dir",
+                                 str(tmp / "mesh_herlev_out"), "--stages", "1", "--epochs", "1",
+                                 "--batch_size", str(HERLEV_BATCH), "--mesh", "2"])
+        herlev_wall = time.perf_counter() - t0
+    finally:
+        cli_pkg.parse_mesh = parse_mesh
+    native_steps = 4  # two train tiles, then two validation tiles
+    assert trainer.mesh.shape == {"data": 2, "model": 1} and not trainer.preempted
+    assert counts == {"conv3x3": 6 * 2 * native_steps}, counts
+    obj = read_checkpoint(out / "ug_pgunet_stage2_native.pth")
+    assert obj["native_finetune"] is True and obj["stage"] == 2, sorted(obj)
+    hist = obj["history"]
+    assert all(np.isfinite(hist[k]).all() for k in ("train_loss", "val_loss")), hist
+    tile = load_rgb(str(mon_root / "val" / "images" / "val_tile_0.tif"))[None].astype(
+        np.float32) / 255.0
+    _lib.reset_launch_counts()
+    preds, probs, unc = SlidePredictor(str(out / "ug_pgunet_stage2_native.pth"))(tile)
+    served = _lib.launch_counts()
+    assert served == {"fused_double_conv": 5, "upsample2x": 2, "uncertainty_from_logits": 1}, \
+        served
+    assert probs.shape == (1, TILE_PX, TILE_PX, 1) and np.isfinite(probs).all()
+    assert np.isfinite(unc).all() and set(np.unique(preds)) <= {0.0, 1.0}
+    log(f"mesh training: train_monuseg --mesh 2 --native_finetune 1 (stages 1-2, one epoch, "
+        f"then stage 2 at {TILE_PX} px) in {wall:.1f} s: launches {json.dumps(counts)}, native "
+        f"history {json.dumps(hist)}; its _native.pth served by SlidePredictor on a {TILE_PX} px "
+        f"tile: launches {json.dumps(served)}, positive share {float(preds.mean()):.4f} on "
+        f"{card}")
+
+    assert cls.mesh.shape == {"data": 2, "model": 1} and (1, "mesh") in cls._train_steps
+    assert np.isfinite(cls.history["train_loss"]).all(), cls.history
+    assert (tmp / "mesh_herlev_out" / "herlev_stage1_best.pth").exists()
+    log(f"mesh training: train_herlev --mesh 2 (stage 1, one epoch, batch {HERLEV_BATCH}) in "
+        f"{herlev_wall:.1f} s: train loss {cls.history['train_loss']}, val acc "
+        f"{cls.history['val_acc']} on {card}")
+    return counts, {"monuseg_s": wall, "native_history": hist, "herlev_s": herlev_wall}
+
+
+def mesh_training(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dict, dict]:
+    """Phase 16: training on a device mesh of one card named more than once."""
+    t0 = time.perf_counter()
+    with tf32(False):
+        launches, errors, trainers = mesh_trainers(card)
+        spatial_launches, spatial_errors, spatial = spatial_training(mon_root, card)
+        command_launches, commands = mesh_train_commands(tmp, mon_root, card)
+    for source in (spatial_launches, command_launches):
+        for k, v in source.items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in spatial_errors.items():
+        errors[k] = max(errors.get(k, 0.0), v)
+    log(f"mesh training: phase 16 in {time.perf_counter() - t0:.1f} s on {card}")
+    return launches, errors, {"trainers": trainers, "spatial": spatial, "commands": commands}
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -3649,6 +3966,9 @@ def main():
         torch.cuda.empty_cache()
         # phase 10's tree and trained checkpoint for test_monuseg --mesh
         mesh_launches, phase15 = mesh_serving(Path(mon_tmp), Path(mon_tmp) / "MoNuSeg", card)
+        torch.cuda.empty_cache()
+        train_mesh_launches, train_mesh_errors, phase16 = mesh_training(
+            Path(mon_tmp), Path(mon_tmp) / "MoNuSeg", card)
     for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's; the int8 path's
         launches[kernel] += stack_launches[kernel] + int8_launches[kernel]
     # the int8 path is the bf16-taps instance's main path; the pipeline's epoch, the loss
@@ -3663,6 +3983,12 @@ def main():
     launches["conv3x3"] = mesh_launches["conv3x3"]
     totals["conv3x3"] = phase15["spatial"]["conv3x3_one_shard"]
     errors["conv3x3"] = phase15["conv3x3_max_abs_err"]
+    # phase 16: the frozen stage's conv3x3 per shard of the spatial steps and the native
+    # fine-tune; the loss kernels per data shard of the mesh trainers and the spatial steps
+    for kernel, n in train_mesh_launches.items():
+        launches[kernel] += n
+    for kernel, err in train_mesh_errors.items():
+        errors[kernel] = max(errors[kernel], err)
 
     rows = []
     for kernel, (source, replaces) in KERNELS.items():
@@ -3753,6 +4079,14 @@ def main():
                     f"max|d| {v['max_abs_err']:.3e}, bf16 gap {v['bf16_max_abs_gap']:.3e}"
                     for label, v in spatial.items() if label != "conv3x3_one_shard")
         + f"; Predictor max|d| {json.dumps(phase15['predictors'])} on {card}")
+    trainers, spatial = phase16["trainers"], phase16["spatial"]
+    log("mesh training (one card named 2 or 4 times: the overhead, not scaling): trainer images/s "
+        + "; ".join(f"{label} {v['mesh_images_per_s']:.2f} against {v['unsharded_images_per_s']:.2f}"
+                    for label, v in trainers.items())
+        + "; spatial stage-4 step at " + str(SPATIAL_PX) + " px "
+        + "; ".join(f"{label} {v['s_per_step']:.4f} s against {v['unsharded_s_per_step']:.4f}, "
+                    f"peak {v['peak_gib']:.3f} against {v['unsharded_peak_gib']:.3f} GiB"
+                    for label, v in spatial.items()) + f" on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@ the reference widths with stages 1-2 and a few images: the checkpoints and
 log a run writes (read back by the JAX package's importer), the head-only
 transfer, a pretrained frozen encoder, a run preempted at stage 2 and
 resumed that ends on the same bits as an uninterrupted one, and the
-options and flags that are not ported."""
+options and flags that are not ported (or are since)."""
 
 import csv
 import json
@@ -20,6 +20,7 @@ from ugpg_tpu_torch.data.synthetic import ArrayLoader
 from ugpg_tpu_torch.io.checkpoint import read_checkpoint, save_checkpoint
 from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS
 from ugpg_tpu_torch.models.pgunet import PGUNet1
+from ugpg_tpu_torch.parallel.mesh import make_mesh
 from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer, create_config
 from ugpg_tpu_torch.utils.preemption import PreemptionGuard
 
@@ -172,33 +173,51 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(axis_name="data"), dict(checkpoint_backend="msgpack"),
+    dict(mesh=2), dict(axis_name="data"), dict(checkpoint_backend="msgpack"),
     dict(config=dict(scan_epochs=True)), dict(config=dict(scan_chunk_bytes=1 << 30)),
     dict(config=dict(tb_logdir="tb")), dict(config=dict(remat=True)),
     dict(config=dict(pipeline_unc=1)),
 ])
 def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
                                                one_torch_thread):
-    """The config's tb_logdir, remat and pipeline_unc, ported since, train
-    stages 1-2 (at 8/16 px); beside a mesh they still raise (pipeline_unc: the JAX
-    package's ValueError)."""
+    """The config's tb_logdir, remat and pipeline_unc, and the mesh (the CPU
+    named twice), ported since, train stages 1-2 (at 8/16 px); beside a mesh
+    pipeline_unc raises the JAX package's ValueError and the others build.
+    axis_name, ported since, raises JAX's unbound-axis NameError at the
+    first train step and validates.  The scan options and other backends
+    still raise."""
     config = kwargs.pop("config", {})
-    if set(config) & {"tb_logdir", "remat", "pipeline_unc"}:
+    if set(config) & {"tb_logdir", "remat", "pipeline_unc"} or set(kwargs) & {"mesh",
+                                                                              "axis_name"}:
         config = {k: (str(tmp_path / v) if k == "tb_logdir" else v) for k, v in config.items()}
+        if "mesh" in kwargs:
+            kwargs["mesh"] = make_mesh(kwargs["mesh"], devices=["cpu"] * kwargs["mesh"])
         train, val = _loaders(n_train=2)
         monkeypatch.setitem(sys.modules, "tensorflow", None)  # TensorBoard's own stub
         monkeypatch.setitem(CLS_STAGE_RESOLUTIONS, 1, 8)  # the steps resize to 8/16 px
         monkeypatch.setitem(CLS_STAGE_RESOLUTIONS, 2, 16)
-        tr = HerlevTrainer(_config(**config), device="cpu")
+        tr = HerlevTrainer(_config(**config), device="cpu", **kwargs)
+        if "axis_name" in kwargs:
+            tr.setup_optimizer_scheduler(1)
+            with pytest.raises(NameError, match="unbound axis name: data"):
+                tr.train_epoch(train[1], 1)
+            assert np.isfinite(tr.validate_epoch(val[1], 1)[0])
+            return
         hist = tr.train_progressive(train, val, str(tmp_path / "out"))
         assert len(hist["train_loss"]) == 2 and np.isfinite(hist["train_loss"]).all()
         if "tb_logdir" in config:
             assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
         assert tr.models[2].unet.inc.conv.remat == ("remat" in config)
         assert list(tr._pipelines) == ([2] if "pipeline_unc" in config else [])
-        with pytest.raises((NotImplementedError, ValueError),
-                           match="not ported|mutually exclusive"):
-            HerlevTrainer(_config(**config), device="cpu", mesh=object())
+        assert ((2, "mesh") in tr._train_steps) == ("mesh" in kwargs)
+        if "mesh" in kwargs:
+            return
+        mesh = make_mesh(2, devices=["cpu"] * 2)
+        if "pipeline_unc" in config:
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                HerlevTrainer(_config(**config), device="cpu", mesh=mesh)
+        else:
+            HerlevTrainer(_config(**config), device="cpu", mesh=mesh)
         return
     cfg = _config(**config)
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -211,30 +230,49 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
     ["--checkpoint_backend", "orbax"],
 ])
 def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys, monkeypatch):
-    """Exit 2 naming the flag.  --tb_logdir, --remat and --pipeline_unc,
-    ported since, reach the trainer's config (--pipeline_unc: the train
-    loaders drop the ragged final batch); beside --mesh the command still
-    exits 2, naming --mesh."""
-    if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc"):
+    """Exit 2 naming the flag.  Ported since: --tb_logdir, --remat and
+    --pipeline_unc reach the trainer's config (--pipeline_unc: the train
+    loaders drop the ragged final batch), --mesh reaches the trainer (and
+    beside --pipeline_unc exits 2 with the JAX package's ValueError);
+    across hosts (a coordinator address set) --mesh exits 2, naming item
+    4b.4."""
+    if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh"):
         from ugpg_tpu_torch.train import cls_trainer
 
         seen = {}
+        real = cls_trainer.HerlevTrainer
 
         def trainer(config, **kwargs):
-            seen.update(config)
+            seen.update(config, **kwargs)
             raise KeyboardInterrupt  # stop before training
 
         monkeypatch.setattr(cls_trainer, "HerlevTrainer", trainer)
         root = write_herlev_tree(tmp_path / "Herlev")
+        argv = ["--data_dir", str(root), "--device", "cpu", "--output_dir", str(tmp_path / "o")]
         with pytest.raises(KeyboardInterrupt):
-            train_herlev.cli(["--data_dir", str(root), "--device", "cpu", *flags])
-        key = flags[0][2:]
-        assert seen[key] == {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1}[key]
-        flags = ["--mesh", "4,2", *flags]
+            train_herlev.cli(argv + flags)
+        if flags[0] == "--mesh":
+            assert seen["mesh"].shape == {"data": 4, "model": 2}
+            monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
+        else:
+            key = flags[0][2:]
+            assert seen[key] == {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1}[key]
+            with pytest.raises(KeyboardInterrupt):
+                train_herlev.cli(argv + flags + ["--mesh", "2"])
+            assert seen["mesh"].shape == {"data": 2, "model": 1}
+            if key != "pipeline_unc":
+                return
+            monkeypatch.setattr(cls_trainer, "HerlevTrainer", real)
+            with pytest.raises(SystemExit) as info:
+                train_herlev.cli(argv + flags + ["--mesh", "2"])
+            assert info.value.code == 2 and "mutually exclusive" in capsys.readouterr().err
+            return
     with pytest.raises(SystemExit) as info:
         train_herlev.cli(["--data_dir", str(tmp_path), "--device", "cpu", *flags])
     err = capsys.readouterr().err
     assert info.value.code == 2 and "not ported" in err and flags[0] in err
+    if flags[0] == "--mesh":
+        assert "item 4b.4" in err
 
 
 def test_command_line_trains_stage_1(tmp_path, monkeypatch):

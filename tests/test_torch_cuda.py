@@ -179,10 +179,17 @@ def test_uncertainty_kernel_repeats_to_the_same_bits(cuda):
 
 @pytest.mark.parametrize("batch", [1, 8, 64])
 def test_uncertainty_kernel_is_one_launch_per_call(cuda, batch):
+    # The wrapper's counter gives the launches (exact); the profiler shows
+    # that the device ran the uncertainty kernel and nothing else.  Its
+    # count is held to at most ``calls``: it lost a launch from a window
+    # on an H100 (ROADMAP.md, section C), as in
+    # test_uncertainty_bce_forward_is_one_kernel_launch.
     x = torch.randn(batch, 1, 256, 256, device=cuda)
     calls = 5
+    _lib.reset_launch_counts()
     kernels = _kernels_in_profile(lambda: uncertainty_from_logits(x), calls)
-    assert sum(kernels.values()) == calls, kernels
+    assert _lib.launch_counts() == {"uncertainty_from_logits": calls + 1}
+    assert 0 < sum(kernels.values()) <= calls, kernels
     assert all("uncertainty_kernel" in k for k in kernels), kernels
 
 

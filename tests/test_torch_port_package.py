@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import ugpg_tpu_torch
+from tests.test_data_monuseg import write_monuseg_tree
 from ugpg_tpu_torch.cli import export_model, parse_mesh, serve, test_monuseg, train_monuseg
 from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset
 from ugpg_tpu_torch.device import resolve_device
@@ -134,32 +135,49 @@ def test_options_outside_the_slice_raise(kwargs, stage1_pth):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(shard_model=True), dict(axis_name="data"),
+    dict(mesh=2), dict(shard_model=True), dict(axis_name="data"),
     dict(checkpoint_backend="msgpack"), dict(scan_epochs=True), dict(scan_chunk_bytes=1 << 30),
     dict(tb_logdir="tb"), dict(remat=True), dict(pipeline_unc=1),
 ])
 def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
                                                one_torch_thread):
     """tb_logdir, remat and pipeline_unc, ported since, train two stages;
-    beside a mesh they still raise (pipeline_unc: the JAX package's
-    ValueError).  TensorBoard runs on its own stub, without TensorFlow."""
-    if set(kwargs) & {"tb_logdir", "remat", "pipeline_unc"}:
+    beside a mesh pipeline_unc raises the JAX package's ValueError, the
+    others build.  mesh (the CPU named twice) and shard_model (without a
+    mesh it acts on nothing, as in JAX), ported since, train two stages;
+    axis_name raises JAX's unbound-axis NameError at the first train step
+    and validates.  The scan options and other backends still raise."""
+    if set(kwargs) & {"tb_logdir", "remat", "pipeline_unc", "mesh", "shard_model",
+                      "axis_name"}:
         monkeypatch.setitem(sys.modules, "tensorflow", None)
         kw = {k: (tmp_path / v if k == "tb_logdir" else v) for k, v in kwargs.items()}
+        if "mesh" in kw:
+            kw["mesh"] = make_mesh(kw["mesh"], devices=["cpu"] * kw["mesh"])
         images, masks = disk_dataset(num_samples=2, image_size=16, seed=0)
         loader = ArrayLoader(images, masks, batch_size=2)
         cfgs = {s: {"resolution": 16, "epochs_per_stage": 1, "lr": 3e-4} for s in (1, 2)}
         tr = UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, width=0.25,
                                                  stage_configs=cfgs, **kw)
+        if "axis_name" in kw:
+            with pytest.raises(NameError, match="unbound axis name: data"):
+                tr.train_epoch(loader, 1)
+            assert np.isfinite(tr.validate_epoch(loader, 1)[0])
+            return
         h = tr.train_progressive(loader, loader, max_stages=2, save_dir=tmp_path / "out")
         assert len(h["train_loss"]) == 2 and np.isfinite(h["train_loss"]).all()
         if "tb_logdir" in kw:
             assert list(kw["tb_logdir"].glob("events.out.tfevents.*"))
         assert tr.models[2].inc.conv.remat == ("remat" in kw)
         assert list(tr._pipelines) == ([2] if "pipeline_unc" in kw else [])
-        with pytest.raises((NotImplementedError, ValueError),
-                           match="not ported|mutually exclusive"):
-            UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, mesh=object(), **kw)
+        assert ((2, "mesh") in tr._train_steps) == ("mesh" in kw)
+        if "mesh" in kw or "shard_model" in kw:
+            return
+        mesh = make_mesh(2, devices=["cpu"] * 2)
+        if "pipeline_unc" in kw:
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, mesh=mesh, **kw)
+        else:
+            UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, mesh=mesh, **kw)
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, **kwargs)
@@ -167,8 +185,10 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("call", ["finetune_native"])
 def test_trainer_calls_outside_the_slice_raise(call, tmp_path):
+    """finetune_native, ported since, needs a mesh: without one the JAX
+    package's ValueError (it runs in tests/test_torch_spatial_train.py)."""
     tr = UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         tr.finetune_native([])
 
 
@@ -235,6 +255,50 @@ def test_slide_predictor_parts_outside_the_slice_raise(part, stage1_pth, tmp_pat
             SlidePredictor(str(stage1_pth), device="cpu", w_axis="model")
 
 
+def test_parts_still_to_port_cite_their_roadmap_items(monkeypatch):
+    """The multi-device parts left (ROADMAP.md queue A, item 4b.4: the
+    multi-host --mesh over parallel/distributed.py; item 4b.5: the
+    pipeline's multi-device groups) raise naming their item, which
+    ROADMAP.md lists."""
+    from ugpg_tpu_torch.parallel import mesh as port_mesh
+    from ugpg_tpu_torch.parallel.pipeline import pipeline_devices
+
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    assert "4b.4" in roadmap and "4b.5" in roadmap
+    cpus = [torch.device("cpu", i) for i in range(3)]
+    with pytest.raises(NotImplementedError, match=r"item 4b\.5"):
+        pipeline_devices(1, cpus)  # a train group of two devices
+    with pytest.raises(NotImplementedError, match=r"item 4b\.5"):
+        pipeline_devices(2, cpus)  # an unc group of two
+    with pytest.raises(NotImplementedError, match=r"item 4b\.5"):
+        pipeline_devices(1, ["cpu", "cpu"], n_model=2)
+    assert "item 4b.4" in port_mesh.__doc__
+    monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
+    with pytest.raises(NotImplementedError, match=r"item 4b\.4"):
+        parse_mesh("2", "cpu")
+
+
+class _StubTrainer:
+    """Stands in for ``AugMoNuSegTrainer``: keeps its keyword arguments,
+    trains nothing, records ``finetune_native``'s call."""
+
+    def __init__(self, config, **kwargs):
+        self.kwargs, self.mesh, self.preempted, self.native = kwargs, kwargs.get("mesh"), False, None
+        self.stage_configs = {s: {"resolution": 16} for s in (1, 2, 3, 4)}
+
+    def setup_datasets(self, *a, **k):
+        pass
+
+    def make_loaders(self, **k):
+        return {}, {}
+
+    def train_progressive(self, *a, **k):
+        pass
+
+    def finetune_native(self, loader, **kwargs):
+        self.native = kwargs
+
+
 @pytest.mark.parametrize("command,flags", [
     ("train", ["--mesh", "4,2"]), ("train", ["--scan_epochs"]),
     ("train", ["--scan_chunk_mb", "512"]), ("train", ["--tb_logdir", "tb"]),
@@ -245,27 +309,44 @@ def test_slide_predictor_parts_outside_the_slice_raise(part, stage1_pth, tmp_pat
 ])
 def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_path, capsys,
                                                         monkeypatch):
-    """Never ignored: the command exits 2 naming the flag.  --tb_logdir,
-    --remat and --pipeline_unc, ported since, reach the trainer; beside
-    --mesh the command still exits 2, naming --mesh.  --mesh of test and
-    serve, ported since, builds the mesh; across hosts (a coordinator
-    address set) they exit 2, naming --mesh and item 4b."""
+    """Never ignored: the command exits 2 naming the flag.  Ported since:
+    --tb_logdir, --remat and --pipeline_unc reach the trainer, and beside
+    --mesh --pipeline_unc exits 2 with the JAX package's ValueError; --mesh
+    of train, test and serve builds the mesh, and across hosts (a
+    coordinator address set) exits 2 naming --mesh and item 4b.4;
+    --native_finetune fine-tunes the last stage over the mesh (native
+    size, the W axis) and without --mesh exits with JAX's message."""
     if command == "train":
-        argv = ["--data_dir", str(tmp_path), "--device", "cpu", *flags]
+        argv = ["--data_dir", str(tmp_path), "--output_dir", str(tmp_path / "out"),
+                "--device", "cpu", *flags]
         main = train_monuseg.main
-        if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc"):
-            seen = {}
-
-            def trainer(config, **kwargs):
-                seen.update(kwargs)
-                raise KeyboardInterrupt  # stop before any data is read
-
-            monkeypatch.setattr(aug_trainer, "AugMoNuSegTrainer", trainer)
-            with pytest.raises(KeyboardInterrupt):
-                main(argv)
-            key = flags[0][2:]
-            assert seen[key] == {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1}[key]
-            argv, flags = argv + ["--mesh", "4,2"], ["--mesh"]
+        if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh",
+                        "--native_finetune"):
+            real = aug_trainer.AugMoNuSegTrainer
+            monkeypatch.setattr(aug_trainer, "AugMoNuSegTrainer", _StubTrainer)
+            if flags[0] == "--native_finetune":
+                write_monuseg_tree(tmp_path)
+                with pytest.raises(SystemExit, match="--native_finetune requires --mesh"):
+                    main(argv)
+                tr = main(argv + ["--mesh", "2", "--native_w_axis", "--native_size", "48",
+                                  "--stages", "1", "2"])
+                assert tr.native["stage"] == 2 and tr.native["epochs"] == 1
+                assert tr.native["w_axis"] == "model"
+                assert tr.native["val_loader"].dataset.image_size == 48
+                return
+            if flags[0] == "--mesh":
+                assert main(argv).kwargs["mesh"].shape == {"data": 4, "model": 2}
+                monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
+            else:
+                key = flags[0][2:]
+                assert main(argv).kwargs[key] == {"tb_logdir": "tb", "remat": True,
+                                                  "pipeline_unc": 1}[key]
+                mesh_kwargs = main(argv + ["--mesh", "2"]).kwargs
+                assert mesh_kwargs["mesh"].shape == {"data": 2, "model": 1}
+                if key != "pipeline_unc":
+                    return
+                monkeypatch.setattr(aug_trainer, "AugMoNuSegTrainer", real)
+                argv, flags = argv + ["--mesh", "2"], ["mutually exclusive"]
     elif command == "serve":
         argv = ["--model", f"m={tmp_path / 'm.pth'}", "--device", "cpu", *flags]
         main = serve.main
@@ -284,10 +365,11 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
         main(argv)
     err = capsys.readouterr().err
     # --quantize is ported, but never without its calibration images
-    missing = "requires --calibration" if flags == ["--quantize"] else "not ported"
+    missing = {"--quantize": "requires --calibration", "mutually exclusive": ""}.get(
+        flags[0], "not ported")
     assert info.value.code == 2 and missing in err and flags[0] in err
-    if command in ("test", "serve"):
-        assert "item 4b" in err
+    if "--mesh" in flags:
+        assert "item 4b.4" in err
 
 
 def test_load_checkpoint_container_and_bare_state_dict(tmp_path):

@@ -18,7 +18,7 @@ def parse_mesh(spec: str | None, device: str = "cuda"):
     if os.environ.get("UGPG_COORDINATOR_ADDRESS"):
         raise NotImplementedError(
             "not ported to ugpg_tpu_torch yet: a multi-host --mesh (UGPG_COORDINATOR_ADDRESS "
-            "is set; parallel/distributed.py, ROADMAP.md queue A, item 4b)")
+            "is set; parallel/distributed.py, ROADMAP.md queue A, item 4b.4)")
     from ugpg_tpu_torch.device import resolve_device
     from ugpg_tpu_torch.parallel.mesh import make_mesh
 

@@ -11,10 +11,11 @@ from the stage-1 training split.  Checkpoints are reference-format
 default; the JAX command defaults to msgpack).  ``--tb_logdir DIR``,
 ``--remat`` and ``--pipeline_unc N`` as in ``train_monuseg`` (one card and
 N = 1 exits 2 with the JAX package's message); with ``--pipeline_unc`` the
-train loaders drop the ragged final batch, as the JAX command's do.  The
-flags of parts not ported yet (``--mesh``, ``--scan_epochs``,
-``--scan_chunk_mb``, another ``--checkpoint_backend``) exit with status 2
-and a "not ported" message.
+train loaders drop the ragged final batch, as the JAX command's do.
+``--mesh DATA[,MODEL]`` trains data-parallel (and column-parallel) over a
+mesh, as ``train_monuseg``'s does.  The flags that are not to be ported
+(``--scan_epochs``, ``--scan_chunk_mb``, another ``--checkpoint_backend``)
+exit with status 2 and a "not ported" message.
 
 SIGTERM stops the run at the end of the current epoch with a
 ``herlev_stage{S}_last.pth`` written, and ``cli`` exits 75 (EX_TEMPFAIL);
@@ -66,28 +67,25 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="run the frozen previous stage's uncertainty forward on the last N "
                         "devices, ahead of the train step (stages > 1); the train loaders "
                         "drop the ragged final batch")
-    # parts not ported yet: given, they exit with "not ported"
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
-                   help="not ported: device mesh")
+                   help="shard over a (data, model) device mesh (e.g. '4,2'; 'auto' = all "
+                        "devices data-parallel)")
+    # not to be ported: given, they exit with "not ported"
     p.add_argument("--scan_epochs", action="store_true", help="not ported: epoch scans")
     p.add_argument("--scan_chunk_mb", type=int, default=None, help="not ported: epoch scans")
     return p
 
 
 def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
-    multi_device = {
-        "--mesh": args.mesh is not None,
-    }
     never = {  # ROADMAP.md, "Not to port"
         "--scan_epochs": args.scan_epochs,
         "--scan_chunk_mb": args.scan_chunk_mb is not None,
         f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
     }
-    for asked, where in ((multi_device, "ROADMAP.md queue A, item 4b"),
-                         (never, 'ROADMAP.md, "Not to port"')):
-        missing = [flag for flag, on in asked.items() if on]
-        if missing:
-            parser.error(f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} ({where})")
+    missing = [flag for flag, on in never.items() if on]
+    if missing:
+        parser.error(f"not ported to ugpg_tpu_torch: {', '.join(missing)} "
+                     '(ROADMAP.md, "Not to port")')
 
 
 def main(argv=None):
@@ -97,11 +95,17 @@ def main(argv=None):
 
     import torch
 
+    from ugpg_tpu_torch.cli import parse_mesh
     from ugpg_tpu_torch.data.herlev import HerlevDataset
     from ugpg_tpu_torch.data.loader import DataLoader
     from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS
     from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer, create_config
     from ugpg_tpu_torch.utils.preemption import PreemptionGuard
+
+    try:
+        mesh = parse_mesh(args.mesh, args.device)
+    except (NotImplementedError, ValueError) as e:
+        parser.error(f"--mesh {args.mesh}: {e}")
 
     config = create_config()
     config.update(stages=args.stages, epochs_per_stage=args.epochs, batch_size=args.batch_size,
@@ -143,8 +147,8 @@ def main(argv=None):
 
     try:
         trainer = HerlevTrainer(config, dtype=torch.bfloat16 if args.bf16 else None,
-                                device=args.device)
-    except ValueError as e:  # e.g. --pipeline_unc leaving no train device
+                                mesh=mesh, device=args.device)
+    except ValueError as e:  # e.g. --pipeline_unc leaving no train device, or beside --mesh
         parser.error(str(e))
     try:
         # SIGTERM -> herlev_stage{S}_last.pth and an early return; cli()

@@ -10,10 +10,17 @@ writes per-epoch TensorBoard scalars, ``--remat`` recomputes every
 DoubleConv in the backward, ``--pipeline_unc N`` runs the frozen previous
 stage on the last N devices (``parallel/pipeline.py``; on ``cuda`` the
 visible cards, so one card and N = 1 exits 2 with the JAX package's
-message; on ``cpu`` the CPU N + 1 times).  The flags of parts not ported
-yet (``--mesh``, ``--scan_epochs``, ``--scan_chunk_mb``,
-``--native_finetune``, another ``--checkpoint_backend``) exit with status
-2 and a "not ported" message; none is ignored.
+message; on ``cpu`` the CPU N + 1 times).  ``--mesh DATA[,MODEL]`` trains
+data-parallel (and column-parallel) over a mesh
+(``cli/__init__.py::parse_mesh``: on ``cuda`` the visible cards, on
+``cpu`` the CPU as often as the mesh asks).  ``--native_finetune EPOCHS``
+then fine-tunes the last requested stage at native resolution
+(``--native_size``, default 1000 px), spatially sharded over the mesh (H
+over ``data``; ``--native_w_axis``: W over ``model`` too), writing
+``ug_pgunet_stage{S}_native.pth``; it requires ``--mesh`` and is skipped
+after an interrupt.  The flags that are not to be ported
+(``--scan_epochs``, ``--scan_chunk_mb``, another ``--checkpoint_backend``)
+exit with status 2 and a "not ported" message; none is ignored.
 
 ``--resume`` loads every requested stage that has a ``_best.pth`` and no
 ``_last.pth``, and ``train_progressive`` continues mid-stage from the
@@ -84,35 +91,34 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline_unc", type=int, default=0, metavar="N",
                    help="run the frozen previous stage's uncertainty forward on the last N "
                         "devices, ahead of the train step (stages > 1)")
-    # parts not ported yet: given, they exit with "not ported"
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
-                   help="not ported: device mesh")
+                   help="shard over a (data, model) device mesh, e.g. '4,2' for 4-way data x "
+                        "2-way column parallel; 'auto' = all devices data-parallel")
+    p.add_argument("--native_finetune", type=int, default=0, metavar="EPOCHS",
+                   help="after progressive training, fine-tune the last requested stage at "
+                        "native slide resolution, spatially sharded over --mesh (H over "
+                        "'data'; add --native_w_axis to shard W over 'model' too)")
+    p.add_argument("--native_size", type=int, default=1000,
+                   help="dataset resolution for the native fine-tune phase (default 1000 = "
+                        "MoNuSeg full TIFF resolution)")
+    p.add_argument("--native_w_axis", action="store_true",
+                   help="2-D spatial grid for --native_finetune: W sharded over 'model'")
+    # not to be ported: given, they exit with "not ported"
     p.add_argument("--scan_epochs", action="store_true", help="not ported: epoch scans")
     p.add_argument("--scan_chunk_mb", type=int, default=None, help="not ported: epoch scans")
-    p.add_argument("--native_finetune", type=int, default=0, metavar="EPOCHS",
-                   help="not ported: native-resolution fine-tune (needs a mesh)")
-    p.add_argument("--native_size", type=int, default=1000,
-                   help="with --native_finetune (not ported)")
-    p.add_argument("--native_w_axis", action="store_true",
-                   help="with --native_finetune (not ported)")
     return p
 
 
 def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
-    multi_device = {
-        "--mesh": args.mesh is not None,
-        "--native_finetune": bool(args.native_finetune),
-    }
     never = {  # ROADMAP.md, "Not to port"
         "--scan_epochs": args.scan_epochs,
         "--scan_chunk_mb": args.scan_chunk_mb is not None,
         f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
     }
-    for asked, where in ((multi_device, "ROADMAP.md queue A, item 4b"),
-                         (never, 'ROADMAP.md, "Not to port"')):
-        missing = [flag for flag, on in asked.items() if on]
-        if missing:
-            parser.error(f"not ported to ugpg_tpu_torch yet: {', '.join(missing)} ({where})")
+    missing = [flag for flag, on in never.items() if on]
+    if missing:
+        parser.error(f"not ported to ugpg_tpu_torch: {', '.join(missing)} "
+                     '(ROADMAP.md, "Not to port")')
 
 
 def main(argv=None):
@@ -129,18 +135,23 @@ def main(argv=None):
 
     import torch
 
+    from ugpg_tpu_torch.cli import parse_mesh
     from ugpg_tpu_torch.data.monuseg import MoNuSegDataset, create_train_val_split
     from ugpg_tpu_torch.io.checkpoint import has_checkpoint
     from ugpg_tpu_torch.train.aug_trainer import AugMoNuSegTrainer, compute_pos_weight
     from ugpg_tpu_torch.utils.preemption import PreemptionGuard
 
     try:
+        mesh = parse_mesh(args.mesh, args.device)
+    except (NotImplementedError, ValueError) as e:
+        parser.error(f"--mesh {args.mesh}: {e}")
+    try:
         trainer = AugMoNuSegTrainer(config, dtype=torch.bfloat16 if args.bf16 else None,
                                     accum_steps=args.accum_steps,
                                     aug_quantize=args.aug_quantize, tb_logdir=args.tb_logdir,
                                     remat=args.remat, pipeline_unc=args.pipeline_unc,
-                                    device=args.device)
-    except ValueError as e:  # e.g. --pipeline_unc leaving no train device
+                                    mesh=mesh, device=args.device)
+    except ValueError as e:  # e.g. --pipeline_unc leaving no train device, or beside --mesh
         parser.error(str(e))
     if args.plain:
         data_dir = config["data_dir"]
@@ -176,6 +187,7 @@ def main(argv=None):
         if not stages:
             print("Resume: all requested stages already trained")
 
+    interrupted = False
     if stages:
         try:
             # SIGTERM -> _last checkpoint at the epoch's end and an early
@@ -186,7 +198,28 @@ def main(argv=None):
                                           checkpoint_every=args.checkpoint_every,
                                           resume=config["resume"], preemption=guard)
         except KeyboardInterrupt:
+            interrupted = True
             print("Training interrupted by user")
+        interrupted = interrupted or trainer.preempted
+
+    if args.native_finetune and interrupted:
+        print("Skipping --native_finetune after interrupt")
+    if args.native_finetune and not interrupted:
+        if trainer.mesh is None:
+            raise SystemExit("--native_finetune requires --mesh")
+        from ugpg_tpu_torch.data.loader import DataLoader
+
+        stage = max(config["stages"])
+        # whole slides, batch 1 a step: the spatial grid, not the batch,
+        # gives the parallelism at native resolution
+        ft_train = DataLoader(MoNuSegDataset(config["data_dir"], image_size=args.native_size,
+                                             split="train", augment=False),
+                              batch_size=1, shuffle=True, seed=0)
+        ft_val = DataLoader(MoNuSegDataset(config["data_dir"], image_size=args.native_size,
+                                           split="val", augment=False), batch_size=1)
+        trainer.finetune_native(ft_train, stage=stage, epochs=args.native_finetune,
+                                w_axis="model" if args.native_w_axis else None,
+                                val_loader=ft_val, save_dir=config["output_dir"])
 
     cfg_path = Path(config["output_dir"]) / "config.json"
     cfg_path.parent.mkdir(parents=True, exist_ok=True)

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["get_predictions", "dice_coefficient", "pixel_accuracy", "binary_eval_metrics", "EPS"]
+__all__ = ["get_predictions", "dice_coefficient", "pixel_accuracy", "binary_eval_metrics", "EPS",
+           "grid_metrics"]
 
 EPS = 1e-8
 
@@ -56,4 +57,44 @@ def binary_eval_metrics(pred: torch.Tensor, target: torch.Tensor) -> dict[str, t
         "precision": (tp + EPS) / (tp + fp + EPS),
         "recall": (tp + EPS) / (tp + fn + EPS),
         "specificity": (tn + EPS) / (tn + fp + EPS),
+    }
+
+
+def _pooled(parts: list, home: torch.device):
+    """(mean, std) of the union of equal-sized tensors, from each one's
+    mean and centred second moment."""
+    means = torch.stack([t.mean().to(home) for t in parts])
+    var = torch.stack([t.var(correction=0).to(home) for t in parts])
+    mean = means.mean()
+    return mean, (var + (means - mean).square()).mean().sqrt()
+
+
+def grid_metrics(finals, bases, logits, ys, uncs, home: torch.device,
+                 batch_split: bool = True) -> dict[str, torch.Tensor]:
+    """The six metrics of a batch split into equal shards (lists, one
+    entry per shard), on ``home``, as the unsharded step gives them: the
+    losses' mean, smooth-1 Dice of per-sample sums (``batch_split``: the
+    shards hold other samples; else regions of the same samples, whose
+    sums add), pixel accuracy, and the uncertainty map's mean and std."""
+    sums = []
+    accs = []
+    for lg, y in zip(logits, ys):
+        preds = get_predictions(lg.detach())
+        b = preds.shape[0]
+        pf, tf = preds.reshape(b, -1), y.reshape(b, -1).float()
+        sums.append([t.to(home) for t in ((pf * tf).sum(1), pf.sum(1), tf.sum(1))])
+        accs.append(pixel_accuracy(preds, y).to(home))
+    join = torch.cat if batch_split else (lambda ts: torch.stack(ts).sum(0))
+    inter, sp, st = (join(list(col)) for col in zip(*sums))
+    if uncs is None:
+        unc_mean = unc_std = torch.zeros((), dtype=torch.float32, device=home)
+    else:
+        unc_mean, unc_std = _pooled(uncs, home)
+    return {
+        "final_loss": torch.stack([f.detach().to(home) for f in finals]).mean(),
+        "base_loss": torch.stack([b.detach().to(home) for b in bases]).mean(),
+        "dice": ((2.0 * inter + 1.0) / (sp + st + 1.0)).mean(),
+        "accuracy": torch.stack(accs).mean(),
+        "uncertainty_weight_mean": unc_mean,
+        "uncertainty_weight_std": unc_std,
     }

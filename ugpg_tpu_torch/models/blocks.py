@@ -25,6 +25,19 @@ statistics but updates no BN running stat: the first pass updates them
 once, the second normalises through copies, so the gradients and the BN
 state equal those without ``remat`` bit for bit.
 
+``DoubleConv.forward_parts``: the block over a grid of shards of one
+batch (split by batch or by space, on one device or several), as the mesh
+steps of ``parallel/`` run it in lock-step: each conv through the caller's
+``conv`` (per shard by default; halo-extended or column-parallel there),
+and in training BN with the statistics of the whole batch
+(``cross_replica_batch_norm``: the JAX package's ``pmean`` over the
+model's ``axis_name``, what GSPMD gives its mesh trainers), the running
+stats updated once.  ``remat`` then checkpoints the whole grid's block.
+
+``axis_name`` (a ``DoubleConv`` attribute the trainers set): as in the JAX
+package, where no program binds the axis, a training forward raises
+``NameError`` (JAX's unbound-axis error); eval forwards run.
+
 ``DownSample`` and ``UpSample`` are the legacy ``UNet``'s blocks.
 """
 
@@ -40,7 +53,7 @@ from ugpg_tpu_torch.ops.cuda.double_conv import pack_double_conv
 from ugpg_tpu_torch.ops.resize import upsample2x_bilinear_align_corners
 
 __all__ = ["DoubleConv", "InConv", "Down", "Up", "OutConv", "DownSample", "UpSample",
-           "init_parameters"]
+           "init_parameters", "conv_part", "cross_replica_batch_norm"]
 
 BN_EPS = 1e-5
 _PACKED = ("packed_w1", "packed_b1", "packed_w2", "packed_b2")  # DoubleConv.pack's buffers
@@ -58,6 +71,54 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.uniform_(m.bias, -bound, bound, generator=generator)
 
 
+def conv_part(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
+              cols: slice = slice(None)) -> torch.Tensor:
+    """``conv``'s 3x3 conv + bias on ``x`` (zero padding 1), as the live-BN
+    block computes it in ``dtype``, with its weights copied to ``x``'s
+    device (a differentiable copy: their gradients flow back to the
+    parameters); ``cols``: only those output channels."""
+    dev = x.device
+    w, b = conv.weight[cols].to(dev, dtype), conv.bias[cols].to(dev, dtype)
+    if dtype == torch.float32:
+        return F.conv2d(x, w, b, padding=1)
+    return F.conv2d(x, w, padding=1) + b[:, None, None]
+
+
+def cross_replica_batch_norm(parts: list[torch.Tensor], bn: nn.BatchNorm2d,
+                             update_stats: bool = True) -> list[torch.Tensor]:
+    """Train-mode BN of float32 NCHW ``parts`` with the statistics of their
+    union (the parts may lie on several devices): per part its count, mean
+    and centred sum of squares, combined on ``bn``'s device by Chan's
+    formula (``M2 = sum M2_i + sum n_i (mean_i - mean)^2``; E[x^2] - E[x]^2
+    cancels in float32 at full width).  Each part is normalised by the
+    biased variance; the running stats take the unbiased one, once, with
+    ``bn``'s momentum (``update_stats=False``: left as they are)."""
+    home = bn.weight.device
+    counts = [p.numel() // p.shape[1] for p in parts]
+    means = [p.mean(dim=(0, 2, 3)) for p in parts]
+    m2s = [(p - m[:, None, None]).square().sum(dim=(0, 2, 3)) for p, m in zip(parts, means)]
+    n = sum(counts)
+    means = [m.to(home) for m in means]
+    mean = sum(c * m for c, m in zip(counts, means)) / n
+    m2 = sum(s.to(home) + c * (m - mean).square() for c, m, s in zip(counts, means, m2s))
+    if update_stats:
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * m2 / max(n - 1, 1))
+            bn.num_batches_tracked.add_(1)
+    scale = torch.rsqrt(m2 / n + bn.eps) * bn.weight
+    out = []
+    for p in parts:
+        dev = p.device
+        out.append((p - mean.to(dev)[:, None, None]) * scale.to(dev)[:, None, None]
+                   + bn.bias.to(dev)[:, None, None])
+    return out
+
+
+def _per_part(parts, conv: nn.Conv2d, dtype: torch.dtype):
+    return [[conv_part(p, conv, dtype) for p in row] for row in parts]
+
+
 class DoubleConv(nn.Module):
     """(3x3 conv -> BN -> ReLU) x 2."""
 
@@ -66,6 +127,7 @@ class DoubleConv(nn.Module):
         self.use_bn = use_bn
         self.compute_dtype = torch.float32  # bfloat16: the mixed-precision path (use_bn)
         self.remat = False  # recompute the block in the backward (use_bn, training)
+        self.axis_name = None  # the JAX module's BN axis (the trainers' axis_name)
 
         def norm():
             return nn.BatchNorm2d(out_channels, eps=BN_EPS) if use_bn else nn.Identity()
@@ -103,10 +165,62 @@ class DoubleConv(nn.Module):
         return library.fused_double_conv(x, c1.weight, c1.bias, c2.weight, c2.bias,
                                          *(getattr(self, n) for n in _PACKED))
 
+    def _check_axis(self) -> None:
+        if self.axis_name is not None and self.training:
+            raise NameError(
+                f"Found an unbound axis name: {self.axis_name}.  A training forward of a "
+                "block with axis_name runs where a program binds that axis; no trainer or "
+                "mesh step does (the JAX package raises the same)")
+
+    def forward_parts(self, parts: list[list[torch.Tensor]], conv=None,
+                      dtype: torch.dtype | None = None, check_axis: bool = True):
+        """The live-BN block over a grid of NCHW shards of one batch (rows
+        of parts, any devices), in lock-step; returns the grid of outputs.
+        ``conv(parts, conv_module, dtype)``: one 3x3 conv + bias over the
+        grid (default: ``conv_part`` per shard).  In training, BN takes the
+        whole grid's statistics (``cross_replica_batch_norm``), else each
+        shard runs the eval path.  ``dtype``: the compute dtype (default
+        the block's).  ``check_axis=False``: ``axis_name`` is not looked at
+        (the spatial steps, whose JAX counterpart never runs the module)."""
+        if check_axis:
+            self._check_axis()
+        if self.remat and self.training and torch.is_grad_enabled():
+            passes = iter((True, False))  # the forward, then the recompute
+            shape = [len(row) for row in parts]
+
+            def run(*flat):
+                it = iter(flat)
+                grid = [[next(it) for _ in range(k)] for k in shape]
+                out = self._forward_parts(grid, conv, dtype, next(passes, False))
+                return tuple(t for row in out for t in row)
+
+            flat = iter(checkpoint(run, *(t for row in parts for t in row),
+                                   use_reentrant=False, preserve_rng_state=False))
+            return [[next(flat) for _ in range(k)] for k in shape]
+        return self._forward_parts(parts, conv, dtype)
+
+    def _forward_parts(self, parts, conv, dtype, update_stats: bool = True):
+        cd = dtype or self.compute_dtype
+        conv = conv or _per_part
+        x = [[p.to(cd) for p in row] for row in parts]
+        for c, bn in ((self.conv_op[0], self.conv_op[1]), (self.conv_op[3], self.conv_op[4])):
+            y = [[t.float() for t in row] for row in conv(x, c, cd)]
+            if self.training:
+                flat = cross_replica_batch_norm([t for row in y for t in row], bn, update_stats)
+                it = iter(flat)
+                y = [[next(it) for _ in row] for row in y]
+            else:
+                y = [[F.batch_norm(t, bn.running_mean.to(t.device), bn.running_var.to(t.device),
+                                   bn.weight.to(t.device), bn.bias.to(t.device), False, 0.0,
+                                   bn.eps) for t in row] for row in y]
+            x = [[F.relu(t.to(cd)) for t in row] for row in y]
+        return x
+
     def _forward_bn(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
         """The live-BN block; ``update_stats=False`` normalises as the
         training forward does but on copies of the running stats, so that
         the module's own stay as they are."""
+        self._check_axis()
         cd = self.compute_dtype
         mixed = cd != torch.float32
         if mixed:
@@ -173,8 +287,9 @@ class OutConv(nn.Module):
         self.conv = nn.Conv2d(in_channels, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.conv.weight.float().flatten(1)  # (K, C)
-        y = x.float().permute(0, 2, 3, 1) @ w.t() + self.conv.bias.float()
+        # the weights go to x's device: a sharded forward's shard may lie elsewhere
+        w = self.conv.weight.float().flatten(1).to(x.device)  # (K, C)
+        y = x.float().permute(0, 2, 3, 1) @ w.t() + self.conv.bias.float().to(x.device)
         return y.permute(0, 3, 1, 2)
 
 

@@ -16,6 +16,9 @@ every DoubleConv computes in ``dtype``, BN statistics in float32
 DoubleConv in the backward (``blocks.py``).  Inputs are NCHW; the logits
 are (N, num_classes, H, W) float32.
 
+``stage_topology`` is the same walk over blocks that a caller supplies:
+the sharded forwards of ``parallel/`` run it on grids of shards.
+
 ``UNet`` is the legacy classic U-Net, kept for the reference's API.
 """
 
@@ -28,7 +31,7 @@ from ugpg_tpu_torch.models.blocks import DoubleConv, Down, DownSample, InConv, O
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 __all__ = ["PGUNet1", "PGUNet2", "PGUNet3", "PGUNet4", "STAGE_BLOCKS", "STAGE_MODELS",
-           "STAGE_RESOLUTIONS", "UNet"]
+           "STAGE_RESOLUTIONS", "UNet", "stage_topology", "block_double_conv"]
 
 STAGE_RESOLUTIONS = {1: 32, 2: 64, 3: 128, 4: 256}
 
@@ -179,6 +182,35 @@ STAGE_BLOCKS = {
     4: ("inc", "down1", "down2", "down3", "down4", "up1", "up2", "up3", "up4", "outc1",
         "outc2", "outc3", "outc4"),
 }
+
+
+def block_double_conv(model: nn.Module, name: str) -> DoubleConv:
+    """The DoubleConv of a stage's (or an encoder's) block ``name``."""
+    block = model.get_submodule(name)
+    return block.mpconv[1] if isinstance(block, Down) else block.conv
+
+
+def stage_topology(stage: int, ops, x):
+    """The stage's forward (the ``PGUNet*.forward`` methods' walk) over
+    ``ops``, which supplies ``dc(x, name)`` (the named block's DoubleConv,
+    after the max-pool of a ``down`` block: ``pool``), ``up`` (the 2x
+    bilinear upsample), ``cat(skip, up)`` and ``heads(features, names)``
+    (the 1x1 heads, each upsampled to the last one's size, summed)."""
+    dc, pool, up, cat = ops.dc, ops.pool, ops.up, ops.cat
+    downs = {1: ("down4",), 2: ("down3", "down4"), 3: ("down2", "down3", "down4"),
+             4: ("down1", "down2", "down3", "down4")}.get(stage)
+    if downs is None:
+        raise ValueError(f"stage must be 1..4, got {stage}")
+    skips = [dc(x, "inc")]
+    for name in downs:
+        skips.append(dc(pool(skips[-1]), name))
+    x = skips.pop()
+    feats = []
+    for i in range(len(downs)):
+        x = dc(cat(skips.pop(), up(x)), f"up{i + 1}")
+        feats.append(x)
+    names = ("outc",) if stage == 1 else tuple(f"outc{i + 1}" for i in range(len(feats)))
+    return ops.heads(feats, names)
 
 
 class UNet(nn.Module):

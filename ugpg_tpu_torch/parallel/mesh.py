@@ -6,8 +6,8 @@ grid of ``torch.device``s inside one process, with named axes, ``("data",
 "model")`` from ``make_mesh``; a halo is a copy of a slab to a
 neighbour's device, an all-gather a ``torch.cat`` on one device.  There is
 no ``torch.distributed`` here: NCCL refuses two ranks on one card, and the
-multi-host half (``parallel/distributed.py``) serves the trainers
-(ROADMAP.md queue A, item 4b).
+multi-host half (``parallel/distributed.py``) is not ported yet (ROADMAP.md
+queue A, item 4b.4).
 
 A mesh may name one device more than once, as ``parallel/pipeline.py``'s
 device lists may: on one card ``make_mesh(2, devices=["cuda:0"] * 2)`` runs
@@ -32,6 +32,16 @@ command lines repeat the CPU as often as the mesh asks.
 * ``shard_variables``: a state dict placed by those specs: every mesh
   position's view, one copy of a replicated tensor per distinct device.
   ``parallel/tensor.py`` serves column-parallel convs from its slices.
+
+Training on a mesh (``train/steps.py``, ``parallel/tensor.py``) keeps one
+set of parameters, on the mesh's first device, and broadcasts it inside the
+forward: every conv copies its weights to each shard's device (a
+differentiable ``.to()``), so autograd sums the replicas' gradients into
+that one set, one optimizer update follows, and every replica equals it
+by construction; BN's running stats update once, from the whole batch's
+statistics (``models/blocks.py::cross_replica_batch_norm``).  The
+column-parallel layout of ``param_shardings`` is cut from the parameters
+at every step, so no update can lose it.
 
 ``shard_stacked_batch`` is not ported: it feeds the JAX package's
 ``lax.scan`` epoch programs, which ROADMAP.md lists as "Not to port".
@@ -58,6 +68,7 @@ __all__ = [
     "param_shardings",
     "shard_variables",
     "shard_batch",
+    "tensor_device",
 ]
 
 # Conv kernels at least this wide on the output-channel axis shard over 'model'.
@@ -139,6 +150,12 @@ def make_mesh(n_data: int | None = None, n_model: int = 1, devices=None) -> Mesh
     for i, d in enumerate(devices[:use]):
         grid.flat[i] = d
     return Mesh(grid, ("data", "model"))
+
+
+def tensor_device(device) -> torch.device:
+    """The device a tensor placed on ``device`` reports (``torch.device(
+    "cpu", 1)`` holds tensors on ``cpu``)."""
+    return torch.empty(0, device=device).device
 
 
 def data_axis_size(mesh) -> int:

@@ -30,7 +30,7 @@ its own; the consumer's stream waits on an event recorded after it.  On
 the CPU the same code runs without streams.  Whether the side stream gains
 anything on one card is a measurement (``chip_smoke.py``), not a claim.
 More than one train device, ``n_model > 1`` or more than one unc device
-need a device mesh (ROADMAP.md queue A, item 4b) and raise.
+need a device mesh (ROADMAP.md queue A, item 4b.5) and raise.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ from ugpg_tpu_torch.utils.profiling import annotate
 __all__ = ["split_devices", "pipeline_devices", "pipeline_device_list", "pipeline_check",
            "UncertaintyPipeline"]
 
-_MESH = "needs a device mesh, not ported yet (ROADMAP.md queue A, item 4b)"
+_MESH = "needs a device mesh, not ported yet (ROADMAP.md queue A, item 4b.5)"
 
 
 def split_devices(n_unc: int, devices=None):

@@ -37,9 +37,27 @@ image, cropped (``eval/slide.py::native_forward``), to float32 round-off:
 the shards' convs may sum in another order than the whole image's.
 
 Tensors are NCHW-logical; images and outputs are NHWC, as in the JAX
-package.  The train and eval steps of the JAX module
-(``make_spatial_train_step``, ``make_spatial_eval_step``) are ROADMAP.md
-queue A, item 4b.
+package.
+
+The training half (``make_spatial_train_step``, ``make_spatial_eval_step``;
+``finetune_native`` runs them): a native-resolution batch split over the
+same grid, the model's own live-BN blocks run over the shards in
+lock-step (``DoubleConv.forward_parts``), every conv a plain ``F.conv2d``
+on the halo-extended shard (the hand-written conv has no backward; JAX's
+train forward is XLA's too), the halo rows cropped after it.  The halo's
+backward is autograd's: the gradient of a neighbour's row flows back
+through its copy and ``narrow`` to the shard it came from, the pull of the
+cotangent that JAX's transpose of the halo push gives.  BN takes the
+statistics of the whole image and batch (``cross_replica_batch_norm``,
+Chan's combination of the shards' moments, the running stats updated
+once), and the loss and the metrics are global: per shard the loss path
+of ``train/steps.py::shard_loss`` (``fused_loss``: the loss kernels,
+once per shard) and the shards' means averaged, Dice from per-sample sums
+over the shards.  A spatial step so trains the unsharded step's function
+on the same image.  The frozen previous stage (the uncertainty source)
+runs the inference half above, BN folded, one ``conv3x3`` launch per conv
+and shard, on the image resized by half through the bands; JAX keeps
+eval-mode BN there (folding is the port's design, held to 1e-4).
 """
 
 from __future__ import annotations
@@ -52,13 +70,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ugpg_tpu_torch.models.blocks import conv_part
 from ugpg_tpu_torch.models.folding import fold_batchnorm
-from ugpg_tpu_torch.models.pgunet import STAGE_BLOCKS
+from ugpg_tpu_torch.models.pgunet import STAGE_BLOCKS, block_double_conv, stage_topology
 from ugpg_tpu_torch.ops.cuda import library
 from ugpg_tpu_torch.ops.cuda.double_conv import pack_conv
 from ugpg_tpu_torch.ops.quant import _conv_base
 from ugpg_tpu_torch.ops.resize import _bilinear_ac_matrix, resize_bilinear_align_corners
-from ugpg_tpu_torch.parallel.mesh import Mesh
+from ugpg_tpu_torch.metrics.segmentation import grid_metrics
+from ugpg_tpu_torch.parallel.mesh import Mesh, tensor_device
+from ugpg_tpu_torch.uncertainty import binary_uncertainty, shard_loss
 
 __all__ = [
     "SpatialWeights",
@@ -67,6 +88,8 @@ __all__ = [
     "spatial_predict",
     "pad_to_divisible",
     "spatial_divisor",
+    "make_spatial_train_step",
+    "make_spatial_eval_step",
 ]
 
 _CL = torch.channels_last
@@ -74,6 +97,12 @@ _CL = torch.channels_last
 
 def _n_pools(stage: int) -> int:
     return 1 if stage == 1 else stage
+
+
+def _tensor_devices(mesh: Mesh) -> list[torch.device]:
+    """The mesh's distinct devices as a tensor there reports its device
+    (``torch.device("cpu", 1)`` holds tensors on ``cpu``)."""
+    return list(dict.fromkeys(tensor_device(d) for d in mesh.distinct_devices()))
 
 
 class SpatialWeights:
@@ -92,7 +121,7 @@ class SpatialWeights:
         names = STAGE_BLOCKS[stage]
         self.blocks: dict[torch.device, dict] = {}
         self.heads: dict[torch.device, dict] = {}
-        for dev in mesh.distinct_devices():
+        for dev in _tensor_devices(mesh):
             blocks = {}
             for name in names:
                 if name.startswith("outc"):
@@ -205,7 +234,10 @@ def _axis_resize_bands(n_in: int, n_out: int, shards: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=256)
 def _band(n_in: int, n_out: int, shards: int, i: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_axis_resize_bands(n_in, n_out, shards)[i]).to(device)
+    # a normal tensor even when first made under the forward's inference
+    # mode: the cached band serves the train steps' autograd too
+    with torch.inference_mode(False):
+        return torch.from_numpy(_axis_resize_bands(n_in, n_out, shards)[i]).to(device)
 
 
 def _resize(parts, out_hw: tuple[int, int]):
@@ -234,63 +266,62 @@ def _global_hw(parts) -> tuple[int, int]:
     return parts[0][0].shape[2] * len(parts), parts[0][0].shape[3] * len(parts[0])
 
 
-def _stage_forward(stage: int, weights: SpatialWeights, x):
-    """Eval forward of the stage on the sharded input: float32 logits per
-    shard.  The topology of ``models/pgunet.py``."""
-    dc = lambda t, name: _conv(_conv(t, {d: b[name][0] for d, b in weights.blocks.items()}),
-                               {d: b[name][1] for d, b in weights.blocks.items()})  # noqa: E731
-    pool = lambda t: _map(lambda p: F.max_pool2d(p, 2), t)  # noqa: E731
-    cat = lambda a, b: _map(lambda p, q: torch.cat([p, q], dim=1), a, b)  # noqa: E731
-    add = lambda a, b: _map(torch.add, a, b)  # noqa: E731
-    up2 = lambda t: _resize(t, tuple(2 * s for s in _global_hw(t)))  # noqa: E731
+class GridOps:
+    """The blocks of ``models/pgunet.py::stage_topology`` over a grid of
+    shards that split the image's H (and W): the max-pool and the concat
+    shard by shard, the upsamples and the heads' resizes across the grid
+    (``_resize``), the heads' sum.  A subclass gives ``dc`` and ``head``;
+    ``parallel/tensor.py`` overrides ``hw`` and ``resize`` for shards that
+    split the batch."""
 
-    def head(t, name):
+    def pool(self, t):
+        return _map(lambda p: F.max_pool2d(p, 2), t)
+
+    def cat(self, a, b):
+        return _map(lambda p, q: torch.cat([p, q], dim=1), a, b)
+
+    def hw(self, t) -> tuple[int, int]:
+        return _global_hw(t)
+
+    def resize(self, t, hw):
+        return _resize(t, hw)
+
+    def up(self, t):
+        return self.resize(t, tuple(2 * s for s in self.hw(t)))
+
+    def heads(self, feats, names):
+        hw = self.hw(feats[-1])
+        out = None
+        for f, name in zip(feats, names):
+            o = self.head(f, name)
+            o = o if self.hw(o) == hw else self.resize(o, hw)
+            out = o if out is None else _map(torch.add, out, o)
+        return out
+
+
+class _InferOps(GridOps):
+    """The eval forward on ``SpatialWeights``: BN folded, one ``conv3x3``
+    launch per conv and shard, float32 heads."""
+
+    def __init__(self, weights: SpatialWeights):
+        self.weights = weights
+
+    def dc(self, t, name):
+        blocks = self.weights.blocks
+        t = _conv(t, {d: b[name][0] for d, b in blocks.items()})
+        return _conv(t, {d: b[name][1] for d, b in blocks.items()})
+
+    def head(self, t, name):
         def one(p):
-            k, b = weights.heads[p.device][name]
+            k, b = self.weights.heads[p.device][name]
             return (p.float().permute(0, 2, 3, 1) @ k.t() + b).permute(0, 3, 1, 2)
         return _map(one, t)
 
-    def heads_sum(feats, names):
-        hw = _global_hw(feats[-1])
-        out = None
-        for f, name in zip(feats, names):
-            o = head(f, name)
-            o = o if _global_hw(o) == hw else _resize(o, hw)
-            out = o if out is None else add(out, o)
-        return out
 
-    if stage == 1:
-        x1 = dc(x, "inc")
-        x2 = dc(pool(x1), "down4")
-        return head(dc(cat(x1, up2(x2)), "up1"), "outc")
-    if stage == 2:
-        x1 = dc(x, "inc")
-        x2 = dc(pool(x1), "down3")
-        x3 = dc(pool(x2), "down4")
-        x4 = dc(cat(x2, up2(x3)), "up1")
-        x5 = dc(cat(x1, up2(x4)), "up2")
-        return heads_sum([x4, x5], ("outc1", "outc2"))
-    if stage == 3:
-        x1 = dc(x, "inc")
-        x2 = dc(pool(x1), "down2")
-        x3 = dc(pool(x2), "down3")
-        x4 = dc(pool(x3), "down4")
-        x5 = dc(cat(x3, up2(x4)), "up1")
-        x6 = dc(cat(x2, up2(x5)), "up2")
-        x7 = dc(cat(x1, up2(x6)), "up3")
-        return heads_sum([x5, x6, x7], ("outc1", "outc2", "outc3"))
-    if stage == 4:
-        x1 = dc(x, "inc")
-        x2 = dc(pool(x1), "down1")
-        x3 = dc(pool(x2), "down2")
-        x4 = dc(pool(x3), "down3")
-        x5 = dc(pool(x4), "down4")
-        x6 = dc(cat(x4, up2(x5)), "up1")
-        x7 = dc(cat(x3, up2(x6)), "up2")
-        x8 = dc(cat(x2, up2(x7)), "up3")
-        x9 = dc(cat(x1, up2(x8)), "up4")
-        return heads_sum([x6, x7, x8, x9], ("outc1", "outc2", "outc3", "outc4"))
-    raise ValueError(f"stage must be 1..4, got {stage}")
+def _stage_forward(stage: int, weights: SpatialWeights, x):
+    """Eval forward of the stage on the sharded input: float32 logits per
+    shard.  The topology of ``models/pgunet.py``."""
+    return stage_topology(stage, _InferOps(weights), x)
 
 
 # ---------------------------------------------------------------- entry points
@@ -358,10 +389,21 @@ def _weights(variables, stage: int, mesh: Mesh, dtype) -> SpatialWeights:
     if variables.stage != stage or variables.dtype != (dtype or torch.float32):
         raise ValueError(f"SpatialWeights of stage {variables.stage} in {variables.dtype} "
                          f"given to a stage-{stage} forward in {dtype or torch.float32}")
-    missing = [d for d in mesh.distinct_devices() if d not in variables.blocks]
+    missing = [d for d in _tensor_devices(mesh) if d not in variables.blocks]
     if missing:
         raise ValueError(f"SpatialWeights hold no copy on {missing}")
     return variables
+
+
+def _split(x, grid: _Grid, dtype: torch.dtype = torch.float32):
+    """A whole NHWC batch (numpy or a tensor on any device) as the grid's
+    NCHW shards in ``dtype`` on their devices."""
+    x = torch.as_tensor(x)
+    lh, lw = x.shape[1] // grid.h_size, x.shape[2] // grid.w_size
+    nchw = x.permute(0, 3, 1, 2)
+    return [[nchw[:, :, i * lh:(i + 1) * lh, j * lw:(j + 1) * lw]
+             .to(dev, dtype, non_blocking=True)
+             for j, dev in enumerate(row)] for i, row in enumerate(grid.devices)]
 
 
 class _SpatialProgram:
@@ -379,12 +421,7 @@ class _SpatialProgram:
         grid = self.grid
         _check_divisible(self.stage, x, grid.h_size, grid.w_size)
         weights = _weights(variables, self.stage, self.mesh, self.dtype)
-        lh, lw = x.shape[1] // grid.h_size, x.shape[2] // grid.w_size
-        nchw = x.permute(0, 3, 1, 2)
-        parts = [[nchw[:, :, i * lh:(i + 1) * lh, j * lw:(j + 1) * lw]
-                  .to(dev, weights.dtype, non_blocking=True)
-                  for j, dev in enumerate(row)] for i, row in enumerate(grid.devices)]
-        return _stage_forward(self.stage, weights, parts)
+        return _stage_forward(self.stage, weights, _split(x, grid, weights.dtype))
 
     def __call__(self, variables, x) -> torch.Tensor:
         return _gather(self.shards(variables, x), self.mesh.first)
@@ -424,3 +461,146 @@ def spatial_predict(variables, x, mesh: Mesh, stage: int = 4, axis: str = "data"
         h, w = orig
         outs = [t[:, :h, :w] for t in outs]
     return tuple(outs)
+
+
+# ---------------------------------------------------------------- training
+def _conv_train(parts, conv, dtype):
+    """``DoubleConv.forward_parts``'s conv over the grid: H halos, then W
+    halos of the H-extended blocks, a zero-padded ``F.conv2d`` per shard,
+    the halo rows and columns cropped (``_conv``'s layout)."""
+    ext = _with_halo(parts, 2, zero_edges=False)
+    if len(parts[0]) > 1:
+        ext = _with_halo(ext, 3, zero_edges=False)
+    return [[conv_part(xe, conv, dtype)[:, :, int(i > 0):int(i > 0) + x.shape[2],
+                                        int(j > 0):int(j > 0) + x.shape[3]]
+             for j, (x, xe) in enumerate(zip(row, ext_row))]
+            for i, (row, ext_row) in enumerate(zip(parts, ext))]
+
+
+class _ModelOps(GridOps):
+    """The live-BN model's blocks over the grid (train or eval mode, as
+    the model is); ``dtype``: their compute dtype (default the blocks')."""
+
+    def __init__(self, model, dtype):
+        self.model, self.dtype = model, dtype
+
+    def dc(self, t, name):
+        return block_double_conv(self.model, name).forward_parts(t, _conv_train, self.dtype,
+                                                                 check_axis=False)
+
+    def head(self, t, name):
+        return _map(self.model.get_submodule(name), t)
+
+
+def _flat(parts) -> list:
+    return [t for row in parts for t in row]
+
+
+def _spatial_unc_map(prev_weights: SpatialWeights, x):
+    """The frozen previous stage's (probabilities, uncertainty map) on the
+    grid: ``x`` resized by half through the bands, the folded inference
+    forward, sigmoid, resized back, ``1 - 2|P - 0.5|``; no gradient."""
+    h, w = _global_hw(x)
+    with torch.no_grad():
+        x_prev = _map(lambda t: t.to(prev_weights.dtype), _resize(x, (h // 2, w // 2)))
+        logits = _stage_forward(prev_weights.stage, prev_weights, x_prev)
+        probs = _resize(_map(lambda t: torch.sigmoid(t.float()), logits), (h, w))
+        return probs, _map(binary_uncertainty, probs)
+
+
+def _spatial_loss_and_metrics(stage, ops, prev_weights, x, y, pos_weight, alpha, fused_loss,
+                              home):
+    """(the global final loss, the six global metrics) of one batch on the
+    grid: per shard ``shard_loss``, the shards' means averaged."""
+    probs = uncs = None
+    if prev_weights is not None:
+        probs, uncs = (_flat(t) for t in _spatial_unc_map(prev_weights, x))
+    logits = _flat(stage_topology(stage, ops, x))
+    ys = _flat(y)
+    losses = [shard_loss(lg, t, None if probs is None else probs[i],
+                         None if uncs is None else uncs[i], pos_weight, alpha, fused_loss)
+              for i, (lg, t) in enumerate(zip(logits, ys))]
+    final = sum(f.to(home) for f, _ in losses) / len(losses)
+    return final, grid_metrics([f for f, _ in losses], [b for _, b in losses], logits, ys, uncs,
+                               home, batch_split=False)
+
+
+def _prev_weights(stage, prev_model, mesh, dtype):
+    if stage == 1 or prev_model is None:
+        return None
+    return SpatialWeights(prev_model.state_dict(), stage - 1, mesh, dtype)
+
+
+def make_spatial_train_step(model, optimizer, stage: int, mesh: Mesh, axis: str = "data",
+                            w_axis: str | None = None, prev_model=None, alpha: float = 1.0,
+                            dtype: torch.dtype | None = None, accum_steps: int = 1,
+                            fused_loss: bool = False):
+    """A native-resolution, spatially sharded train step (the JAX
+    package's ``make_spatial_train_step``): ``step(batch, pos_weight) ->
+    metrics``, one update of the live-BN stage ``model`` through
+    ``optimizer``.  ``batch = (images (N, H, W, 3), masks (N, H, W, 1))``
+    at native resolution, H and W divisible as ``spatial_divisor`` says
+    (``pad_to_divisible`` otherwise); H shards over ``axis``, W over
+    ``w_axis`` when given.  No resize to the stage's resolution and no
+    augmentation, as in JAX.  ``prev_model`` (stage > 1): the frozen
+    previous stage, the uncertainty source, its weights folded once here.
+    ``dtype``: the blocks' compute dtype (default their own).
+    ``accum_steps=K``: K micro-batches in order, gradients averaged, one
+    update; the metrics their means.  ``fused_loss``: the loss kernels,
+    one forward and one backward launch per shard."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    grid = _Grid(mesh, axis, w_axis)
+    ops = _ModelOps(model, dtype)
+    params = [p for p in model.parameters() if p.requires_grad]
+    prev_weights = _prev_weights(stage, prev_model, mesh, dtype)
+
+    def step(batch, pos_weight: float):
+        x, y = torch.as_tensor(batch[0]), torch.as_tensor(batch[1])
+        _check_divisible(stage, x, grid.h_size, grid.w_size)
+        n = x.shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch size {n} is not divisible by accum_steps={accum_steps}")
+        m = n // accum_steps
+        home = params[0].device
+        optimizer.zero_grad(set_to_none=True)
+        model.train()
+        parts = []
+        for i in range(accum_steps):
+            final, metrics = _spatial_loss_and_metrics(
+                stage, ops, prev_weights, _split(x[i * m:(i + 1) * m], grid),
+                _split(y[i * m:(i + 1) * m], grid), pos_weight, alpha, fused_loss, home)
+            final.backward()
+            parts.append(metrics)
+        if accum_steps > 1:
+            for p in params:  # the micro-batches' gradients were summed
+                if p.grad is not None:
+                    p.grad.div_(accum_steps)
+        optimizer.step()
+        if accum_steps == 1:
+            return parts[0]
+        return {k: torch.stack([part[k] for part in parts]).mean() for k in parts[0]}
+
+    return step
+
+
+def make_spatial_eval_step(model, stage: int, mesh: Mesh, axis: str = "data",
+                           w_axis: str | None = None, prev_model=None, alpha: float = 1.0,
+                           dtype: torch.dtype | None = None):
+    """The native-resolution validation step (eval-mode BN, the plain
+    loss, no update): ``step(batch, pos_weight) -> metrics``, the train
+    step's metrics."""
+    grid = _Grid(mesh, axis, w_axis)
+    ops = _ModelOps(model, dtype)
+    prev_weights = _prev_weights(stage, prev_model, mesh, dtype)
+
+    @torch.no_grad()
+    def step(batch, pos_weight: float):
+        x, y = torch.as_tensor(batch[0]), torch.as_tensor(batch[1])
+        _check_divisible(stage, x, grid.h_size, grid.w_size)
+        model.eval()
+        return _spatial_loss_and_metrics(stage, ops, prev_weights, _split(x, grid),
+                                         _split(y, grid), pos_weight, alpha, False,
+                                         next(model.parameters()).device)[1]
+
+    return step

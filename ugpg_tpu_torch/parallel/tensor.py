@@ -1,5 +1,7 @@
 """Column-parallel serving of a model's wide convs over one row of a mesh
-(``Predictor(mesh=..., shard_model=True)``).
+(``Predictor(mesh=..., shard_model=True)``), and the data-parallel,
+optionally column-parallel, forward of the mesh train and eval steps
+(``ReplicaLayout``, ``replica_forward``, ``replica_features``).
 
 The layout is the one ``parallel/mesh.py::param_shardings`` gives the
 model's state dict over the row (the JAX package hands the same specs to
@@ -24,6 +26,21 @@ whole.  Per kind of block:
 
 ``column_parallel`` returns a copy of the model that shares its tensors;
 the model itself is left as it was (the predictor exports it).
+
+Training on a mesh (``train/steps.py``): a batch splits over the ``data``
+axis, shard i on data row i's first device, and the model's blocks run
+over the shards in lock-step (``DoubleConv.forward_parts``), so that BN
+takes the statistics of the whole batch.  There is one set of parameters,
+on the trainer's device: every conv copies its weights to each shard's
+device inside the forward (``models/blocks.py::conv_part``), so autograd
+sums the replicas' gradients into the one set and one optimizer update
+keeps every replica equal; on one device named twice the copy is the
+tensor itself.  With ``shard_model`` a conv that ``param_shardings``
+shards over ``model`` runs each column slice on the row's device for it,
+and the slices gather back (``torch.cat`` of differentiable copies)
+before BN, which runs on all the conv's channels.  The layout is
+recomputed from the parameters at every step, so no optimizer update can
+lose it.
 """
 
 from __future__ import annotations
@@ -35,13 +52,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ugpg_tpu_torch.models.blocks import DoubleConv
+from ugpg_tpu_torch.models.blocks import DoubleConv, conv_part
+from ugpg_tpu_torch.models.pgunet import STAGE_MODELS, block_double_conv, stage_topology
 from ugpg_tpu_torch.ops.cuda import library
 from ugpg_tpu_torch.ops.cuda.double_conv import pack_conv
 from ugpg_tpu_torch.ops.quant import _conv_i8, _epilogue, _QConv
-from ugpg_tpu_torch.parallel.mesh import Mesh, param_shardings, shard_variables
+from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from ugpg_tpu_torch.parallel.mesh import (
+    Mesh,
+    data_axis_size,
+    param_shardings,
+    shard_variables,
+    tp_sharded,
+)
+from ugpg_tpu_torch.parallel.spatial import GridOps
 
-__all__ = ["column_parallel"]
+__all__ = ["column_parallel", "ReplicaLayout", "replica_forward", "replica_features"]
 
 _CL = torch.channels_last
 
@@ -149,3 +175,78 @@ def column_parallel(model: nn.Module, devices: Sequence[torch.device]) -> nn.Mod
         parent, _, attr = name.rpartition(".")
         setattr(twin.get_submodule(parent), attr, wrapped)
     return twin
+
+
+# ---------------------------------------------------------------- training on a mesh
+class ReplicaLayout:
+    """Where a data-parallel step runs: batch shard i on ``rows[i][0]``
+    (``mesh.py::shard_batch``), ``rows[i]`` the devices of its ``model``
+    slices; with ``shard_model`` (and a ``model`` axis) the convs
+    ``param_shardings`` shards run column-parallel over the row."""
+
+    def __init__(self, mesh: Mesh, shard_model: bool = True):
+        n_data = data_axis_size(mesh)
+        n_model = mesh.shape.get("model", 1)
+        self.mesh = mesh
+        self.rows = [[mesh.device_at(data=i, model=j) for j in range(n_model)]
+                     for i in range(n_data)]
+        self.n_model = n_model if shard_model else 1
+
+    def conv(self, parts, conv: nn.Conv2d, dtype: torch.dtype):
+        """One conv + bias over the shards (``DoubleConv.forward_parts``'s
+        ``conv``): whole on each shard's device, or column slices over its
+        row, gathered in channel order."""
+        n_out = conv.weight.shape[0]
+        if not tp_sharded(n_out, self.n_model):
+            return [[conv_part(p, conv, dtype) for p in row] for row in parts]
+        size = n_out // self.n_model
+        out = []
+        for (p,), devices in zip(parts, self.rows):
+            slices = [conv_part(p.to(dev, non_blocking=True), conv, dtype,
+                                slice(j * size, (j + 1) * size))
+                      for j, dev in enumerate(devices)]
+            out.append([_gather(slices, p.device, dim=1)])
+        return out
+
+
+class _ReplicaOps(GridOps):
+    """``stage_topology``'s blocks on shards that split the batch: each
+    resize per shard at its own size, as the unsharded model's."""
+
+    def __init__(self, model: nn.Module, layout: ReplicaLayout):
+        self.model, self.layout = model, layout
+
+    def dc(self, t, name):
+        return block_double_conv(self.model, name).forward_parts(t, self.layout.conv)
+
+    def hw(self, t) -> tuple[int, int]:
+        return tuple(t[0][0].shape[2:])
+
+    def resize(self, t, hw):
+        return [[resize_bilinear_align_corners(p, hw) for p in row] for row in t]
+
+    def head(self, t, name):
+        head = self.model.get_submodule(name)
+        return [[head(p) for p in row] for row in t]
+
+
+def replica_forward(model: nn.Module, parts: list, layout: ReplicaLayout) -> list:
+    """A live-BN PGUNet stage on batch shards (one NCHW tensor per data
+    row, on its device): the float32 logits per shard.  In train mode BN
+    takes the whole batch's statistics; in eval mode each shard its
+    running stats."""
+    stage = next(s for s, cls in STAGE_MODELS.items() if isinstance(model, cls))
+    grid = stage_topology(stage, _ReplicaOps(model, layout), [[p] for p in parts])
+    return [row[0] for row in grid]
+
+
+def replica_features(model: nn.Module, parts: list, layout: ReplicaLayout) -> list:
+    """A live-BN ``HerlevClassificationModel``'s pooled encoder features
+    (N_i, 512) per batch shard, as ``model.features`` gives them."""
+    enc = model.unet
+    grid = enc.inc.conv.forward_parts([[p] for p in parts], layout.conv)
+    for name in enc.downs:
+        grid = block_double_conv(enc, name).forward_parts(
+            [[F.max_pool2d(p, 2)] for (p,) in grid], layout.conv)
+    return [p.float().mean(dim=(2, 3)) for (p,) in grid]
+

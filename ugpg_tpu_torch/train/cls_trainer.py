@@ -27,6 +27,8 @@
   backward), ``tb_logdir`` (per-epoch TensorBoard scalars) and
   ``pipeline_unc`` (stages > 1 through the uncertainty pipeline,
   ``parallel/pipeline.py``)
+* ``mesh`` and ``shard_model``: data-parallel (and column-parallel) steps
+  with cross-replica BN (``train/steps.py``)
 
 The loop reads the device once per epoch.
 """
@@ -52,8 +54,9 @@ from ugpg_tpu_torch.io.checkpoint import (
     read_checkpoint,
     save_checkpoint,
 )
-from ugpg_tpu_torch.models.blocks import init_parameters
+from ugpg_tpu_torch.models.blocks import DoubleConv, init_parameters
 from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS, HerlevClassificationModel
+from ugpg_tpu_torch.parallel.mesh import data_axis_size, tensor_device
 from ugpg_tpu_torch.parallel.pipeline import (
     UncertaintyPipeline,
     pipeline_check,
@@ -134,11 +137,19 @@ class HerlevTrainer:
         parameters are drawn from the generator before its dropout masks,
         so a pipelined run augments otherwise than a plain one.
 
-        Not ported, raising ``NotImplementedError``: ``mesh``,
-        ``axis_name``, a ``checkpoint_backend`` other than ``"pth"``, and
-        the config's ``scan_epochs`` and ``scan_chunk_bytes`` (ROADMAP.md
-        queue A, item 4b, and "Not to port"); ``pipeline_unc`` with a
-        ``mesh`` raises ``ValueError``."""
+        ``mesh``: every batch whose micro-batches split over its ``data``
+        axis trains and validates data-parallel, the encoder's replicas in
+        lock-step with BN over the whole batch, the dropout masks drawn for
+        the whole batch and sliced (``train/steps.py``); another batch runs
+        unsharded on the mesh's first device, where the models live.
+        ``shard_model``: the wide encoder convs column-parallel over the
+        ``model`` axis.  ``axis_name``: the blocks' BN axis, which no
+        trainer binds: a train step raises the JAX package's ``NameError``.
+
+        Not ported, raising ``NotImplementedError``: a
+        ``checkpoint_backend`` other than ``"pth"``, and the config's
+        ``scan_epochs`` and ``scan_chunk_bytes`` (ROADMAP.md, "Not to
+        port"); ``pipeline_unc`` with a ``mesh`` raises ``ValueError``."""
         self.config = dict(config)
         self.device = resolve_device(device)
         cfg = self.config
@@ -148,8 +159,11 @@ class HerlevTrainer:
                 "pipeline_unc and mesh are mutually exclusive: the "
                 "pipeline builds its own (train, uncertainty) device "
                 "split from the visible devices")
-        not_ported(mesh=mesh is not None, axis_name=axis_name is not None)
-        not_ported('ROADMAP.md, "Not to port"', checkpoint_backend=checkpoint_backend != "pth",
+        if mesh is not None:
+            data_axis_size(mesh)
+            self.device = tensor_device(mesh.first)
+        self.mesh, self.shard_model, self.axis_name = mesh, bool(shard_model), axis_name
+        not_ported(checkpoint_backend=checkpoint_backend != "pth",
                    scan_epochs=bool(cfg.get("scan_epochs")),
                    scan_chunk_bytes=cfg.get("scan_chunk_bytes") is not None)
         if self.pipeline_unc:
@@ -206,6 +220,9 @@ class HerlevTrainer:
             model = HerlevClassificationModel(stage, self.num_classes, use_bn=True,
                                               dtype=self.dtype, remat=self.remat)
             init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
+            for block in model.modules():
+                if isinstance(block, DoubleConv):
+                    block.axis_name = self.axis_name
             self.models[stage] = model.to(self.device)
         return self.models[stage]
 
@@ -231,7 +248,8 @@ class HerlevTrainer:
         self.optimizer = torch_adam(params, self.stage_configs[stage]["lr"],
                                     weight_decay=self.config.get("weight_decay", 1e-4))
         self._scheduler = ReduceLROnPlateau(factor=0.5, patience=5)
-        self._train_steps.pop(stage, None)
+        for key in (stage, (stage, "mesh")):
+            self._train_steps.pop(key, None)
         self._pipelines.pop(stage, None)
         return self.optimizer
 
@@ -256,18 +274,29 @@ class HerlevTrainer:
             return None, None
         return self._model(stage - 1), self.stage_configs[stage - 1]["resolution"]
 
-    def _get_train_step(self, stage: int):
+    def _sharded(self, batch, accum_steps: int = 1) -> bool:
+        """Whether ``batch`` runs on the mesh: its micro-batches split over
+        the ``data`` axis (a ragged batch runs unsharded, the same
+        function)."""
+        if self.mesh is None:
+            return False
+        n = len(batch[0])
+        return n % accum_steps == 0 and (n // accum_steps) % self.mesh.shape["data"] == 0
+
+    def _get_train_step(self, stage: int, sharded: bool = False):
         if self.optimizer is None:
             self.setup_optimizer_scheduler(stage)
-        if stage not in self._train_steps:
+        key = (stage, "mesh") if sharded else stage
+        if key not in self._train_steps:
             prev_model, prev_res = self._prev(stage)
-            self._train_steps[stage] = make_cls_train_step(
+            self._train_steps[key] = make_cls_train_step(
                 self._model(stage), self.optimizer, stage,
                 self.stage_configs[stage]["resolution"], self.num_classes,
                 prev_model=prev_model, prev_resolution=prev_res,
                 alpha=self.uncertainty_alpha, augment=bool(self.config.get("augment", True)),
-                normalize=True, accum_steps=self.accum_steps)
-        return self._train_steps[stage]
+                normalize=True, accum_steps=self.accum_steps,
+                mesh=self.mesh if sharded else None, shard_model=self.shard_model)
+        return self._train_steps[key]
 
     def _get_pipeline(self, stage: int) -> UncertaintyPipeline:
         """The stage's pipeline, built at its first epoch, after the
@@ -289,14 +318,16 @@ class HerlevTrainer:
             self._pipelines[stage] = pipe
         return self._pipelines[stage]
 
-    def _get_eval_step(self, stage: int):
-        if stage not in self._eval_steps:
+    def _get_eval_step(self, stage: int, sharded: bool = False):
+        key = (stage, "mesh") if sharded else stage
+        if key not in self._eval_steps:
             prev_model, prev_res = self._prev(stage)
-            self._eval_steps[stage] = make_cls_eval_step(
+            self._eval_steps[key] = make_cls_eval_step(
                 self._model(stage), stage, self.stage_configs[stage]["resolution"],
                 self.num_classes, prev_model=prev_model, prev_resolution=prev_res,
-                alpha=self.uncertainty_alpha, normalize=True)
-        return self._eval_steps[stage]
+                alpha=self.uncertainty_alpha, normalize=True,
+                mesh=self.mesh if sharded else None, shard_model=self.shard_model)
+        return self._eval_steps[key]
 
     @staticmethod
     def _reduce_epoch(metrics: list[dict]) -> tuple[float, ...]:
@@ -324,11 +355,11 @@ class HerlevTrainer:
             return self._reduce_epoch(pipe.run_epoch(
                 list(dataloader), self.class_weights,
                 aug=self.generator if augment else None, generator=self.generator))
-        step = self._get_train_step(stage)
         log_every = self.config.get("log_interval", 10)
         collected = []
         with contextlib.closing(self._prefetch(dataloader)) as batches:
             for batch_idx, batch in enumerate(batches):
+                step = self._get_train_step(stage, self._sharded(batch, self.accum_steps))
                 m = step(batch, self.class_weights, self.generator)
                 collected.append(m)
                 if self.verbose and batch_idx % log_every == 0:
@@ -338,9 +369,9 @@ class HerlevTrainer:
         return self._reduce_epoch(collected)
 
     def validate_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
-        step = self._get_eval_step(stage)
         with contextlib.closing(self._prefetch(dataloader)) as batches:
-            return self._reduce_epoch([step(batch, self.class_weights) for batch in batches])
+            return self._reduce_epoch([self._get_eval_step(stage, self._sharded(batch))(
+                batch, self.class_weights) for batch in batches])
 
     def _state_dict(self, stage: int) -> dict:
         """The stage's weights with the reference's full ``unet`` key set."""

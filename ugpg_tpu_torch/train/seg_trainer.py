@@ -20,6 +20,10 @@
   (``models/blocks.py``); ``tb_logdir``: per-epoch TensorBoard scalars
   (``utils/tb.py``); ``pipeline_unc=N``: stages > 1 train through the
   uncertainty pipeline (``parallel/pipeline.py``)
+* ``mesh``: data-parallel steps over its ``data`` axis with cross-replica
+  BN (``train/steps.py``), ``shard_model`` the wide convs column-parallel;
+  ``finetune_native``: a stage fine-tuned at native resolution on a
+  spatially sharded grid (``parallel/spatial.py``)
 
 The loop reads the device once per epoch: the steps return device
 scalars, averaged at the epoch's end.
@@ -45,13 +49,19 @@ from ugpg_tpu_torch.io.checkpoint import (
     read_checkpoint,
     save_checkpoint,
 )
-from ugpg_tpu_torch.models.blocks import init_parameters
+from ugpg_tpu_torch.models.blocks import DoubleConv, init_parameters
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from ugpg_tpu_torch.parallel.mesh import data_axis_size, tensor_device
 from ugpg_tpu_torch.parallel.pipeline import (
     UncertaintyPipeline,
     pipeline_check,
     pipeline_device_list,
+)
+from ugpg_tpu_torch.parallel.spatial import (
+    make_spatial_eval_step,
+    make_spatial_train_step,
+    spatial_divisor,
 )
 from ugpg_tpu_torch.progressive.transfer import transfer_weights
 from ugpg_tpu_torch.train.optim import get_learning_rate, torch_rmsprop
@@ -67,6 +77,8 @@ from ugpg_tpu_torch.utils.profiling import CSVLogger
 from ugpg_tpu_torch.utils.tb import TBWriter
 
 __all__ = ["UncertaintyGuidedProgressiveTrainer", "DEFAULT_STAGE_CONFIGS"]
+
+_UNSET = object()  # finetune_native's dtype: the trainer's
 
 DEFAULT_STAGE_CONFIGS = {
     1: {"resolution": 32, "epochs_per_stage": 40, "lr": 3e-4},
@@ -94,7 +106,7 @@ class UncertaintyGuidedProgressiveTrainer:
         augment: bool = False,
         fused_loss: bool = False,
         mesh=None,
-        shard_model: bool = False,
+        shard_model: bool = True,
         checkpoint_backend: str = "pth",
         scan_epochs: bool = False,
         scan_chunk_bytes: int | None = None,
@@ -136,11 +148,24 @@ class UncertaintyGuidedProgressiveTrainer:
         ``ValueError``, as in the JAX package) and N + 1 times the CPU on
         ``cpu``.  Stage 1 runs the plain path.
 
+        ``mesh`` (``parallel/mesh.py::make_mesh``; one process drives it,
+        and it may name one card more than once): every batch whose
+        micro-batches split over the ``data`` axis trains data-parallel, the
+        model's replicas in lock-step with BN over the whole batch, one
+        optimizer update (``train/steps.py``); another batch (a ragged
+        tail) trains unsharded on the mesh's first device, the same
+        function.  The models live on that device.  ``shard_model`` (with
+        a mesh only, as in the JAX package): the convs with at least 256
+        output channels that divide by the ``model`` axis run
+        column-parallel over it.  ``axis_name``: set on every block as the
+        JAX modules' BN axis; no trainer binds it, so a train step raises
+        the JAX package's ``NameError`` (eval runs).
+
         Options of the JAX trainer that are not ported raise
-        ``NotImplementedError``: ``mesh``, ``shard_model``, ``axis_name``,
-        ``checkpoint_backend`` other than ``"pth"``, ``scan_epochs`` and
-        ``scan_chunk_bytes`` (ROADMAP.md queue A, item 4b, and "Not to
-        port"); ``pipeline_unc`` with a ``mesh`` raises ``ValueError``."""
+        ``NotImplementedError``: ``checkpoint_backend`` other than
+        ``"pth"``, ``scan_epochs`` and ``scan_chunk_bytes`` (ROADMAP.md,
+        "Not to port"); ``pipeline_unc`` with a ``mesh`` raises
+        ``ValueError``."""
         self.device = resolve_device(device)
         self.pipeline_unc = int(pipeline_unc)
         if self.pipeline_unc and mesh is not None:
@@ -148,9 +173,11 @@ class UncertaintyGuidedProgressiveTrainer:
                 "pipeline_unc and mesh are mutually exclusive: the "
                 "pipeline builds its own (train, uncertainty) device "
                 "split from the visible devices")
-        not_ported(mesh=mesh is not None, shard_model=shard_model,
-                   axis_name=axis_name is not None)
-        not_ported('ROADMAP.md, "Not to port"', checkpoint_backend=checkpoint_backend != "pth",
+        if mesh is not None:
+            data_axis_size(mesh)
+            self.device = tensor_device(mesh.first)
+        self.mesh, self.shard_model, self.axis_name = mesh, bool(shard_model), axis_name
+        not_ported(checkpoint_backend=checkpoint_backend != "pth",
                    scan_epochs=scan_epochs, scan_chunk_bytes=scan_chunk_bytes is not None)
         if self.pipeline_unc:
             pipeline_check(self.pipeline_unc, self.device)
@@ -185,8 +212,9 @@ class UncertaintyGuidedProgressiveTrainer:
         self.preempted = False
         self.optimizer: torch.optim.Optimizer | None = None
         self._optimizer_stage: int | None = None
-        self._train_steps: dict[int, Any] = {}
-        self._eval_steps: dict[int, Any] = {}
+        # per stage, and per (stage, "mesh") the data-parallel steps
+        self._train_steps: dict[Any, Any] = {}
+        self._eval_steps: dict[Any, Any] = {}
         self._pipelines: dict[int, UncertaintyPipeline] = {}
         # seconds the steps waited on the prefetch queue, and its batches
         self.loader_stats = {"wait_s": 0.0, "batches": 0}
@@ -203,6 +231,9 @@ class UncertaintyGuidedProgressiveTrainer:
                                         width=self.width, in_channels=self.in_channels,
                                         dtype=self.dtype, remat=self.remat)
             init_parameters(model, torch.Generator().manual_seed(4 * self.seed + stage - 1))
+            for block in model.modules():
+                if isinstance(block, DoubleConv):
+                    block.axis_name = self.axis_name
             self.models[stage] = model.to(self.device)
         return self.models[stage]
 
@@ -212,7 +243,8 @@ class UncertaintyGuidedProgressiveTrainer:
                                        self.stage_configs[stage]["lr"],
                                        weight_decay=self.weight_decay)
         self._optimizer_stage = stage
-        self._train_steps.pop(stage, None)
+        for key in (stage, (stage, "mesh")):
+            self._train_steps.pop(key, None)
         self._pipelines.pop(stage, None)
         return self.optimizer
 
@@ -231,18 +263,29 @@ class UncertaintyGuidedProgressiveTrainer:
             return None, None
         return self._model(stage - 1), self.stage_configs[stage - 1]["resolution"]
 
-    def _get_train_step(self, stage: int):
+    def _sharded(self, batch, accum_steps: int = 1) -> bool:
+        """Whether ``batch`` runs on the mesh: its micro-batches split over
+        the ``data`` axis (else it runs unsharded, the same function, as
+        the JAX trainer replicates a ragged batch)."""
+        if self.mesh is None:
+            return False
+        n = len(batch[0])
+        return n % accum_steps == 0 and (n // accum_steps) % self.mesh.shape["data"] == 0
+
+    def _get_train_step(self, stage: int, sharded: bool = False):
         if self._optimizer_stage != stage:
             self.setup_optimizer(stage)
-        if stage not in self._train_steps:
+        key = (stage, "mesh") if sharded else stage
+        if key not in self._train_steps:
             prev_model, prev_res = self._prev(stage)
-            self._train_steps[stage] = make_seg_train_step(
+            self._train_steps[key] = make_seg_train_step(
                 self._model(stage), self.optimizer, stage,
                 self.stage_configs[stage]["resolution"], prev_model=prev_model,
                 prev_resolution=prev_res, alpha=self.uncertainty_alpha,
                 augment=self.augment, fused_loss=self.fused_loss,
-                accum_steps=self.accum_steps, aug_quantize=self.aug_quantize)
-        return self._train_steps[stage]
+                accum_steps=self.accum_steps, aug_quantize=self.aug_quantize,
+                mesh=self.mesh if sharded else None, shard_model=self.shard_model)
+        return self._train_steps[key]
 
     def _get_pipeline(self, stage: int) -> UncertaintyPipeline:
         """The stage's pipeline, built at its first epoch: after the
@@ -265,14 +308,16 @@ class UncertaintyGuidedProgressiveTrainer:
             self._pipelines[stage] = pipe
         return self._pipelines[stage]
 
-    def _get_eval_step(self, stage: int):
-        if stage not in self._eval_steps:
+    def _get_eval_step(self, stage: int, sharded: bool = False):
+        key = (stage, "mesh") if sharded else stage
+        if key not in self._eval_steps:
             prev_model, prev_res = self._prev(stage)
-            self._eval_steps[stage] = make_seg_eval_step(
+            self._eval_steps[key] = make_seg_eval_step(
                 self._model(stage), stage, self.stage_configs[stage]["resolution"],
                 prev_model=prev_model, prev_resolution=prev_res,
-                alpha=self.uncertainty_alpha)
-        return self._eval_steps[stage]
+                alpha=self.uncertainty_alpha, mesh=self.mesh if sharded else None,
+                shard_model=self.shard_model)
+        return self._eval_steps[key]
 
     @staticmethod
     def _average(acc: list[dict]) -> tuple[float, ...]:
@@ -294,11 +339,11 @@ class UncertaintyGuidedProgressiveTrainer:
             pipe = self._get_pipeline(stage)
             return self._average(pipe.run_epoch(
                 batches, self.pos_weight, aug=self.aug_generator if self.augment else None))
-        step = self._get_train_step(stage)
         acc = []
         # closed on any exit, so the prefetch thread never outlives the epoch
         with contextlib.closing(self._prefetch(dataloader)) as batches:
             for batch_idx, batch in enumerate(batches):
+                step = self._get_train_step(stage, self._sharded(batch, self.accum_steps))
                 metrics = step(batch, self.pos_weight, self.aug_generator)
                 acc.append(metrics)
                 if self.verbose and batch_idx % 10 == 0:
@@ -311,9 +356,9 @@ class UncertaintyGuidedProgressiveTrainer:
 
     def validate_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
         """One validation epoch (eval-mode BN, the plain loss, no update)."""
-        step = self._get_eval_step(stage)
         with contextlib.closing(self._prefetch(dataloader)) as batches:
-            return self._average([step(batch, self.pos_weight) for batch in batches])
+            return self._average([self._get_eval_step(stage, self._sharded(batch))(
+                batch, self.pos_weight) for batch in batches])
 
     def _prefetch(self, dataloader: Iterable):
         return prefetch_to_device(iter(dataloader), size=2, device=self.device,
@@ -473,8 +518,83 @@ class UncertaintyGuidedProgressiveTrainer:
         self.save_training_plots(save_path)
         return self.history
 
-    def finetune_native(self, *args, **kwargs):
-        not_ported(finetune_native=True)
+    def finetune_native(self, train_loader: Iterable, stage: int = 4, epochs: int = 1,
+                        mesh=None, w_axis: str | None = None, lr: float | None = None,
+                        val_loader: Iterable | None = None, save_dir: str | None = None,
+                        dtype=_UNSET, accum_steps: int = 1) -> dict[str, list]:
+        """Fine-tune one stage at native slide resolution, spatially
+        sharded (``parallel/spatial.py::make_spatial_train_step``: H over
+        the mesh's ``data`` axis, W over ``w_axis`` too when given, 1-px
+        halos both ways, global-batch BN and loss), with a fresh RMSprop
+        (``lr``: default the stage's) that becomes the trainer's optimizer.
+        ``mesh``: default the trainer's; without one ``ValueError``, as in
+        the JAX package.  ``dtype``: default the trainer's compute dtype
+        (None: float32).  ``accum_steps`` defaults to 1, not the trainer's
+        setting: native loaders yield whole slides, batch 1.
+
+        Each batch keeps its native size, cropped bottom and right to the
+        grid's divisor (cropped, not padded: pad pixels would enter the
+        loss mean; a slide smaller than the divisor raises), and is
+        prefetched to the mesh's first device.  The previous stage stays
+        the uncertainty source.  ``val_loader``: a validation pass per
+        epoch.  The stage's model keeps the result; ``save_dir``: also
+        ``ug_pgunet_stage{S}_native.pth`` (weights, optimizer state, the
+        JAX package's metadata keys), which the predictors load.
+        Returns the per-epoch train (and validation) loss and Dice."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is None:
+            raise ValueError("finetune_native needs a mesh (e.g. parallel.mesh.make_mesh)")
+        dtype = self.dtype if dtype is _UNSET else (dtype or torch.float32)
+        model = self._model(stage)
+        prev_model = self._model(stage - 1) if stage > 1 else None
+        optimizer = torch_rmsprop(model.parameters(),
+                                  lr if lr is not None else self.stage_configs[stage]["lr"],
+                                  weight_decay=self.weight_decay)
+        kw = dict(w_axis=w_axis, prev_model=prev_model, alpha=self.uncertainty_alpha,
+                  dtype=dtype)
+        step = make_spatial_train_step(model, optimizer, stage, mesh, accum_steps=accum_steps,
+                                       fused_loss=self.fused_loss, **kw)
+        eval_step = (make_spatial_eval_step(model, stage, mesh, **kw)
+                     if val_loader is not None else None)
+        h_div, w_div = spatial_divisor(stage, mesh, "data", w_axis)
+
+        def crop(images, masks):
+            ch, cw = (images.shape[1] // h_div) * h_div, (images.shape[2] // w_div) * w_div
+            if ch == 0 or cw == 0:
+                raise ValueError(f"native size {tuple(images.shape[1:3])} smaller than the grid "
+                                 f"divisor ({h_div}, {w_div})")
+            return images[:, :ch, :cw], masks[:, :ch, :cw]
+
+        hist: dict[str, list] = {"train_loss": [], "train_dice": [], "val_loss": [],
+                                 "val_dice": []}
+        home = tensor_device(mesh.first)
+        for epoch in range(epochs):
+            t0 = time.time()
+            with contextlib.closing(prefetch_to_device((crop(*b) for b in train_loader), size=2,
+                                                       device=home)) as batches:
+                acc = [step(batch, self.pos_weight) for batch in batches]
+            tr_loss, _, tr_dice, *_ = self._average(acc)
+            hist["train_loss"].append(tr_loss)
+            hist["train_dice"].append(tr_dice)
+            msg = (f"Native fine-tune stage {stage}, epoch {epoch + 1}/{epochs} "
+                   f"({time.time() - t0:.2f}s) — loss {tr_loss:.4f}, dice {tr_dice:.4f}")
+            if eval_step is not None:
+                va_loss, _, va_dice, *_ = self._average(
+                    [eval_step(crop(*b), self.pos_weight) for b in val_loader])
+                hist["val_loss"].append(va_loss)
+                hist["val_dice"].append(va_dice)
+                msg += f"; val loss {va_loss:.4f}, dice {va_dice:.4f}"
+            self._print(msg)
+
+        self.optimizer, self._optimizer_stage = optimizer, stage
+        for key in (stage, (stage, "mesh")):  # built on the optimizer replaced here
+            self._train_steps.pop(key, None)
+        if save_dir is not None:
+            save_checkpoint(Path(save_dir) / f"ug_pgunet_stage{stage}_native.pth",
+                            model.state_dict(), optimizer_state_dict=optimizer.state_dict(),
+                            stage=stage, native_finetune=True, epochs=epochs,
+                            uncertainty_alpha=self.uncertainty_alpha, history=hist)
+        return hist
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -40,6 +40,20 @@ segmentation's upsampled probabilities ``probs_up`` (B, K, res, res),
 classification's per-sample weights (B,).  They are sliced per
 micro-batch as the images are.
 
+``mesh=`` (every step): the batch splits over the mesh's ``data`` axis
+(each micro-batch in order, shard i on data row i's first device) and the
+model runs over the shards in lock-step (``parallel/tensor.py``): BN with
+the whole batch's statistics, one set of parameters whose gradients
+autograd sums over the replicas, one optimizer update.  Augmentation
+parameters and Herlev's dropout masks are drawn for the whole micro-batch
+from the trainer's generator, in the unsharded step's order, then sliced
+per shard.  Each shard computes its loss (with ``fused_loss=True`` the
+kernels, one forward and one backward launch per shard), and the global
+loss is the mean of the shards' means (the shards are equal): the mesh
+step trains the unsharded step's function on the same batch.  The metrics
+are the same global means and sums.  ``shard_model`` runs the wide convs
+column-parallel over each data row's ``model`` devices.
+
 The JAX package's whole-epoch ``lax.scan`` programs have no counterpart in
 eager PyTorch; CUDA graphs would be theirs.
 """
@@ -58,19 +72,26 @@ from ugpg_tpu_torch.data.augment import (
     sample_herlev_params,
     sample_monuseg_params,
 )
-from ugpg_tpu_torch.metrics.segmentation import dice_coefficient, get_predictions, pixel_accuracy
-from ugpg_tpu_torch.ops.cuda.uncertainty_bce import uncertainty_weighted_bce
+from ugpg_tpu_torch.metrics.segmentation import (
+    dice_coefficient,
+    get_predictions,
+    grid_metrics,
+    pixel_accuracy,
+)
 from ugpg_tpu_torch.ops.losses import (
     bce_with_logits,
     softmax_cross_entropy,
     weighted_cross_entropy_mean,
 )
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
+from ugpg_tpu_torch.parallel.mesh import shard_batch
+from ugpg_tpu_torch.parallel.tensor import ReplicaLayout, replica_features, replica_forward
 from ugpg_tpu_torch.uncertainty import (
     apply_uncertainty_weighted_loss,
     binary_uncertainty,
     classification_uncertainty_weights,
     generate_uncertainty_map,
+    shard_loss,
 )
 
 __all__ = ["make_seg_train_step", "make_seg_eval_step", "make_cls_train_step",
@@ -123,7 +144,22 @@ def _external(unc, n: int, device: torch.device, spatial: tuple = ()) -> torch.T
     return unc
 
 
-def not_ported(where: str = "ROADMAP.md queue A, item 4b", **asked: bool) -> None:
+@torch.no_grad()
+def _replica_probs(prev_model, xs: list, layout: ReplicaLayout, prev_resolution: int,
+                   resolution: int) -> list:
+    """The frozen previous stage's probabilities per batch shard, resized
+    down, run in eval mode and resized back up, as the unsharded steps'."""
+    prev_model.eval()
+    x_prev = [resize_bilinear_align_corners(x, (prev_resolution, prev_resolution)) for x in xs]
+    return [resize_bilinear_align_corners(torch.sigmoid(lg), (resolution, resolution))
+            for lg in replica_forward(prev_model, x_prev, layout)]
+
+
+def _layout(mesh, shard_model: bool) -> ReplicaLayout | None:
+    return None if mesh is None else ReplicaLayout(mesh, shard_model)
+
+
+def not_ported(where: str = 'ROADMAP.md, "Not to port"', **asked: bool) -> None:
     """Raise ``NotImplementedError`` naming every option asked for that the
     port does not have yet, and ``where`` the roadmap places it."""
     missing = [name for name, on in asked.items() if on]
@@ -145,6 +181,8 @@ def make_seg_train_step(
     accum_steps: int = 1,
     external_uncertainty: bool = False,
     aug_quantize: int = 0,
+    mesh=None,
+    shard_model: bool = True,
 ) -> Callable[..., Metrics]:
     """``step(batch, pos_weight, aug=None, unc=None) -> metrics``: one update of
     ``model`` through ``optimizer``.  ``prev_model`` is the frozen previous stage
@@ -169,12 +207,17 @@ def make_seg_train_step(
     ``probs_up`` (B, K, res, res), the previous stage's upsampled
     probabilities of the batch as augmented here, which the step (and,
     with ``fused_loss=True``, the loss kernels) uses as the fused step uses
-    its own."""
+    its own.
+
+    ``mesh``: data-parallel over its ``data`` axis (the module's
+    docstring); every micro-batch must split over it.  ``shard_model``:
+    the wide convs column-parallel over ``model``."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     external = stage > 1 and external_uncertainty
     use_unc = external or (stage > 1 and prev_model is not None)
     params = [p for p in model.parameters() if p.requires_grad]
+    layout = _layout(mesh, shard_model)
 
     def micro(images: torch.Tensor, masks: torch.Tensor, pos_weight: float, aug,
               unc) -> Metrics:
@@ -197,16 +240,40 @@ def make_seg_train_step(
                 unc_map = binary_uncertainty(probs_up)
         model.train()
         logits = model(x)
-        if fused_loss:
-            # stage 1: alpha = 0, so the kernels never read p
-            p_arg = probs_up if use_unc else logits.new_full((), 0.5)
-            final, base = uncertainty_weighted_bce(logits, y, p_arg, pos_weight,
-                                                   alpha if use_unc else 0.0)
-        else:
-            final, base = apply_uncertainty_weighted_loss(
-                bce_with_logits(logits, y, pos_weight), unc_map, alpha)
+        final, base = shard_loss(logits, y, probs_up, unc_map, pos_weight, alpha, fused_loss)
         final.backward()
         return _metrics(final, base, logits, y, unc_map)
+
+    def micro_mesh(images: torch.Tensor, masks: torch.Tensor, pos_weight: float, aug,
+                   unc) -> Metrics:
+        if augment and isinstance(aug, torch.Generator):  # the unsharded step's draw
+            aug = sample_monuseg_params(aug, images.shape[0], quantize_angles=aug_quantize)
+        mesh = layout.mesh
+        augs = shard_batch(aug, mesh) if augment else [None] * mesh.shape["data"]
+        xs, ys = [], []
+        for img, msk, part in zip(shard_batch(images, mesh), shard_batch(masks, mesh), augs):
+            x = resize_bilinear_align_corners(img, (resolution, resolution))
+            y = resize_nearest(msk, (resolution, resolution))
+            if augment:
+                x, y = apply_monuseg_params(x, y, part, quantize_angles=aug_quantize)
+            xs.append(x)
+            ys.append(y)
+        probs = uncs = None
+        if use_unc:
+            probs = (shard_batch(unc, mesh) if external else
+                     _replica_probs(prev_model, xs, layout, prev_resolution, resolution))
+            uncs = [binary_uncertainty(p) for p in probs]
+        model.train()
+        logits = replica_forward(model, xs, layout)
+        losses = [shard_loss(lg, y, None if probs is None else probs[i],
+                             None if uncs is None else uncs[i], pos_weight, alpha, fused_loss)
+                  for i, (lg, y) in enumerate(zip(logits, ys))]
+        home = params[0].device
+        (sum(f.to(home) for f, _ in losses) / len(losses)).backward()
+        return grid_metrics([f for f, _ in losses], [b for _, b in losses], logits, ys, uncs,
+                            home)
+
+    run = micro if layout is None else micro_mesh
 
     def step(batch, pos_weight: float, aug=None, unc=None) -> Metrics:
         device = params[0].device
@@ -225,8 +292,8 @@ def make_seg_train_step(
             part = aug
             if isinstance(aug, dict):
                 part = {k: v[i * m:(i + 1) * m] for k, v in aug.items()}
-            parts.append(micro(images[i * m:(i + 1) * m], masks[i * m:(i + 1) * m], pos_weight,
-                               part, unc[i * m:(i + 1) * m] if external else None))
+            parts.append(run(images[i * m:(i + 1) * m], masks[i * m:(i + 1) * m], pos_weight,
+                             part, unc[i * m:(i + 1) * m] if external else None))
         if accum_steps > 1:
             for p in params:  # the micro-batches' gradients were summed
                 if p.grad is not None:
@@ -246,11 +313,15 @@ def make_seg_eval_step(
     prev_model: nn.Module | None = None,
     prev_resolution: int | None = None,
     alpha: float = 1.0,
+    mesh=None,
+    shard_model: bool = True,
 ) -> Callable[[tuple, float], Metrics]:
     """``step(batch, pos_weight) -> metrics`` in eval mode (running BN
     stats), no update.  It always computes the plain loss, also where
-    training uses the fused kernels, as the JAX package does."""
+    training uses the fused kernels, as the JAX package does.  ``mesh``:
+    the batch split over its ``data`` axis, the metrics global."""
     use_unc = stage > 1 and prev_model is not None
+    layout = _layout(mesh, shard_model)
 
     def prev_apply(x: torch.Tensor) -> torch.Tensor:
         prev_model.eval()
@@ -261,13 +332,24 @@ def make_seg_eval_step(
         device = next(model.parameters()).device
         x = resize_bilinear_align_corners(_nchw(batch[0], device), (resolution, resolution))
         y = resize_nearest(_nchw(batch[1], device), (resolution, resolution))
-        unc_map = (generate_uncertainty_map(prev_apply, x, prev_resolution, resolution)
-                   if use_unc else None)
         model.eval()
-        logits = model(x)
-        final, base = apply_uncertainty_weighted_loss(
-            bce_with_logits(logits, y, pos_weight), unc_map, alpha)
-        return _metrics(final, base, logits, y, unc_map)
+        if layout is None:
+            unc_map = (generate_uncertainty_map(prev_apply, x, prev_resolution, resolution)
+                       if use_unc else None)
+            logits = model(x)
+            final, base = apply_uncertainty_weighted_loss(
+                bce_with_logits(logits, y, pos_weight), unc_map, alpha)
+            return _metrics(final, base, logits, y, unc_map)
+        xs, ys = shard_batch(x, layout.mesh), shard_batch(y, layout.mesh)
+        uncs = None
+        if use_unc:
+            uncs = [binary_uncertainty(p) for p in
+                    _replica_probs(prev_model, xs, layout, prev_resolution, resolution)]
+        logits = replica_forward(model, xs, layout)
+        losses = [shard_loss(lg, t, None, None if uncs is None else uncs[i], pos_weight, alpha,
+                             False) for i, (lg, t) in enumerate(zip(logits, ys))]
+        return grid_metrics([f for f, _ in losses], [b for _, b in losses], logits, ys, uncs,
+                            device)
 
     return step
 
@@ -310,6 +392,25 @@ def _cls_metrics(logits, labels, class_weights, weights) -> tuple[torch.Tensor, 
     }
 
 
+def _cls_replicas(model, prev_model, images: list, resolution: int, normalize: bool,
+                  prev_resolution, num_classes: int, alpha: float, layout: ReplicaLayout,
+                  home: torch.device):
+    """``_cls_inputs`` over batch shards: (the shards' inputs, the previous
+    stage's per-sample weights gathered on ``home``, or None)."""
+    xs = [_cls_inputs(img, resolution, normalize, None, None, num_classes, alpha)[0]
+          for img in images]
+    if prev_model is None:
+        return xs, None
+    with torch.no_grad():
+        prev_model.eval()
+        feats = replica_features(
+            prev_model, [resize_bilinear_align_corners(x, (prev_resolution, prev_resolution))
+                         for x in xs], layout)
+        return xs, torch.cat([classification_uncertainty_weights(prev_model.head(f), num_classes,
+                                                                 alpha).to(home)
+                              for f in feats])
+
+
 def make_cls_train_step(
     model: nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -323,6 +424,8 @@ def make_cls_train_step(
     normalize: bool = False,
     accum_steps: int = 1,
     external_uncertainty: bool = False,
+    mesh=None,
+    shard_model: bool = True,
 ) -> Callable[..., Metrics]:
     """``step(batch, class_weights, generator=None, aug=None, unc=None) ->
     metrics``: one update of the classifier ``model`` through
@@ -343,12 +446,18 @@ def make_cls_train_step(
     class-weighted CE normalises per micro-batch (what torch accumulation
     gives), gradients are averaged, BN stats update per micro-batch, one
     optimizer step follows; "correct" and "count" are summed, the other
-    metrics averaged."""
+    metrics averaged.
+
+    ``mesh``: the encoder data-parallel over its ``data`` axis (the
+    module's docstring); the heads run per shard on their slices of the
+    micro-batch's dropout masks, and the loss on the logits gathered on
+    the model's device.  ``shard_model``: the wide convs column-parallel."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     external = stage > 1 and external_uncertainty
     prev_model = prev_model if stage > 1 and not external else None
     params = [p for p in model.parameters() if p.requires_grad]
+    layout = _layout(mesh, shard_model)
 
     def micro(images, labels, class_weights, generator, aug, unc) -> Metrics:
         if augment:
@@ -364,6 +473,31 @@ def make_cls_train_step(
                                       weights)
         final.backward()
         return metrics
+
+    def micro_mesh(images, labels, class_weights, generator, aug, unc) -> Metrics:
+        b, _, h, w = images.shape
+        if augment and aug is None:
+            aug = sample_herlev_params(generator, b, h, w)
+        # drawn after the augmentation, as the unsharded forward draws them
+        keep = [None if k is None else shard_batch(k, layout.mesh)
+                for k in model.head_masks(b, generator, images.device)]
+        shards = shard_batch(images, layout.mesh)
+        if augment:
+            shards = [apply_herlev_params(img, part)
+                      for img, part in zip(shards, shard_batch(aug, layout.mesh))]
+        xs, weights = _cls_replicas(model, prev_model, shards, resolution, normalize,
+                                    prev_resolution, num_classes, alpha, layout, images.device)
+        if external:
+            weights = unc
+        model.train()
+        logits = torch.cat([
+            model.head(f, True, generator, [None if k is None else k[i] for k in keep])
+            .to(images.device) for i, f in enumerate(replica_features(model, xs, layout))])
+        final, metrics = _cls_metrics(logits, labels, class_weights, weights)
+        final.backward()
+        return metrics
+
+    run = micro if layout is None else micro_mesh
 
     def step(batch, class_weights=None, generator: torch.Generator | None = None, aug=None,
              unc=None) -> Metrics:
@@ -386,8 +520,8 @@ def make_cls_train_step(
             return t[i * m:(i + 1) * m]
 
         optimizer.zero_grad(set_to_none=True)
-        parts = [micro(images[i * m:(i + 1) * m], labels[i * m:(i + 1) * m], class_weights,
-                       generator, part(aug, i), part(unc, i)) for i in range(accum_steps)]
+        parts = [run(images[i * m:(i + 1) * m], labels[i * m:(i + 1) * m], class_weights,
+                     generator, part(aug, i), part(unc, i)) for i in range(accum_steps)]
         if accum_steps > 1:
             for p in params:  # the micro-batches' gradients were summed
                 if p.grad is not None:
@@ -410,17 +544,28 @@ def make_cls_eval_step(
     prev_resolution: int | None = None,
     alpha: float = 1.0,
     normalize: bool = False,
+    mesh=None,
+    shard_model: bool = True,
 ) -> Callable[..., Metrics]:
     """``step(batch, class_weights=None) -> metrics`` in eval mode (running
-    BN stats, no dropout), no update."""
+    BN stats, no dropout), no update.  ``mesh``: the encoder over its
+    ``data`` axis, the loss on the gathered logits."""
     prev_model = prev_model if stage > 1 else None
+    layout = _layout(mesh, shard_model)
 
     @torch.no_grad()
     def step(batch, class_weights=None) -> Metrics:
         images, labels = _cls_batch(batch, next(model.parameters()).device)
-        x, weights = _cls_inputs(images, resolution, normalize, prev_model, prev_resolution,
-                                 num_classes, alpha)
         model.eval()
-        return _cls_metrics(model(x), labels, class_weights, weights)[1]
+        if layout is None:
+            x, weights = _cls_inputs(images, resolution, normalize, prev_model, prev_resolution,
+                                     num_classes, alpha)
+            return _cls_metrics(model(x), labels, class_weights, weights)[1]
+        xs, weights = _cls_replicas(model, prev_model, shard_batch(images, layout.mesh), resolution,
+                                    normalize, prev_resolution, num_classes, alpha, layout,
+                                    images.device)
+        logits = torch.cat([model.head(f).to(images.device)
+                            for f in replica_features(model, xs, layout)])
+        return _cls_metrics(logits, labels, class_weights, weights)[1]
 
     return step

@@ -24,13 +24,14 @@ from typing import Callable
 
 import torch
 
+from ugpg_tpu_torch.ops.cuda.uncertainty_bce import uncertainty_weighted_bce
 from ugpg_tpu_torch.ops.losses import bce_with_logits
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 __all__ = ["binary_uncertainty", "entropy_uncertainty", "mc_dropout_uncertainty",
            "generate_uncertainty_map", "apply_uncertainty_weighted_loss",
            "classification_uncertainty_weights", "UncertaintyGuidedLoss",
-           "create_uncertainty_weighted_loss_fn"]
+           "create_uncertainty_weighted_loss_fn", "shard_loss"]
 
 
 def binary_uncertainty(probs: torch.Tensor) -> torch.Tensor:
@@ -146,3 +147,14 @@ def create_uncertainty_weighted_loss_fn(base_loss_fn=None, pos_weight=None):
         return bce_with_logits(outputs, targets, pos_weight)
 
     return loss_fn
+
+
+def shard_loss(logits, y, probs_up, unc_map, pos_weight: float, alpha: float, fused: bool):
+    """(final, base) means of one batch or shard: the fused kernels with
+    ``fused`` (at stage 1, no ``probs_up``: a 0-d p of 0.5 and alpha 0, so
+    the kernels read no p), else BCE and the uncertainty-weighted mean."""
+    if fused:
+        p_arg = probs_up if probs_up is not None else logits.new_full((), 0.5)
+        return uncertainty_weighted_bce(logits, y, p_arg, pos_weight,
+                                        alpha if probs_up is not None else 0.0)
+    return apply_uncertainty_weighted_loss(bce_with_logits(logits, y, pos_weight), unc_map, alpha)
