@@ -242,7 +242,25 @@
    against the unsharded step.  train_monuseg --mesh 2 --native_finetune 1
    on phase 9's tree and its _native.pth served by SlidePredictor;
    train_herlev --mesh 2 on phase 11's tree.
-17. Prints a "kernels" JSON line, then as its last line
+17. The pipeline's device groups and training over processes, TF32 off.
+   UncertaintyPipeline on [cuda:0] * 6 with n_unc=2, n_model=2 (a 2 x 2
+   train mesh with column-parallel convs, a 2 x 1 unc mesh): segmentation
+   stage 4, full width, batch 8, fused loss, augment, depth 2, over 6
+   batches; step 0 against the unsharded fused step on the same draws
+   (rtol 2e-5); one loss forward and one backward launch per train data
+   shard and step, the loss kernels held on those shards' inputs;
+   images/s against the fused steps in turns (median and spread of 5);
+   Herlev stage 2 through the classification pipeline on the same groups
+   (step 0, rtol 2e-5).  Two gloo processes spawned on the card (NCCL
+   cannot run two ranks on one card), each on a one-device local mesh:
+   stage 2 at full width, global batch 8, fused loss; step 0's metrics and
+   BN stats against one process on the 2 x 1 mesh (rtol 2e-5), the
+   parameters bit for bit equal across the processes, one loss forward
+   and one backward launch per process.  train_monuseg --mesh 1 under a
+   coordinator on phase 9's tree, 2 processes, stage 1, one epoch: both
+   exit 0 and only process 0 writes; serve --mesh 1 under a coordinator
+   exits 2 with the reason.
+18. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -261,7 +279,9 @@ import json
 import math
 import re
 import shutil
+import os
 import signal
+import socket
 import statistics
 import struct
 import subprocess
@@ -319,7 +339,7 @@ from ugpg_tpu_torch.models.classifier import (  # noqa: E402
 )
 from ugpg_tpu_torch.models.folding import fold_batchnorm  # noqa: E402
 from ugpg_tpu_torch.models.blocks import init_parameters  # noqa: E402
-from ugpg_tpu_torch.models.pgunet import PGUNet3, PGUNet4  # noqa: E402
+from ugpg_tpu_torch.models.pgunet import PGUNet1, PGUNet2, PGUNet3, PGUNet4  # noqa: E402
 from ugpg_tpu_torch.ops import quant  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import _lib  # noqa: E402
 from ugpg_tpu_torch.ops.cuda import double_conv as double_conv_mod  # noqa: E402
@@ -361,6 +381,7 @@ from ugpg_tpu_torch.train.seg_trainer import (  # noqa: E402
     DEFAULT_STAGE_CONFIGS,
     UncertaintyGuidedProgressiveTrainer,
 )
+from ugpg_tpu_torch.parallel import distributed  # noqa: E402
 from ugpg_tpu_torch.parallel.mesh import make_mesh, tp_sharded  # noqa: E402
 from ugpg_tpu_torch.parallel.pipeline import UncertaintyPipeline  # noqa: E402
 from ugpg_tpu_torch.parallel.spatial import (  # noqa: E402
@@ -3897,6 +3918,276 @@ def mesh_training(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dict, dic
     return launches, errors, {"trainers": trainers, "spatial": spatial, "commands": commands}
 
 
+# ------------------------------------------------------------ phase 17: pipeline groups, processes
+GROUP_DEVICES, GROUP_UNC, GROUP_MODEL = 6, 2, 2  # a 2 x 2 train mesh and a 2 x 1 unc mesh
+DIST_PROCS = 2  # gloo processes on the one card (NCCL refuses two ranks on one card)
+DIST_TIMEOUT_S = 120
+# a training command joined to the others with gloo before it parses --mesh (its own join
+# would take NCCL on a card); every checkpoint it writes is printed as "WROTE <path>"
+DIST_BOOT = (
+    "import sys\n"
+    "from ugpg_tpu_torch.parallel import distributed\n"
+    f"distributed.initialize(backend='gloo', timeout={DIST_TIMEOUT_S})\n"
+    "from ugpg_tpu_torch.train import seg_trainer\n"
+    "save = seg_trainer.save_checkpoint\n"
+    "def logged(path, *a, **k):\n"
+    "    print('WROTE', path, flush=True)\n"
+    "    return save(path, *a, **k)\n"
+    "seg_trainer.save_checkpoint = logged\n"
+    "from ugpg_tpu_torch.cli import train_monuseg\n"
+    "sys.exit(train_monuseg.cli(sys.argv[1:]))\n")
+
+
+def pipeline_groups(card: str) -> tuple[dict, dict, dict]:
+    """Phase 17, the pipeline over two meshes of [cuda:0] * 6 (n_unc=2,
+    n_model=2: a 2 x 2 train mesh with column-parallel convs, a 2 x 1 unc
+    mesh): segmentation stage 4, full width, batch 8, fused loss, augment,
+    depth 2, over 6 batches; step 0 against the unsharded fused step on the
+    same draws (rtol 2e-5); the counters, reset just before the epoch, must
+    show one loss forward and one backward per train data shard and step;
+    the loss kernels held on those shards' inputs; images/s against the
+    fused steps in turns.  Herlev stage 2 through the classification
+    pipeline on the same groups, step 0 against the fused step."""
+    devices = [DEV] * GROUP_DEVICES
+    prev = _seeded(PGUNet3(use_bn=True), 30)
+    ref = _seeded(PGUNet4(use_bn=True), 40).state_dict()
+    images, masks = disk_dataset(TRAIN_BATCH * PIPE_BATCHES, 256, seed=17)
+    batches = [(images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                masks[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]) for i in range(PIPE_BATCHES)]
+    g = torch.Generator(device=DEV).manual_seed(17)
+    draws = [sample_monuseg_params(g, TRAIN_BATCH) for _ in batches]
+
+    def fresh():
+        model = PGUNet4(use_bn=True).to(DEV)
+        model.load_state_dict(ref)
+        return model, torch_rmsprop(model.parameters(), 1e-4, weight_decay=1e-4)
+
+    model, opt = fresh()
+    pipe = UncertaintyPipeline(model, prev, opt, 4, 256, 128, devices=devices, n_unc=GROUP_UNC,
+                               n_model=GROUP_MODEL, fused_loss=True, augment=True, depth=2)
+    assert pipe.train_mesh.shape == {"data": 2, "model": 2}, pipe.train_mesh
+    assert pipe.unc_mesh.shape == {"data": 2, "model": 1}, pipe.unc_mesh
+    pipe.create_state()
+    pipe.place_prev()
+    fmodel, fopt = fresh()
+    fused = make_seg_train_step(fmodel, fopt, 4, 256, prev_model=prev, prev_resolution=128,
+                                augment=True, fused_loss=True)
+    n_t = pipe.train_mesh.shape["data"]
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    with captured_loss() as calls:
+        piped = pipe.run_epoch(batches, PW, aug=draws)
+    torch.cuda.synchronize()
+    launches = _lib.launch_counts()
+    assert launches == {k: PIPE_BATCHES * n_t for k in LOSS_KERNELS}, launches
+    errors = hold_loss(calls, 1.0 / n_t, "pipeline groups (2 x 2 train mesh)", card)
+    del calls
+    want = [fused(b, PW, d) for b, d in zip(batches, draws)]
+    step0 = _assert_close(piped[0], want[0], SEG_STEP_KEYS, 2e-5, 1e-6,
+                          "pipeline groups, segmentation stage 4")
+    log("pipeline groups: step 0, pipelined against fused: "
+        + json.dumps({k: [float(piped[0][k]), float(want[0][k])] for k in SEG_STEP_KEYS}))
+    _lib.reset_launch_counts()
+    runs = {"pipelined": [], "fused": []}
+    for _ in range(PIPE_TURNS):
+        for name in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "pipelined":
+                pipe.run_epoch(batches, PW, aug=draws)
+            else:
+                for b, d in zip(batches, draws):
+                    fused(b, PW, d)
+            torch.cuda.synchronize()
+            runs[name].append(len(images) / (time.perf_counter() - t0))
+    _lib.reset_launch_counts()
+    ips = {k: {"median": statistics.median(v), "min": min(v), "max": max(v)}
+           for k, v in runs.items()}
+    log(f"pipeline groups: [{DEV}] * {GROUP_DEVICES}, n_unc={GROUP_UNC}, n_model={GROUP_MODEL} "
+        f"(train mesh 2 x 2, unc mesh 2 x 1), segmentation stage 4, full width, batch "
+        f"{TRAIN_BATCH}, {PIPE_BATCHES} batches: loss launches {json.dumps(launches)} ({n_t} "
+        f"train data shards a step); step 0 against the unsharded fused step max rel err "
+        f"{step0:.2e}; images/s in turns (median [min, max] of {PIPE_TURNS}): "
+        + ", ".join(f"{k} {v['median']:.2f} [{v['min']:.2f}, {v['max']:.2f}]"
+                    for k, v in ips.items()) + f" on {card} (one card: the overhead, not "
+        "scaling)")
+    del pipe, fused, model, fmodel
+    torch.cuda.empty_cache()
+
+    k, res, prev_res = 7, CLS_STAGE_RESOLUTIONS[2], CLS_STAGE_RESOLUTIONS[1]
+    cprev = _seeded(HerlevClassificationModel(1, k), 70)
+    cref = _seeded(HerlevClassificationModel(2, k), 80).state_dict()
+    rng = np.random.default_rng(17)
+    cbatch = (rng.random((HERLEV_BATCH, res, res, 3), dtype=np.float32),
+              rng.integers(0, k, HERLEV_BATCH))
+    cw = torch.linspace(0.5, 2.0, k, device=DEV)
+    params = sample_herlev_params(torch.Generator(device=DEV).manual_seed(18), HERLEV_BATCH,
+                                  res, res)
+    out = []
+    for piped_run in (True, False):
+        cmodel = HerlevClassificationModel(2, k).to(DEV)
+        cmodel.load_state_dict(cref)
+        copt = torch_rmsprop(cmodel.parameters(), 1e-4)
+        dropout = torch.Generator(device=DEV).manual_seed(19)
+        if piped_run:
+            cpipe = UncertaintyPipeline(cmodel, cprev, copt, 2, res, prev_res, devices=devices,
+                                        n_unc=GROUP_UNC, n_model=GROUP_MODEL,
+                                        task_type="classification", num_classes=k,
+                                        augment=True, normalize=True)
+            out.append(cpipe.run_epoch([cbatch], cw, aug=[params], generator=dropout)[0])
+        else:
+            step = make_cls_train_step(cmodel, copt, 2, res, k, prev_model=cprev,
+                                       prev_resolution=prev_res, augment=True, normalize=True)
+            out.append(step(cbatch, cw, dropout, aug=params))
+    cls0 = _assert_close(out[0], out[1], ("final_loss", "base_loss", "uncertainty_weight_mean",
+                                          "uncertainty_weight_std"), 2e-5, 1e-6,
+                         "pipeline groups, Herlev stage 2")
+    assert int(out[0]["correct"]) == int(out[1]["correct"])
+    log(f"pipeline groups: Herlev stage 2, batch {HERLEV_BATCH}, the same groups: step 0 "
+        f"against the fused step max rel err {cls0:.2e} on {card}")
+    return launches, errors, {"step0_max_rel_err": step0, "herlev_step0_max_rel_err": cls0,
+                              "images_per_s": ips}
+
+
+def _dist_models():
+    prev = _seeded(PGUNet1(use_bn=True), 21)
+    model = _seeded(PGUNet2(use_bn=True), 22)
+    return model, prev
+
+
+def _dist_step(mesh, batch, rows):
+    """Step 0 of stage 2 at full width (fused loss, augmentation drawn from
+    seed 23) on ``mesh`` over ``batch[rows]``: (metrics, state, loss launches)."""
+    model, prev = _dist_models()
+    step = make_seg_train_step(model, torch_rmsprop(model.parameters(), 1e-4, weight_decay=1e-4),
+                               2, STAGE_RES[1], prev_model=prev, prev_resolution=STAGE_RES[0],
+                               augment=True, fused_loss=True, mesh=mesh)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    m = step((batch[0][rows], batch[1][rows]), PW, torch.Generator(device=DEV).manual_seed(23))
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    _lib.reset_launch_counts()
+    return ({k: float(v) for k, v in m.items()},
+            {k: v.detach().cpu() for k, v in model.state_dict().items()}, counts)
+
+
+def dist_worker(rank: int, tmp: str) -> None:
+    """One of the gloo processes (``python -c``, see ``two_processes``):
+    step 0 on a one-device mesh over its rows of ``tmp/batch.npz``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"file://{tmp}/rdzv", num_processes=DIST_PROCS, process_id=rank,
+                           backend="gloo", timeout=DIST_TIMEOUT_S)
+    try:
+        with np.load(Path(tmp) / "batch.npz") as f:
+            batch = (f["images"], f["masks"])
+        result = _dist_step(make_mesh(1, 1, devices=[DEV]), batch,
+                            distributed.host_batch_slice(TRAIN_BATCH))
+        torch.save(result, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def two_processes(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dict]:
+    """Phase 17, two gloo processes on the card (NCCL cannot run two ranks
+    on one card, so it is not measured here): each on a one-device local
+    mesh, stage 2 at full width, global batch 8, fused loss, augmented;
+    step 0's metrics and BN stats against one process on the 2 x 1 mesh
+    (rtol 2e-5), the parameters bit for bit equal across the processes,
+    one loss forward and one backward launch per process.  Beside them
+    train_monuseg --mesh 1 under a coordinator on phase 9's tree (2
+    processes, stage 1, one epoch: both exit 0, only process 0 writes) and
+    serve --mesh 1 under a coordinator (exit 2 with the reason); the three
+    groups of children run at once, each finishing or killed."""
+    images, masks = disk_dataset(TRAIN_BATCH, STAGE_RES[1], seed=24)
+    noise = np.random.default_rng(24).standard_normal(images.shape).astype(np.float32)
+    batch = (np.clip(images + 0.05 * noise, 0.0, 1.0), masks)
+    np.savez(tmp / "batch.npz", images=batch[0], masks=batch[1])
+    out = tmp / "dist_cli"
+    env = {**os.environ, "UGPG_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+           "WORLD_SIZE": str(DIST_PROCS)}
+    t0 = time.perf_counter()
+    # children that import this script and run dist_worker
+    workers = [start_command([sys.executable, "-c", "import sys, chip_smoke as c; "
+                              "c.dist_worker(int(sys.argv[1]), sys.argv[2])", str(r), str(tmp)])
+               for r in range(DIST_PROCS)]
+    commands = [subprocess.Popen(
+        [sys.executable, "-u", "-c", DIST_BOOT, "--data_dir", str(mon_root), "--output_dir",
+         str(out), "--stages", "1", "--epochs", "1", "--batch_size", str(TRAIN_BATCH),
+         "--checkpoint_every", "1", "--mesh", "1"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env={**env, "RANK": str(r)})
+        for r in range(DIST_PROCS)]
+    serve_proc = subprocess.Popen(
+        port_command("ugpg_tpu_torch.cli.serve", "--model", f"m={tmp / 'absent.pth'}", "--mesh",
+                     "1"), cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)
+    with tf32(False):
+        want, want_state, want_counts = _dist_step(mesh_of((2, 1)), batch, slice(None))
+    assert want_counts == {k: 2 for k in LOSS_KERNELS}, want_counts
+    for r, proc in enumerate(workers):
+        finish_command(proc, f"gloo process {r} of {DIST_PROCS}", timeout=2 * DIST_TIMEOUT_S)
+    texts = [finish_command(p, f"train_monuseg --mesh 1, process {r} of {DIST_PROCS}",
+                            timeout=2 * DIST_TIMEOUT_S) for r, p in enumerate(commands)]
+    served_out, served_err = serve_proc.communicate(timeout=2 * DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+
+    runs = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(DIST_PROCS)]
+    worst, stats_err = 0.0, 0.0
+    for metrics, state, counts in runs:
+        assert counts == {k: 1 for k in LOSS_KERNELS}, counts
+        worst = max(worst, _assert_close(metrics, want, SEG_STEP_KEYS, 2e-5, 1e-7,
+                                         "two processes, stage 2"))
+        for k, v in want_state.items():
+            if "running" in k:
+                d = (state[k] - v).abs()
+                assert bool((d <= 1e-7 + 2e-5 * v.abs()).all()), (k, d.max().item())
+                stats_err = max(stats_err, d.max().item())
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+    log(f"processes: {DIST_PROCS} gloo processes on {DEV}, one-device local meshes, stage 2 "
+        f"full width, global batch {TRAIN_BATCH}, fused loss: step 0 against one process on "
+        f"the 2 x 1 mesh: metrics max rel err {worst:.2e}, BN stats max|d| {stats_err:.2e}; "
+        f"parameters bit for bit equal across the processes; loss launches per process "
+        f"{json.dumps(runs[0][2])} on {card}")
+
+    wrote = [[line.split(None, 1)[1] for line in t.splitlines() if line.startswith("WROTE ")]
+             for t in texts]
+    assert wrote[0] and not any(wrote[1:]), wrote
+    assert (out / "ug_pgunet_stage1_best.pth").exists() and (out / "ug_pgunet_stage1_last.pth")\
+        .exists()
+    rows = (out / "training_log.csv").read_text().splitlines()
+    assert len(rows) == 2, rows  # the header and the one epoch's row, from process 0
+    assert serve_proc.returncode == 2 and "ugpg_tpu/eval/serving.py:473" in served_err, \
+        served_err[-2000:]
+    log(f"processes: train_monuseg --mesh 1 under a coordinator, {DIST_PROCS} processes, stage "
+        f"1, one epoch: both exit 0, process 0 wrote {[Path(w).name for w in wrote[0]]}, the "
+        f"others nothing; serve --mesh 1 under a coordinator exits 2: "
+        f"{served_err.strip().splitlines()[-1][:160]}; the children together {wall:.1f} s on "
+        f"{card}")
+    return {k: DIST_PROCS for k in LOSS_KERNELS}, {
+        "step0_max_rel_err": worst, "bn_stats_max_abs_err": stats_err, "children_s": wall}
+
+
+def groups_and_processes(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dict, dict]:
+    """Phase 17: the pipeline's device groups and training over processes."""
+    t0 = time.perf_counter()
+    with tf32(False):
+        launches, errors, groups = pipeline_groups(card)
+    torch.cuda.empty_cache()
+    dist_launches, processes = two_processes(tmp, mon_root, card)
+    for k, v in dist_launches.items():
+        launches[k] += v
+    log(f"groups and processes: phase 17 in {time.perf_counter() - t0:.1f} s on {card}")
+    return launches, errors, {"groups": groups, "processes": processes}
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -3969,6 +4260,10 @@ def main():
         torch.cuda.empty_cache()
         train_mesh_launches, train_mesh_errors, phase16 = mesh_training(
             Path(mon_tmp), Path(mon_tmp) / "MoNuSeg", card)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            group_launches, group_errors, phase17 = groups_and_processes(
+                Path(tmp), Path(mon_tmp) / "MoNuSeg", card)
     for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's; the int8 path's
         launches[kernel] += stack_launches[kernel] + int8_launches[kernel]
     # the int8 path is the bf16-taps instance's main path; the pipeline's epoch, the loss
@@ -3988,6 +4283,12 @@ def main():
     for kernel, n in train_mesh_launches.items():
         launches[kernel] += n
     for kernel, err in train_mesh_errors.items():
+        errors[kernel] = max(errors[kernel], err)
+    # phase 17: the loss kernels per train data shard of the pipeline's 2 x 2 mesh, and
+    # once in each of the two processes
+    for kernel, n in group_launches.items():
+        launches[kernel] += n
+    for kernel, err in group_errors.items():
         errors[kernel] = max(errors[kernel], err)
 
     rows = []
@@ -4087,6 +4388,14 @@ def main():
         + "; ".join(f"{label} {v['s_per_step']:.4f} s against {v['unsharded_s_per_step']:.4f}, "
                     f"peak {v['peak_gib']:.3f} against {v['unsharded_peak_gib']:.3f} GiB"
                     for label, v in spatial.items()) + f" on {card}")
+    groups, processes = phase17["groups"], phase17["processes"]
+    log(f"pipeline groups and processes (one card: the overhead, not scaling; NCCL not "
+        f"measured): pipeline on [{DEV}] * {GROUP_DEVICES} images/s "
+        f"{groups['images_per_s']['pipelined']['median']:.2f} against the fused steps' "
+        f"{groups['images_per_s']['fused']['median']:.2f}, step 0 max rel err "
+        f"{groups['step0_max_rel_err']:.2e} (Herlev {groups['herlev_step0_max_rel_err']:.2e}); "
+        f"two gloo processes step 0 max rel err {processes['step0_max_rel_err']:.2e}, BN stats "
+        f"max|d| {processes['bn_stats_max_abs_err']:.2e} on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

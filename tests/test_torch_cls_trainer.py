@@ -234,8 +234,9 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
     --pipeline_unc reach the trainer's config (--pipeline_unc: the train
     loaders drop the ragged final batch), --mesh reaches the trainer (and
     beside --pipeline_unc exits 2 with the JAX package's ValueError);
-    across hosts (a coordinator address set) --mesh exits 2, naming item
-    4b.4."""
+    under a coordinator --mesh joins the processes first
+    (``init_process_group`` records its call here) and, without a process
+    count, exits 2 before any rendezvous."""
     if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh"):
         from ugpg_tpu_torch.train import cls_trainer
 
@@ -252,8 +253,19 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
         with pytest.raises(KeyboardInterrupt):
             train_herlev.cli(argv + flags)
         if flags[0] == "--mesh":
+            import torch.distributed as dist
+
             assert seen["mesh"].shape == {"data": 4, "model": 2}
+            joined = []
+            monkeypatch.setattr(dist, "init_process_group", lambda **kw: joined.append(kw))
             monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
+            monkeypatch.setenv("WORLD_SIZE", "2")
+            seen.clear()
+            with pytest.raises(KeyboardInterrupt):
+                train_herlev.cli(argv + flags)
+            assert seen["mesh"].shape == {"data": 4, "model": 2}
+            assert [j["init_method"] for j in joined] == ["tcp://localhost:1234"]
+            monkeypatch.delenv("WORLD_SIZE")
         else:
             key = flags[0][2:]
             assert seen[key] == {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1}[key]
@@ -270,9 +282,8 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
     with pytest.raises(SystemExit) as info:
         train_herlev.cli(["--data_dir", str(tmp_path), "--device", "cpu", *flags])
     err = capsys.readouterr().err
-    assert info.value.code == 2 and "not ported" in err and flags[0] in err
-    if flags[0] == "--mesh":
-        assert "item 4b.4" in err
+    missing = "no process count" if flags[0] == "--mesh" else "not ported"
+    assert info.value.code == 2 and missing in err and flags[0] in err
 
 
 def test_command_line_trains_stage_1(tmp_path, monkeypatch):

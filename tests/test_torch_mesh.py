@@ -199,7 +199,9 @@ def test_shard_batch_splits_the_leading_axis_in_order():
 
 def test_parse_mesh_grammar_matches_jax(monkeypatch):
     """'N' == 'N,1'; None -> None; junk exits with the JAX package's message;
-    on the CPU the mesh repeats the CPU; multi-host raises, naming item 4b."""
+    on the CPU the mesh repeats the CPU; under a coordinator the processes
+    join first (``init_process_group`` records its call here), and without
+    a process count nothing is joined."""
     for spec in ("2", "2,2", "1,4", "auto"):
         got = parse_mesh(spec, "cpu")
         want = jax_parse_mesh(spec) if spec != "auto" else None
@@ -214,10 +216,19 @@ def test_parse_mesh_grammar_matches_jax(monkeypatch):
             parse_mesh(junk, "cpu")
     with pytest.raises(SystemExit, match="DATA"):
         jax_parse_mesh("1,2,3")
+    import torch.distributed as dist
+
+    joined = []
+    monkeypatch.setattr(dist, "init_process_group", lambda **kw: joined.append(kw))
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    with pytest.raises(ValueError, match="no process count"):
         parse_mesh("2", "cpu")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    assert parse_mesh("2", "cpu").shape == {"data": 2, "model": 1}
+    assert [j["init_method"] for j in joined] == ["tcp://localhost:1234"]
     monkeypatch.delenv("UGPG_COORDINATOR_ADDRESS")
+    monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         parse_mesh("2")

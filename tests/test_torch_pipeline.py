@@ -228,10 +228,14 @@ def test_split_devices_and_validation():
     for n_unc, devices in ((4, [cpu] * 4), (0, [cpu] * 4), (1, [cpu])):
         with pytest.raises(ValueError, match="must leave at least one train device"):
             split_devices(n_unc, devices)
-    assert pipeline_devices(1, CPU2) == (cpu, cpu)  # one device named twice
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pipeline_devices(1, [cpu, torch.device("meta"), cpu])  # two distinct train devices
-    with pytest.raises(NotImplementedError, match="item 4"):
+    train, unc = pipeline_devices(1, CPU2)  # one device named twice: a 1 x 1 mesh each
+    assert (train.shape, unc.shape) == ({"data": 1, "model": 1},) * 2
+    assert train.first == unc.first == cpu
+    # groups of several devices (distinct or not) and a model axis build meshes, as JAX's
+    train, unc = pipeline_devices(2, [cpu, torch.device("meta"), cpu, cpu, cpu], n_model=2)
+    assert train.shape == {"data": 1, "model": 2} and unc.shape == {"data": 2, "model": 1}
+    assert list(train.devices.flat) == [cpu, torch.device("meta")]
+    with pytest.raises(ValueError, match="cannot host a model-axis of 2"):
         pipeline_devices(1, CPU2, n_model=2)
     model, prev = _port_model(2, jax_variables(2, 0.25)), _port_model(1, jax_variables(1, 0.25))
     opt = torch_rmsprop(model.parameters(), 1e-4)

@@ -22,6 +22,7 @@ from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset
 from ugpg_tpu_torch.device import resolve_device
 from ugpg_tpu_torch.eval.exported import ExportedPredictor
 from ugpg_tpu_torch.eval.herlev import HerlevEvaluator
+from ugpg_tpu_torch.eval import monuseg as MoNuSegEvaluator_module
 from ugpg_tpu_torch.eval.monuseg import MoNuSegEvaluator
 from ugpg_tpu_torch.eval.serving import Predictor
 from ugpg_tpu_torch.eval.slide import ExportedSlidePredictor, SlidePredictor
@@ -61,10 +62,10 @@ def test_imports_with_jax_and_ugpg_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 70  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 71  # every module of the package was imported
     imported = proc.stdout.split()[:-1]
     for name in ("utils.tb", "utils.config", "parallel", "parallel.pipeline", "parallel.mesh",
-                 "parallel.spatial", "parallel.tensor"):
+                 "parallel.spatial", "parallel.tensor", "parallel.distributed"):
         assert f"ugpg_tpu_torch.{name}" in imported, name
 
 
@@ -256,26 +257,35 @@ def test_slide_predictor_parts_outside_the_slice_raise(part, stage1_pth, tmp_pat
 
 
 def test_parts_still_to_port_cite_their_roadmap_items(monkeypatch):
-    """The multi-device parts left (ROADMAP.md queue A, item 4b.4: the
-    multi-host --mesh over parallel/distributed.py; item 4b.5: the
-    pipeline's multi-device groups) raise naming their item, which
-    ROADMAP.md lists."""
+    """The last multi-device parts (ROADMAP.md queue A, item 4b.4: the
+    multi-process --mesh over parallel/distributed.py; item 4b.5: the
+    pipeline's multi-device groups) are ported: ROADMAP.md marks both
+    done, the pipeline builds a mesh per group, ``--mesh`` under a
+    coordinator joins the processes, and no message of the port cites
+    either item as still to port."""
+    import torch.distributed as dist
+
     from ugpg_tpu_torch.parallel import mesh as port_mesh
     from ugpg_tpu_torch.parallel.pipeline import pipeline_devices
 
     roadmap = (ROOT / "ROADMAP.md").read_text()
-    assert "4b.4" in roadmap and "4b.5" in roadmap
+    assert re.search(r"4b\.4[^\n]*done", roadmap) and re.search(r"4b\.5[^\n]*done", roadmap)
     cpus = [torch.device("cpu", i) for i in range(3)]
-    with pytest.raises(NotImplementedError, match=r"item 4b\.5"):
-        pipeline_devices(1, cpus)  # a train group of two devices
-    with pytest.raises(NotImplementedError, match=r"item 4b\.5"):
-        pipeline_devices(2, cpus)  # an unc group of two
-    with pytest.raises(NotImplementedError, match=r"item 4b\.5"):
-        pipeline_devices(1, ["cpu", "cpu"], n_model=2)
-    assert "item 4b.4" in port_mesh.__doc__
+    train, unc = pipeline_devices(1, cpus)  # a train group of two devices
+    assert train.shape == {"data": 2, "model": 1} and unc.shape == {"data": 1, "model": 1}
+    train, unc = pipeline_devices(2, cpus)  # an unc group of two
+    assert train.shape == {"data": 1, "model": 1} and unc.shape == {"data": 2, "model": 1}
+    train, _ = pipeline_devices(1, ["cpu"] * 3, n_model=2)
+    assert train.shape == {"data": 1, "model": 2}
+    assert "item 4b.4" not in port_mesh.__doc__
+    for path in PKG.rglob("*.py"):
+        assert not re.search(r"item 4b\.[45]", path.read_text()), path
+    called = []
+    monkeypatch.setattr(dist, "init_process_group", lambda **kw: called.append(kw))
     monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match=r"item 4b\.4"):
-        parse_mesh("2", "cpu")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    assert parse_mesh("2", "cpu").shape == {"data": 2, "model": 1}
+    assert called[0]["init_method"] == "tcp://localhost:1234" and called[0]["world_size"] == 2
 
 
 class _StubTrainer:
@@ -312,10 +322,17 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
     """Never ignored: the command exits 2 naming the flag.  Ported since:
     --tb_logdir, --remat and --pipeline_unc reach the trainer, and beside
     --mesh --pipeline_unc exits 2 with the JAX package's ValueError; --mesh
-    of train, test and serve builds the mesh, and across hosts (a
-    coordinator address set) exits 2 naming --mesh and item 4b.4;
-    --native_finetune fine-tunes the last stage over the mesh (native
-    size, the W axis) and without --mesh exits with JAX's message."""
+    of train, test and serve builds the mesh; under a coordinator train
+    joins the processes first (no rendezvous here: ``init_process_group``
+    records its call, and without a process count the command exits 2
+    before any), test evaluates on its own mesh without joining, as the JAX
+    command does, and serve exits 2 naming --mesh and the JAX fetch that
+    refuses it; --native_finetune fine-tunes the last stage over the mesh
+    (native size, the W axis) and without --mesh exits with JAX's message."""
+    import torch.distributed as dist
+
+    joined = []
+    monkeypatch.setattr(dist, "init_process_group", lambda **kw: joined.append(kw))
     if command == "train":
         argv = ["--data_dir", str(tmp_path), "--output_dir", str(tmp_path / "out"),
                 "--device", "cpu", *flags]
@@ -337,6 +354,13 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
             if flags[0] == "--mesh":
                 assert main(argv).kwargs["mesh"].shape == {"data": 4, "model": 2}
                 monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
+                monkeypatch.setenv("WORLD_SIZE", "2")
+                monkeypatch.setenv("RANK", "1")
+                assert main(argv).kwargs["mesh"].shape == {"data": 4, "model": 2}
+                assert joined == [{"backend": "gloo", "init_method": "tcp://localhost:1234",
+                                   "world_size": 2, "rank": 1, "timeout": joined[0]["timeout"]}]
+                monkeypatch.delenv("WORLD_SIZE")
+                joined.clear()
             else:
                 key = flags[0][2:]
                 assert main(argv).kwargs[key] == {"tb_logdir": "tb", "remat": True,
@@ -358,18 +382,31 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
     else:
         argv = ["--model", str(tmp_path / "m.pth"), "--eval_full", "--native_res",
                 "--device", "cpu", *flags]
-        main = test_monuseg.main
         assert parse_mesh("2,2", "cpu").shape == {"data": 2, "model": 2}
         monkeypatch.setenv("UGPG_COORDINATOR_ADDRESS", "localhost:1234")
+        monkeypatch.setenv("WORLD_SIZE", "2")
+
+        class Reached(Exception):
+            pass
+
+        def evaluator(*a, **k):  # the mesh is built: stop before loading the model
+            raise Reached
+
+        monkeypatch.setattr(MoNuSegEvaluator_module, "MoNuSegEvaluator", evaluator)
+        with pytest.raises(Reached):
+            test_monuseg.main(argv)
+        assert joined == []  # each process evaluates alone, as the JAX command
+        return
     with pytest.raises(SystemExit) as info:
         main(argv)
     err = capsys.readouterr().err
     # --quantize is ported, but never without its calibration images
-    missing = {"--quantize": "requires --calibration", "mutually exclusive": ""}.get(
+    missing = {"--quantize": "requires --calibration", "mutually exclusive": "",
+               "--mesh": {"train": "no process count",
+                          "serve": "ugpg_tpu/eval/serving.py:473"}.get(command)}.get(
         flags[0], "not ported")
     assert info.value.code == 2 and missing in err and flags[0] in err
-    if "--mesh" in flags:
-        assert "item 4b.4" in err
+    assert joined == []
 
 
 def test_load_checkpoint_container_and_bare_state_dict(tmp_path):

@@ -19,7 +19,8 @@ must divide by N, and the default buckets scale by it), with M > 1 the
 wide convs column-parallel over M, and ``--slide_model`` spatially
 sharded, H over N and W over M (``cli.parse_mesh``: on ``--device cpu`` the
 CPU N x M times, on ``cuda`` the visible cards); artifacts serve on one
-device.
+device.  Under a coordinator (``UGPG_COORDINATOR_ADDRESS`` or torchrun)
+``--mesh`` exits 2: the JAX command cannot serve across processes.
 """
 
 from __future__ import annotations
@@ -128,8 +129,10 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not (args.model or args.cls_model or args.slide_model or args.artifact):
         raise SystemExit("nothing to serve: pass --model/--cls_model/--slide_model/--artifact")
-    from ugpg_tpu_torch.cli import parse_mesh
+    from ugpg_tpu_torch.cli import SERVE_ACROSS_PROCESSES, coordinator_configured, parse_mesh
 
+    if args.mesh and coordinator_configured():
+        parser.error(f"--mesh {args.mesh}: {SERVE_ACROSS_PROCESSES}")
     try:
         mesh = parse_mesh(args.mesh, args.device)
     except (NotImplementedError, ValueError) as e:

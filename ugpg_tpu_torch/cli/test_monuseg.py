@@ -11,7 +11,8 @@ spatially: H-way over the mesh's ``data`` axis and, with W > 1, W-way over
 ``model`` ('auto': every visible card H-way); on ``--device cpu`` the mesh
 repeats the CPU, on ``cuda`` it takes the visible cards and a mesh larger
 than they are exits 2.  As in the JAX command, it does nothing without
-``--native_res``.  PNGs are written by the port's own writer (``io/png.py``).
+``--native_res``, and under a coordinator each process evaluates alone on
+its own mesh.  PNGs are written by the port's own writer (``io/png.py``).
 """
 
 from __future__ import annotations
@@ -77,7 +78,9 @@ def main(argv=None):
         from ugpg_tpu_torch.cli import parse_mesh
 
         try:
-            mesh = parse_mesh(args.mesh, args.device)
+            # under a coordinator each process evaluates on its own mesh: the
+            # JAX command never joins the processes (ugpg_tpu/cli/test_monuseg.py:111-121)
+            mesh = parse_mesh(args.mesh, args.device, join=False)
         except (NotImplementedError, ValueError) as e:
             parser.error(f"--mesh {args.mesh}: {e}")
 

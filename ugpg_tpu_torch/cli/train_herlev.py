@@ -13,9 +13,10 @@ default; the JAX command defaults to msgpack).  ``--tb_logdir DIR``,
 N = 1 exits 2 with the JAX package's message); with ``--pipeline_unc`` the
 train loaders drop the ragged final batch, as the JAX command's do.
 ``--mesh DATA[,MODEL]`` trains data-parallel (and column-parallel) over a
-mesh, as ``train_monuseg``'s does.  The flags that are not to be ported
-(``--scan_epochs``, ``--scan_chunk_mb``, another ``--checkpoint_backend``)
-exit with status 2 and a "not ported" message.
+mesh, as ``train_monuseg``'s does, across processes under a coordinator.
+The flags that are not to be ported (``--scan_epochs``, ``--scan_chunk_mb``,
+another ``--checkpoint_backend``) exit with status 2 and a "not ported"
+message.
 
 SIGTERM stops the run at the end of the current epoch with a
 ``herlev_stage{S}_last.pth`` written, and ``cli`` exits 75 (EX_TEMPFAIL);
@@ -99,6 +100,7 @@ def main(argv=None):
     from ugpg_tpu_torch.data.herlev import HerlevDataset
     from ugpg_tpu_torch.data.loader import DataLoader
     from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS
+    from ugpg_tpu_torch.parallel import distributed
     from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer, create_config
     from ugpg_tpu_torch.utils.preemption import PreemptionGuard
 
@@ -134,10 +136,12 @@ def main(argv=None):
                               binary_classification=config["binary_classification"],
                               target_split_ratio=config["split_ratios"], verbose=False)
         # a pipelined epoch needs every batch to split into the micro-batches
-        train_loaders[stage] = DataLoader(tr_ds, batch_size=config["batch_size"], shuffle=True,
+        train_loaders[stage] = DataLoader(distributed.process_shard(tr_ds),
+                                          batch_size=config["batch_size"], shuffle=True,
                                           num_workers=config["num_workers"], seed=42 + stage,
                                           drop_last=bool(args.pipeline_unc))
-        val_loaders[stage] = DataLoader(va_ds, batch_size=config["batch_size"],
+        val_loaders[stage] = DataLoader(distributed.process_shard(va_ds),
+                                        batch_size=config["batch_size"],
                                         num_workers=config["num_workers"])
         if class_weights is None:
             class_weights = tr_ds.get_class_weights().tolist()
@@ -156,10 +160,11 @@ def main(argv=None):
         with PreemptionGuard() as guard:
             trainer.train_progressive(train_loaders, val_loaders, config["output_dir"],
                                       preemption=guard, resume=args.resume)
-        cfg_path = os.path.join(config["output_dir"], "config.json")
-        with open(cfg_path, "w") as f:
-            json.dump(config, f, indent=2, default=str)
-        print(f"Configuration saved to: {cfg_path}")
+        if distributed.is_writer():
+            cfg_path = os.path.join(config["output_dir"], "config.json")
+            with open(cfg_path, "w") as f:
+                json.dump(config, f, indent=2, default=str)
+            print(f"Configuration saved to: {cfg_path}")
     except KeyboardInterrupt:
         print("Training interrupted by user")
     return trainer

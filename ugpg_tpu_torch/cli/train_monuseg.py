@@ -13,7 +13,10 @@ visible cards, so one card and N = 1 exits 2 with the JAX package's
 message; on ``cpu`` the CPU N + 1 times).  ``--mesh DATA[,MODEL]`` trains
 data-parallel (and column-parallel) over a mesh
 (``cli/__init__.py::parse_mesh``: on ``cuda`` the visible cards, on
-``cpu`` the CPU as often as the mesh asks).  ``--native_finetune EPOCHS``
+``cpu`` the CPU as often as the mesh asks; under a coordinator,
+``UGPG_COORDINATOR_ADDRESS`` with ``WORLD_SIZE`` and ``RANK`` or torchrun,
+the processes join first and each trains its share of the data on its own
+mesh: ``parallel/distributed.py``).  ``--native_finetune EPOCHS``
 then fine-tunes the last requested stage at native resolution
 (``--native_size``, default 1000 px), spatially sharded over the mesh (H
 over ``data``; ``--native_w_axis``: W over ``model`` too), writing
@@ -138,6 +141,7 @@ def main(argv=None):
     from ugpg_tpu_torch.cli import parse_mesh
     from ugpg_tpu_torch.data.monuseg import MoNuSegDataset, create_train_val_split
     from ugpg_tpu_torch.io.checkpoint import has_checkpoint
+    from ugpg_tpu_torch.parallel import distributed
     from ugpg_tpu_torch.train.aug_trainer import AugMoNuSegTrainer, compute_pos_weight
     from ugpg_tpu_torch.utils.preemption import PreemptionGuard
 
@@ -155,8 +159,10 @@ def main(argv=None):
         parser.error(str(e))
     if args.plain:
         data_dir = config["data_dir"]
-        if not os.path.isdir(os.path.join(data_dir, "val")):
-            create_train_val_split(data_dir, val_ratio=0.2, seed=42)
+        if distributed.agree(not os.path.isdir(os.path.join(data_dir, "val"))):
+            if distributed.is_writer():
+                create_train_val_split(data_dir, val_ratio=0.2, seed=42)
+            distributed.barrier()
         for stage in config["stages"]:
             res = trainer.stage_configs[stage]["resolution"]
             trainer.train_datasets[stage] = MoNuSegDataset(data_dir, image_size=res,
@@ -212,18 +218,20 @@ def main(argv=None):
         stage = max(config["stages"])
         # whole slides, batch 1 a step: the spatial grid, not the batch,
         # gives the parallelism at native resolution
-        ft_train = DataLoader(MoNuSegDataset(config["data_dir"], image_size=args.native_size,
-                                             split="train", augment=False),
+        ft_train = DataLoader(distributed.process_shard(MoNuSegDataset(
+            config["data_dir"], image_size=args.native_size, split="train", augment=False)),
                               batch_size=1, shuffle=True, seed=0)
-        ft_val = DataLoader(MoNuSegDataset(config["data_dir"], image_size=args.native_size,
-                                           split="val", augment=False), batch_size=1)
+        ft_val = DataLoader(distributed.process_shard(MoNuSegDataset(
+            config["data_dir"], image_size=args.native_size, split="val", augment=False)),
+            batch_size=1)
         trainer.finetune_native(ft_train, stage=stage, epochs=args.native_finetune,
                                 w_axis="model" if args.native_w_axis else None,
                                 val_loader=ft_val, save_dir=config["output_dir"])
 
-    cfg_path = Path(config["output_dir"]) / "config.json"
-    cfg_path.parent.mkdir(parents=True, exist_ok=True)
-    cfg_path.write_text(json.dumps(config, indent=2, default=str))
+    if distributed.is_writer():
+        cfg_path = Path(config["output_dir"]) / "config.json"
+        cfg_path.parent.mkdir(parents=True, exist_ok=True)
+        cfg_path.write_text(json.dumps(config, indent=2, default=str))
     return trainer
 
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ugpg_tpu_torch.parallel import distributed
+
 __all__ = ["get_predictions", "dice_coefficient", "pixel_accuracy", "binary_eval_metrics", "EPS",
            "grid_metrics"]
 
@@ -60,22 +62,17 @@ def binary_eval_metrics(pred: torch.Tensor, target: torch.Tensor) -> dict[str, t
     }
 
 
-def _pooled(parts: list, home: torch.device):
-    """(mean, std) of the union of equal-sized tensors, from each one's
-    mean and centred second moment."""
-    means = torch.stack([t.mean().to(home) for t in parts])
-    var = torch.stack([t.var(correction=0).to(home) for t in parts])
-    mean = means.mean()
-    return mean, (var + (means - mean).square()).mean().sqrt()
-
-
 def grid_metrics(finals, bases, logits, ys, uncs, home: torch.device,
                  batch_split: bool = True) -> dict[str, torch.Tensor]:
     """The six metrics of a batch split into equal shards (lists, one
     entry per shard), on ``home``, as the unsharded step gives them: the
     losses' mean, smooth-1 Dice of per-sample sums (``batch_split``: the
     shards hold other samples; else regions of the same samples, whose
-    sums add), pixel accuracy, and the uncertainty map's mean and std."""
+    sums add), pixel accuracy, and the uncertainty map's mean and std
+    (pooled from each shard's mean and centred second moment).  Over
+    several processes (``parallel/distributed.py``) the batch is every
+    process's, and so are the metrics: the shards' numbers are gathered in
+    process order and combined as one process combines its shards."""
     sums = []
     accs = []
     for lg, y in zip(logits, ys):
@@ -86,15 +83,24 @@ def grid_metrics(finals, bases, logits, ys, uncs, home: torch.device,
         accs.append(pixel_accuracy(preds, y).to(home))
     join = torch.cat if batch_split else (lambda ts: torch.stack(ts).sum(0))
     inter, sp, st = (join(list(col)) for col in zip(*sums))
+    cols = [torch.stack([f.detach().to(home) for f in finals]),
+            torch.stack([b.detach().to(home) for b in bases]), torch.stack(accs), inter, sp, st]
+    if uncs is not None:
+        cols += [torch.stack([t.mean().to(home) for t in uncs]),
+                 torch.stack([t.var(correction=0).to(home) for t in uncs])]
+    cols = distributed.gather_rows(*cols)
+    finals, bases, accs, inter, sp, st = cols[:6]
     if uncs is None:
         unc_mean = unc_std = torch.zeros((), dtype=torch.float32, device=home)
     else:
-        unc_mean, unc_std = _pooled(uncs, home)
+        means, var = cols[6:]
+        unc_mean = means.mean()
+        unc_std = (var + (means - unc_mean).square()).mean().sqrt()
     return {
-        "final_loss": torch.stack([f.detach().to(home) for f in finals]).mean(),
-        "base_loss": torch.stack([b.detach().to(home) for b in bases]).mean(),
+        "final_loss": finals.mean(),
+        "base_loss": bases.mean(),
         "dice": ((2.0 * inter + 1.0) / (sp + st + 1.0)).mean(),
-        "accuracy": torch.stack(accs).mean(),
+        "accuracy": accs.mean(),
         "uncertainty_weight_mean": unc_mean,
         "uncertainty_weight_std": unc_std,
     }

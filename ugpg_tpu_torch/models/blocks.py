@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from ugpg_tpu_torch.ops.cuda import library
 from ugpg_tpu_torch.ops.cuda.double_conv import pack_double_conv
 from ugpg_tpu_torch.ops.resize import upsample2x_bilinear_align_corners
+from ugpg_tpu_torch.parallel import distributed
 
 __all__ = ["DoubleConv", "InConv", "Down", "Up", "OutConv", "DownSample", "UpSample",
            "init_parameters", "conv_part", "cross_replica_batch_norm"]
@@ -92,11 +93,23 @@ def cross_replica_batch_norm(parts: list[torch.Tensor], bn: nn.BatchNorm2d,
     formula (``M2 = sum M2_i + sum n_i (mean_i - mean)^2``; E[x^2] - E[x]^2
     cancels in float32 at full width).  Each part is normalised by the
     biased variance; the running stats take the unbiased one, once, with
-    ``bn``'s momentum (``update_stats=False``: left as they are)."""
+    ``bn``'s momentum (``update_stats=False``: left as they are).
+
+    Over several processes (``parallel/distributed.py``) the union is every
+    process's parts: their moments are gathered, differentiably, and
+    combined in global part order (process-major, then the local parts),
+    so 2 processes of 1 part do the arithmetic of one process of 2.  Every
+    process's parts have this one's shapes (the trainers check it)."""
     home = bn.weight.device
     counts = [p.numel() // p.shape[1] for p in parts]
     means = [p.mean(dim=(0, 2, 3)) for p in parts]
     m2s = [(p - m[:, None, None]).square().sum(dim=(0, 2, 3)) for p, m in zip(parts, means)]
+    if distributed.world_size() > 1:
+        moments = distributed.gather_parts(
+            torch.stack([torch.stack([m.to(home), s.to(home)]) for m, s in zip(means, m2s)]))
+        moments = moments.flatten(0, 1)  # (P * parts, 2, C) in global order
+        counts = counts * distributed.world_size()
+        means, m2s = list(moments[:, 0]), list(moments[:, 1])
     n = sum(counts)
     means = [m.to(home) for m in means]
     mean = sum(c * m for c, m in zip(counts, means)) / n

@@ -1,13 +1,13 @@
 """The device mesh and placement on it (counterpart of ``ugpg_tpu/parallel/mesh.py``).
 
 The JAX package is single-controller: one process sees every device and
-runs one program on all of them.  The port does the same.  A ``Mesh`` is a
-grid of ``torch.device``s inside one process, with named axes, ``("data",
-"model")`` from ``make_mesh``; a halo is a copy of a slab to a
-neighbour's device, an all-gather a ``torch.cat`` on one device.  There is
-no ``torch.distributed`` here: NCCL refuses two ranks on one card, and the
-multi-host half (``parallel/distributed.py``) is not ported yet (ROADMAP.md
-queue A, item 4b.4).
+runs one program on all of them.  The port does the same within a
+process.  A ``Mesh`` is a grid of ``torch.device``s inside one process,
+with named axes, ``("data", "model")`` from ``make_mesh``; a halo is a copy
+of a slab to a neighbour's device, an all-gather a ``torch.cat`` on one
+device.  Across processes (``parallel/distributed.py``, over
+``torch.distributed``) each process drives its own mesh over its local
+devices, and the processes form the outer data axis.
 
 A mesh may name one device more than once, as ``parallel/pipeline.py``'s
 device lists may: on one card ``make_mesh(2, devices=["cuda:0"] * 2)`` runs

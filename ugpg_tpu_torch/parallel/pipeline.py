@@ -6,9 +6,9 @@ Every train step after stage 1 runs two forwards per batch: the current
 stage's (forward and backward) and the frozen previous stage's, which only
 produces the uncertainty.  The pipeline splits them:
 
-    producer (unc device):   resize -> (augment) -> previous stage, eval
-                             -> sigmoid -> upsample  => probs_up    (k+1)
-    consumer (train device): the external-uncertainty train step     (k)
+    producer (unc group):   resize -> (augment) -> previous stage, eval
+                            -> sigmoid -> upsample  => probs_up    (k+1)
+    consumer (train group): the external-uncertainty train step     (k)
 
 The producer runs up to ``depth`` batches ahead of the consumer.  For
 classification it hands over the per-sample weights (B,) instead.
@@ -23,14 +23,23 @@ step: the counterpart of the one key per batch that the JAX package hands
 both programs.  The two halves are named profiler regions
 (``uncertainty_pipeline.produce``, ``uncertainty_pipeline.train_step``).
 
-Devices: one train device and one unc device, which may be the same (the
-trainers on one card or on the CPU; ``split_devices`` takes a list that
-names a device twice).  On a card the producer runs on a CUDA stream of
-its own; the consumer's stream waits on an event recorded after it.  On
-the CPU the same code runs without streams.  Whether the side stream gains
-anything on one card is a measurement (``chip_smoke.py``), not a claim.
-More than one train device, ``n_model > 1`` or more than one unc device
-need a device mesh (ROADMAP.md queue A, item 4b.5) and raise.
+Devices: the last ``n_unc`` of ``devices`` are the unc group, the others
+the train group, as in the JAX package: a train mesh ``make_mesh(n_train //
+n_model, n_model)`` over the first ``n_train = (len(train) // n_model) *
+n_model`` train devices and an unc mesh ``make_mesh(n_unc, 1)``.  A
+position in a group is a shard, also where the list names one device more
+than once.  The consumer is the external-uncertainty step on the train
+mesh (``shard_model`` when ``n_model > 1``; ``train/steps.py``).  The
+producer splits each batch over the unc mesh's ``data`` axis and runs the
+frozen stage on every shard, one copy of it per distinct unc device; the
+shards' outputs join in order on the train mesh's first device, where the
+step splits them again over its own ``data`` axis.  They are the only
+traffic between the groups.  A group of one position runs unsharded, on
+its one device.  On a card each distinct unc device runs its shards on a
+CUDA stream of its own, and the consumer's stream waits on an event
+recorded after them; on the CPU the same code runs without streams.
+Whether the side stream gains anything on one card is a measurement
+(``chip_smoke.py``), not a claim.
 """
 
 from __future__ import annotations
@@ -50,14 +59,13 @@ from ugpg_tpu_torch.data.augment import (
     sample_monuseg_params,
 )
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from ugpg_tpu_torch.parallel.mesh import Mesh, make_mesh, tensor_device
 from ugpg_tpu_torch.train.steps import _nchw, make_cls_train_step, make_seg_train_step
 from ugpg_tpu_torch.uncertainty import classification_uncertainty_weights
 from ugpg_tpu_torch.utils.profiling import annotate
 
 __all__ = ["split_devices", "pipeline_devices", "pipeline_device_list", "pipeline_check",
            "UncertaintyPipeline"]
-
-_MESH = "needs a device mesh, not ported yet (ROADMAP.md queue A, item 4b.5)"
 
 
 def split_devices(n_unc: int, devices=None):
@@ -74,40 +82,39 @@ def split_devices(n_unc: int, devices=None):
     return devices[:-n_unc], devices[-n_unc:]
 
 
-def pipeline_devices(n_unc: int, devices=None, n_model: int = 1):
-    """(train device, unc device) of ``split_devices(n_unc, devices)``;
-    raises ``NotImplementedError`` where a group holds more than one
-    distinct device or ``n_model > 1``, which need a mesh."""
+def pipeline_devices(n_unc: int, devices=None, n_model: int = 1) -> tuple[Mesh, Mesh]:
+    """(train mesh, unc mesh) of ``split_devices(n_unc, devices)``, as the
+    JAX pipeline builds them; ``ValueError`` when the train group cannot
+    hold one row of ``n_model`` devices."""
     train, unc = split_devices(n_unc, devices)
-    if n_model > 1:
-        raise NotImplementedError(f"n_model={n_model} (a model axis) {_MESH}")
-    out = []
-    for group, what in ((train, "train"), (unc, "unc")):
-        distinct = list(dict.fromkeys(group))
-        if len(distinct) > 1:
-            raise NotImplementedError(f"a {what} group of {len(distinct)} devices {_MESH}")
-        out.append(distinct[0])
-    return tuple(out)
+    n_train = (len(train) // n_model) * n_model
+    if n_train == 0:
+        raise ValueError(
+            f"{len(train)} train device(s) cannot host a "
+            f"model-axis of {n_model}")
+    return (make_mesh(n_train // n_model, n_model, devices=train[:n_train]),
+            make_mesh(n_unc, 1, devices=unc))
 
 
-def pipeline_device_list(n_unc: int, device: torch.device) -> list[torch.device]:
-    """The devices a trainer on ``device`` pipelines over: the visible cards
-    on ``cuda``; on the CPU, which torch counts as one device, the CPU
-    ``n_unc + 1`` times (the counterpart of the host devices the JAX
-    package's tests fake)."""
+def pipeline_device_list(n_unc: int, device: torch.device, devices=None) -> list[torch.device]:
+    """The devices a trainer on ``device`` pipelines over: ``devices`` when
+    given (the counterpart of the JAX trainer's ``jax.devices()``), else the
+    visible cards on ``cuda`` and, on the CPU, which torch counts as one
+    device, the CPU ``n_unc + 1`` times."""
+    if devices is not None:
+        return [torch.device(d) for d in devices]
     if device.type == "cpu":
         return [device] * (n_unc + 1)
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def pipeline_check(n_unc: int, device: torch.device) -> None:
+def pipeline_check(n_unc: int, device: torch.device, devices=None) -> torch.device:
     """Raise now what a trainer on ``device`` with ``pipeline_unc=n_unc``
-    would raise at its first pipelined stage."""
-    train, _ = pipeline_devices(n_unc, pipeline_device_list(n_unc, device))
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    if train != device:
-        raise ValueError(f"the pipeline's train device {train} is not the trainer's {device}")
+    would raise at its first pipelined stage (what the JAX pipeline
+    raises); return the device its models live on, the train mesh's
+    first."""
+    train, _ = pipeline_devices(n_unc, pipeline_device_list(n_unc, device, devices))
+    return tensor_device(train.first)
 
 
 def _micro_params(draw, batch: int, accum_steps: int) -> dict:
@@ -164,10 +171,11 @@ class UncertaintyPipeline:
     ``optimizer`` holds ``model``'s parameters to train.  ``task_type``:
     'segmentation' (``probs_up`` handed over, a ``pos_weight`` scalar) or
     'classification' (per-sample weights, a ``class_weights`` vector).
-    ``n_unc``: devices of the producer, from the tail of ``devices``.
-    ``alpha``, ``augment``, ``fused_loss``, ``accum_steps``,
-    ``aug_quantize``, ``num_classes``, ``normalize``: as the steps take
-    them.  ``depth``: how many batches the producer may run ahead.
+    ``n_unc``: devices of the producer, from the tail of ``devices``;
+    ``n_model``: the train mesh's ``model`` axis.  ``alpha``, ``augment``,
+    ``fused_loss``, ``accum_steps``, ``aug_quantize``, ``num_classes``,
+    ``normalize``: as the steps take them.  ``depth``: how many batches
+    the producer may run ahead.
     """
 
     def __init__(self, model: nn.Module, prev_model: nn.Module,
@@ -186,7 +194,10 @@ class UncertaintyPipeline:
             raise ValueError(f"unknown task_type: {task_type!r}")
         if task_type == "classification" and aug_quantize:
             raise ValueError("aug_quantize applies to the segmentation augmentation only")
-        self.train_device, self.unc_device = pipeline_devices(n_unc, devices, n_model)
+        self.train_mesh, self.unc_mesh = pipeline_devices(n_unc, devices, n_model)
+        self.train_device = tensor_device(self.train_mesh.first)
+        # one position: the unsharded step on that device
+        mesh = self.train_mesh if self.train_mesh.devices.size > 1 else None
         self.task_type = task_type
         self.depth = depth
         self.accum_steps = int(accum_steps)
@@ -199,32 +210,37 @@ class UncertaintyPipeline:
             self._step = make_seg_train_step(
                 model, optimizer, stage, resolution, alpha=alpha, augment=augment,
                 fused_loss=fused_loss, accum_steps=self.accum_steps,
-                external_uncertainty=True, aug_quantize=self.aug_quantize)
+                external_uncertainty=True, aug_quantize=self.aug_quantize, mesh=mesh,
+                shard_model=n_model > 1)
         else:
             self._unc_body = lambda prev: _build_cls_unc_body(
                 prev, resolution, prev_resolution, num_classes, alpha, augment, normalize)
             self._step = make_cls_train_step(
                 model, optimizer, stage, resolution, num_classes, alpha=alpha,
                 augment=augment, normalize=normalize, accum_steps=self.accum_steps,
-                external_uncertainty=True)
-        self._unc = None  # the producer, once place_prev has put the model
-        self._side = (torch.cuda.Stream(self.unc_device)
-                      if self.unc_device.type == "cuda" else None)
+                external_uncertainty=True, mesh=mesh, shard_model=n_model > 1)
+        self._unc: dict = {}  # the producer per distinct unc device, once place_prev has run
+        self._side = {dev: torch.cuda.Stream(dev) for dev in self.unc_mesh.distinct_devices()
+                      if dev.type == "cuda"}
 
     # ------------------------------------------------------------------
     def create_state(self) -> nn.Module:
-        """Put the current stage on the train device (its parameters stay
-        the optimizer's); returns the model."""
+        """Put the current stage on the train mesh's first device (its
+        parameters stay the optimizer's); returns the model."""
         return self.model.to(self.train_device)
 
     def place_prev(self) -> nn.Module:
-        """The frozen previous stage on the unc device, in eval mode (a copy
-        when it lives elsewhere); the producer runs it from here on."""
-        prev = self.prev_model
-        if next(prev.parameters()).device != self.unc_device:
-            prev = copy.deepcopy(prev).to(self.unc_device)
-        self._unc = self._unc_body(prev.eval())
-        return prev
+        """The frozen previous stage on every distinct unc device, in eval
+        mode (a copy where it lives elsewhere); the producers run it from
+        here on.  Returns the copy on the unc mesh's first device."""
+        here = next(self.prev_model.parameters()).device
+        self._unc = {}
+        for dev in self.unc_mesh.distinct_devices():
+            prev = self.prev_model
+            if here != tensor_device(dev) or len(self._unc):
+                prev = copy.deepcopy(prev).to(dev)
+            self._unc[dev] = (self._unc_body(prev.eval()), prev)
+        return self._unc[self.unc_mesh.first][1]
 
     # ------------------------------------------------------------------
     def run_epoch(self, batches: Sequence[tuple], loss_weights, aug=None,
@@ -240,7 +256,7 @@ class UncertaintyPipeline:
         batches = list(batches)
         if not batches:
             return []
-        if self._unc is None:
+        if not self._unc:
             self.place_prev()
         self._validate_batches(batches)
         params = self._draw(batches, aug)
@@ -277,30 +293,43 @@ class UncertaintyPipeline:
         return out
 
     def _produce(self, batch: tuple, params: dict | None):
-        """Start the producer on ``batch``: (output, its event or None,
-        batch, params)."""
-        images = _nchw(batch[0], self.unc_device)
-        p_unc = None if params is None else {k: v.to(self.unc_device) for k, v in params.items()}
-        if self._side is None:
-            with annotate("uncertainty_pipeline.produce"):
-                return self._unc(images, p_unc), None, batch, params
-        self._side.wait_stream(torch.cuda.current_stream(self.unc_device))
-        with torch.cuda.stream(self._side), annotate("uncertainty_pipeline.produce"):
-            out = self._unc(images, p_unc)
-            done = torch.cuda.Event()
-            done.record(self._side)
-        # inputs made on the consumer's stream stay allocated until the producer is done
-        for t in (images, *(p_unc or {}).values()):
-            t.record_stream(self._side)
-        return out, done, batch, params
+        """Start the producer on ``batch``, a shard per unc position:
+        ([(output, its event or None, its device)], batch, params)."""
+        n = self.unc_mesh.shape["data"]
+        rows = batch[0].shape[0] // n
+        outs = []
+        with annotate("uncertainty_pipeline.produce"):
+            for i in range(n):
+                dev = self.unc_mesh.device_at(data=i)
+                unc_fn = self._unc[dev][0]
+                images = _nchw(batch[0][i * rows:(i + 1) * rows], dev)
+                p_unc = (None if params is None else
+                         {k: v[i * rows:(i + 1) * rows].to(dev) for k, v in params.items()})
+                side = self._side.get(dev)
+                if side is None:
+                    outs.append((unc_fn(images, p_unc), None, dev))
+                    continue
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    out = unc_fn(images, p_unc)
+                    done = torch.cuda.Event()
+                    done.record(side)
+                # inputs made on the consumer's stream stay allocated until the producer is done
+                for t in (images, *(p_unc or {}).values()):
+                    t.record_stream(side)
+                outs.append((out, done, dev))
+        return outs, batch, params
 
     def _consume(self, item, loss_weights, generator) -> dict[str, Any]:
-        out, done, batch, params = item
-        if done is not None:
-            stream = torch.cuda.current_stream(self.unc_device)
-            stream.wait_event(done)
-            out.record_stream(stream)
-        unc = out.to(self.train_device)
+        outs, batch, params = item
+        parts = []
+        for out, done, dev in outs:
+            if done is not None:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(done)
+                out.record_stream(stream)
+            parts.append(out.to(self.train_device))
+        unc = parts[0] if len(parts) == 1 else torch.cat(parts)
         p_train = (None if params is None
                    else {k: v.to(self.train_device) for k, v in params.items()})
         with annotate("uncertainty_pipeline.train_step"):
@@ -309,13 +338,23 @@ class UncertaintyPipeline:
             return self._step(batch, loss_weights, generator, aug=p_train, unc=unc)
 
     def _validate_batches(self, batches: Sequence[tuple]) -> None:
-        """Reject a batch that does not split into ``accum_steps``
-        micro-batches before the epoch starts (a ``drop_last=False``
-        loader's short final batch)."""
+        """Reject, before the epoch starts, a batch that does not split over
+        both groups' ``data`` axes, or into ``accum_steps`` micro-batches per
+        train data shard (a ``drop_last=False`` loader's short final batch),
+        with the JAX package's messages."""
+        n_t = self.train_mesh.shape["data"]
+        n_u = self.unc_mesh.shape["data"]
         for i, batch in enumerate(batches):
             b = batch[0].shape[0]
-            if b % self.accum_steps:
+            if b % n_t or b % n_u:
+                raise ValueError(
+                    f"batch {i} has size {b}, which must divide both the "
+                    f"train mesh's data axis ({n_t}) and the unc group "
+                    f"({n_u}); pick n_unc so that (n_devices - n_unc) and "
+                    f"n_unc both divide every batch, and drop or pad the "
+                    f"ragged final batch (loader drop_last=True)")
+            if b % (self.accum_steps * n_t):
                 raise ValueError(
                     f"batch {i} has size {b}, not divisible into "
-                    f"accum_steps={self.accum_steps} micro-batches; drop or pad the "
-                    f"ragged final batch (loader drop_last=True)")
+                    f"accum_steps={self.accum_steps} micro-batches per "
+                    f"data shard ({n_t})")

@@ -57,7 +57,10 @@ over the shards.  A spatial step so trains the unsharded step's function
 on the same image.  The frozen previous stage (the uncertainty source)
 runs the inference half above, BN folded, one ``conv3x3`` launch per conv
 and shard, on the image resized by half through the bands; JAX keeps
-eval-mode BN there (folding is the port's design, held to 1e-4).
+eval-mode BN there (folding is the port's design, held to 1e-4).  Over
+several processes (``parallel/distributed.py``) each process runs this
+step on its own images; BN, the loss, the metrics and the gradients are
+those of every process's images, and halos never cross a process.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ from ugpg_tpu_torch.ops.cuda.double_conv import pack_conv
 from ugpg_tpu_torch.ops.quant import _conv_base
 from ugpg_tpu_torch.ops.resize import _bilinear_ac_matrix, resize_bilinear_align_corners
 from ugpg_tpu_torch.metrics.segmentation import grid_metrics
+from ugpg_tpu_torch.parallel import distributed
 from ugpg_tpu_torch.parallel.mesh import Mesh, tensor_device
 from ugpg_tpu_torch.uncertainty import binary_uncertainty, shard_loss
 
@@ -576,6 +580,7 @@ def make_spatial_train_step(model, optimizer, stage: int, mesh: Mesh, axis: str 
             for p in params:  # the micro-batches' gradients were summed
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
+        distributed.average_gradients(params)  # over processes: each has its own images
         optimizer.step()
         if accum_steps == 1:
             return parts[0]

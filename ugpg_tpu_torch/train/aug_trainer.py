@@ -24,6 +24,7 @@ import numpy as np
 
 from ugpg_tpu_torch.data.loader import DataLoader
 from ugpg_tpu_torch.data.monuseg import AugMoNuSegDataset, MoNuSegDataset, create_train_val_split
+from ugpg_tpu_torch.parallel import distributed
 from ugpg_tpu_torch.train.seg_trainer import (
     DEFAULT_STAGE_CONFIGS,
     UncertaintyGuidedProgressiveTrainer,
@@ -70,9 +71,12 @@ class AugMoNuSegTrainer(UncertaintyGuidedProgressiveTrainer):
     def setup_datasets(self, data_dir: str, stages=(1, 2, 3, 4)):
         """Per-stage AugMoNuSeg train and MoNuSeg val datasets, and the
         automatic pos_weight."""
-        if not os.path.isdir(os.path.join(data_dir, "val")):
-            print("No val/ split found; creating 80/20 split from train/")
-            create_train_val_split(data_dir, val_ratio=0.2, seed=42)
+        # every process decides before process 0 writes the split, then waits for it
+        if distributed.agree(not os.path.isdir(os.path.join(data_dir, "val"))):
+            if distributed.is_writer():
+                print("No val/ split found; creating 80/20 split from train/")
+                create_train_val_split(data_dir, val_ratio=0.2, seed=42)
+            distributed.barrier()
         for stage in stages:
             res = self.stage_configs[stage]["resolution"]
             self.train_datasets[stage] = AugMoNuSegDataset(data_dir, image_size=res,
@@ -85,12 +89,14 @@ class AugMoNuSegTrainer(UncertaintyGuidedProgressiveTrainer):
 
     def make_loaders(self, batch_size: int = 8, num_workers: int = 4):
         """Per-stage loaders: shuffled training batches (seed 42 + stage, as
-        the JAX trainer's), validation in order."""
+        the JAX trainer's), validation in order; over several processes
+        each loads its own share of the datasets (``process_shard``)."""
         train_loaders = {
-            s: DataLoader(ds, batch_size=batch_size, shuffle=True, num_workers=num_workers,
-                          seed=42 + s)
+            s: DataLoader(distributed.process_shard(ds), batch_size=batch_size, shuffle=True,
+                          num_workers=num_workers, seed=42 + s)
             for s, ds in self.train_datasets.items()
         }
-        val_loaders = {s: DataLoader(ds, batch_size=batch_size, num_workers=num_workers)
+        val_loaders = {s: DataLoader(distributed.process_shard(ds), batch_size=batch_size,
+                                     num_workers=num_workers)
                        for s, ds in self.val_datasets.items()}
         return train_loaders, val_loaders

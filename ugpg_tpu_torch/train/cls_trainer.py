@@ -56,6 +56,7 @@ from ugpg_tpu_torch.io.checkpoint import (
 )
 from ugpg_tpu_torch.models.blocks import DoubleConv, init_parameters
 from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS, HerlevClassificationModel
+from ugpg_tpu_torch.parallel import distributed
 from ugpg_tpu_torch.parallel.mesh import data_axis_size, tensor_device
 from ugpg_tpu_torch.parallel.pipeline import (
     UncertaintyPipeline,
@@ -116,7 +117,8 @@ class HerlevTrainer:
     def __init__(self, config: Mapping[str, Any], dtype: torch.dtype | None = None,
                  axis_name: str | None = None, seed: int = 0, mesh=None,
                  shard_model: bool = True, checkpoint_backend: str = "pth",
-                 nan_guard: bool = True, device: str | torch.device | None = None):
+                 nan_guard: bool = True, device: str | torch.device | None = None,
+                 devices=None):
         """``config``: ``create_config()``'s keys, plus ``augment`` (default
         True), ``accum_steps`` (1) and ``verbose`` (True).  ``seed`` seeds
         each stage's initialisation and, as ``seed + 1``, the generator of
@@ -133,9 +135,12 @@ class HerlevTrainer:
         per-sample weights come from a producer on the last N devices
         (``parallel/pipeline.py``): the visible cards on ``cuda`` (one card
         and N = 1 raises ``ValueError``, as in the JAX package), N + 1
-        times the CPU on ``cpu``.  There each epoch's augmentation
-        parameters are drawn from the generator before its dropout masks,
-        so a pipelined run augments otherwise than a plain one.
+        times the CPU on ``cpu``, or ``devices`` when given (the JAX
+        trainer's ``jax.devices()``): the last N form the unc group, the
+        others a data-parallel train mesh, whose first device the models
+        live on.  There each epoch's augmentation parameters are drawn from
+        the generator before its dropout masks, so a pipelined run augments
+        otherwise than a plain one.
 
         ``mesh``: every batch whose micro-batches split over its ``data``
         axis trains and validates data-parallel, the encoder's replicas in
@@ -145,6 +150,13 @@ class HerlevTrainer:
         ``shard_model``: the wide encoder convs column-parallel over the
         ``model`` axis.  ``axis_name``: the blocks' BN axis, which no
         trainer binds: a train step raises the JAX package's ``NameError``.
+
+        Over several processes (``parallel/distributed.py``): each process
+        trains its loader's batches on its own ``mesh`` as its part of the
+        global batch, whose loss, BN, metrics and averaged gradients every
+        process shares (a ragged batch on a one-device mesh); the batches'
+        shapes must agree.  Process 0 writes the checkpoints, the log, the
+        events and the history; the others wait at a barrier.
 
         Not ported, raising ``NotImplementedError``: a
         ``checkpoint_backend`` other than ``"pth"``, and the config's
@@ -166,8 +178,9 @@ class HerlevTrainer:
         not_ported(checkpoint_backend=checkpoint_backend != "pth",
                    scan_epochs=bool(cfg.get("scan_epochs")),
                    scan_chunk_bytes=cfg.get("scan_chunk_bytes") is not None)
+        self.devices = devices
         if self.pipeline_unc:
-            pipeline_check(self.pipeline_unc, self.device)
+            self.device = pipeline_check(self.pipeline_unc, self.device, devices)
         self.remat = bool(cfg.get("remat"))
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be None, float32 or bfloat16, got {dtype}")
@@ -224,6 +237,7 @@ class HerlevTrainer:
                 if isinstance(block, DoubleConv):
                     block.axis_name = self.axis_name
             self.models[stage] = model.to(self.device)
+            distributed.broadcast_module(self.models[stage])
         return self.models[stage]
 
     def load_pretrained_unet(self, stage: int, ckpt_path) -> list[str]:
@@ -235,6 +249,7 @@ class HerlevTrainer:
         merged, copied = transfer_weights({f"unet.{k}": v for k, v in seg.items()},
                                           model.state_dict())
         model.load_state_dict(merged, strict=True)
+        distributed.broadcast_module(model)
         self._frozen_stages.add(stage)
         self._print(f"  merged {len(copied)} encoder keys; encoder frozen")
         return copied
@@ -266,6 +281,7 @@ class HerlevTrainer:
                 state[key] = value.detach().clone()
                 copied += 1
         cur.load_state_dict(state, strict=True)
+        distributed.broadcast_module(cur)
         self._print(f"  Transferred {copied} classifier tensors")
         return copied
 
@@ -277,9 +293,11 @@ class HerlevTrainer:
     def _sharded(self, batch, accum_steps: int = 1) -> bool:
         """Whether ``batch`` runs on the mesh: its micro-batches split over
         the ``data`` axis (a ragged batch runs unsharded, the same
-        function)."""
+        function).  Over several processes every process's batch must
+        have this shape."""
         if self.mesh is None:
             return False
+        distributed.check_same_shape(tuple(batch[0].shape))
         n = len(batch[0])
         return n % accum_steps == 0 and (n // accum_steps) % self.mesh.shape["data"] == 0
 
@@ -295,7 +313,7 @@ class HerlevTrainer:
                 prev_model=prev_model, prev_resolution=prev_res,
                 alpha=self.uncertainty_alpha, augment=bool(self.config.get("augment", True)),
                 normalize=True, accum_steps=self.accum_steps,
-                mesh=self.mesh if sharded else None, shard_model=self.shard_model)
+                mesh=distributed.step_mesh(self.mesh, sharded), shard_model=self.shard_model)
         return self._train_steps[key]
 
     def _get_pipeline(self, stage: int) -> UncertaintyPipeline:
@@ -310,7 +328,7 @@ class HerlevTrainer:
                 self.stage_configs[stage]["resolution"], prev_res,
                 task_type="classification", num_classes=self.num_classes,
                 n_unc=self.pipeline_unc,
-                devices=pipeline_device_list(self.pipeline_unc, self.device),
+                devices=pipeline_device_list(self.pipeline_unc, self.device, self.devices),
                 alpha=self.uncertainty_alpha, augment=bool(self.config.get("augment", True)),
                 normalize=True, accum_steps=self.accum_steps)
             pipe.create_state()
@@ -326,7 +344,7 @@ class HerlevTrainer:
                 self._model(stage), stage, self.stage_configs[stage]["resolution"],
                 self.num_classes, prev_model=prev_model, prev_resolution=prev_res,
                 alpha=self.uncertainty_alpha, normalize=True,
-                mesh=self.mesh if sharded else None, shard_model=self.shard_model)
+                mesh=distributed.step_mesh(self.mesh, sharded), shard_model=self.shard_model)
         return self._eval_steps[key]
 
     @staticmethod
@@ -381,9 +399,14 @@ class HerlevTrainer:
                                           self._fills[stage])
 
     def _save(self, path: Path, stage: int, epoch: int, **metadata) -> Path:
-        return save_checkpoint(path, self._state_dict(stage), stage=stage, epoch=epoch,
-                               optimizer_state_dict=self.optimizer.state_dict(),
-                               config=_plain_config(self.config), **metadata)
+        """Write ``path`` (process 0; the others wait for it)."""
+        state = self._state_dict(stage)
+        if distributed.is_writer():
+            save_checkpoint(path, state, stage=stage, epoch=epoch,
+                            optimizer_state_dict=self.optimizer.state_dict(),
+                            config=_plain_config(self.config), **metadata)
+        distributed.barrier()
+        return path
 
     # ------------------------------------------------------------------
     def train_progressive(self, train_loaders, val_loaders, save_dir: str,
@@ -404,10 +427,12 @@ class HerlevTrainer:
             if resume_stage is not None:
                 self._print(f"Resuming from stage {resume_stage}, "
                             f"epoch {resume_meta.get('epoch', 0) + 1}")
+        writer = distributed.is_writer()
         csv_log = CSVLogger(save_path / "training_log.csv",
                             ["stage", "epoch", "train_loss", "val_loss", "train_acc",
-                             "val_acc", "base_loss", "uncertainty_mean", "lr"])
-        tb = TBWriter(self.config.get("tb_logdir"))
+                             "val_acc", "base_loss", "uncertainty_mean", "lr"]
+                            ) if writer else None
+        tb = TBWriter(self.config.get("tb_logdir") if writer else None)
         self.preempted = False
         for stage in self.config["stages"]:
             if self.preempted:
@@ -472,11 +497,12 @@ class HerlevTrainer:
                 self.history["uncertainty_weights_mean"].append(va_um)
                 self.history["uncertainty_weights_std"].append(va_us)
                 self.history["base_loss"].append(va_base)
-                csv_log.log(stage=stage, epoch=epoch + 1,
-                            train_loss=round(tr_loss, 6), val_loss=round(va_loss, 6),
-                            train_acc=round(tr_acc, 4), val_acc=round(va_acc, 4),
-                            base_loss=round(va_base, 6), uncertainty_mean=round(va_um, 6),
-                            lr=epoch_lr)
+                if csv_log is not None:
+                    csv_log.log(stage=stage, epoch=epoch + 1,
+                                train_loss=round(tr_loss, 6), val_loss=round(va_loss, 6),
+                                train_acc=round(tr_acc, 4), val_acc=round(va_acc, 4),
+                                base_loss=round(va_base, 6), uncertainty_mean=round(va_um, 6),
+                                lr=epoch_lr)
                 tb.scalars(len(self.history["train_loss"]) - 1,
                            **{f"stage{stage}/train_loss": tr_loss,
                               f"stage{stage}/val_loss": va_loss,
@@ -510,7 +536,7 @@ class HerlevTrainer:
 
                 # a pending SIGTERM is acknowledged even when early stopping
                 # fires in the same epoch
-                if preemption is not None and preemption.should_stop():
+                if distributed.agree(preemption is not None and preemption.should_stop()):
                     self.preempted = True
                     self._save(
                         save_path / f"herlev_stage{stage}_last.pth", stage, epoch + 1,
@@ -538,8 +564,10 @@ class HerlevTrainer:
 
         tb.close()
         hist_path = save_path / "training_history.json"
-        hist_path.write_text(json.dumps(self.history, indent=2))
-        self._print(f"Training history saved to: {hist_path}")
+        if writer:
+            hist_path.write_text(json.dumps(self.history, indent=2))
+            self._print(f"Training history saved to: {hist_path}")
+        distributed.barrier()
         return self.history
 
     # ------------------------------------------------------------------
@@ -548,6 +576,7 @@ class HerlevTrainer:
         decoder's keys dropped)."""
         sd = read_checkpoint(checkpoint_path)["model_state_dict"]
         self._model(stage).load_state_dict(classifier_state_dict(sd, stage), strict=True)
+        distributed.broadcast_module(self._model(stage))
         self._print(f"Loaded weights for stage {stage} from {checkpoint_path}")
 
     def _find_resume_point(self, save_path: Path):
@@ -575,6 +604,7 @@ class HerlevTrainer:
         the stage's ``_last.pth`` (``meta``), for a mid-stage resume."""
         sd = classifier_state_dict(meta["model_state_dict"], stage)
         self._model(stage).load_state_dict(sd, strict=True)
+        distributed.broadcast_module(self._model(stage))
         if meta.get("optimizer_state_dict") is not None:
             self.optimizer.load_state_dict(meta["optimizer_state_dict"])
         sched = meta.get("scheduler") or {}

@@ -52,6 +52,7 @@ from ugpg_tpu_torch.io.checkpoint import (
 from ugpg_tpu_torch.models.blocks import DoubleConv, init_parameters
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
+from ugpg_tpu_torch.parallel import distributed
 from ugpg_tpu_torch.parallel.mesh import data_axis_size, tensor_device
 from ugpg_tpu_torch.parallel.pipeline import (
     UncertaintyPipeline,
@@ -118,6 +119,7 @@ class UncertaintyGuidedProgressiveTrainer:
         width: float = 1.0,
         aug_quantize: int = 0,
         device: str | torch.device | None = None,
+        devices=None,
     ):
         """``fused_loss=True``: every train step computes the loss and its
         gradient with the hand-written ``uncertainty_weighted_bce`` kernels
@@ -146,7 +148,10 @@ class UncertaintyGuidedProgressiveTrainer:
         while the train step consumes its output; the devices are the
         visible cards on ``cuda`` (one card and N = 1 raises
         ``ValueError``, as in the JAX package) and N + 1 times the CPU on
-        ``cpu``.  Stage 1 runs the plain path.
+        ``cpu``, or ``devices`` when given (the JAX trainer's
+        ``jax.devices()``; a list may name a device more than once): the
+        last N form the unc group, the others a data-parallel train mesh,
+        whose first device the models live on.  Stage 1 runs the plain path.
 
         ``mesh`` (``parallel/mesh.py::make_mesh``; one process drives it,
         and it may name one card more than once): every batch whose
@@ -160,6 +165,17 @@ class UncertaintyGuidedProgressiveTrainer:
         column-parallel over it.  ``axis_name``: set on every block as the
         JAX modules' BN axis; no trainer binds it, so a train step raises
         the JAX package's ``NameError`` (eval runs).
+
+        Over several processes (``parallel/distributed.py``, a process
+        group initialised before the trainer trains): each process trains
+        its loader's batches on its own ``mesh``, the processes' batches
+        together forming the global batch (BN, the loss, the metrics and
+        the averaged gradients are the global batch's, so every process
+        holds the same parameters; a ragged batch runs on a one-device mesh,
+        still across the processes).  Every process's batches must have
+        the same shapes.  Process 0 writes the checkpoints, the log, the
+        events and the plots; the others wait at a barrier.  Models are
+        made process 0's when built, transferred or resumed.
 
         Options of the JAX trainer that are not ported raise
         ``NotImplementedError``: ``checkpoint_backend`` other than
@@ -179,8 +195,9 @@ class UncertaintyGuidedProgressiveTrainer:
         self.mesh, self.shard_model, self.axis_name = mesh, bool(shard_model), axis_name
         not_ported(checkpoint_backend=checkpoint_backend != "pth",
                    scan_epochs=scan_epochs, scan_chunk_bytes=scan_chunk_bytes is not None)
+        self.devices = devices
         if self.pipeline_unc:
-            pipeline_check(self.pipeline_unc, self.device)
+            self.device = pipeline_check(self.pipeline_unc, self.device, devices)
         self.tb_logdir = tb_logdir
         self.remat = bool(remat)
         if dtype not in (None, torch.float32, torch.bfloat16):
@@ -235,6 +252,7 @@ class UncertaintyGuidedProgressiveTrainer:
                 if isinstance(block, DoubleConv):
                     block.axis_name = self.axis_name
             self.models[stage] = model.to(self.device)
+            distributed.broadcast_module(self.models[stage])
         return self.models[stage]
 
     def setup_optimizer(self, stage: int) -> torch.optim.Optimizer:
@@ -254,6 +272,7 @@ class UncertaintyGuidedProgressiveTrainer:
         new = self._model(new_stage)
         merged, copied = transfer_weights(self._model(prev_stage).state_dict(), new.state_dict())
         new.load_state_dict(merged)
+        distributed.broadcast_module(new)
         self._print(f"transfer_weights(stage={new_stage}): copied {len(copied)} keys "
                     f"(examples: {copied[:5]})")
         return copied
@@ -266,9 +285,12 @@ class UncertaintyGuidedProgressiveTrainer:
     def _sharded(self, batch, accum_steps: int = 1) -> bool:
         """Whether ``batch`` runs on the mesh: its micro-batches split over
         the ``data`` axis (else it runs unsharded, the same function, as
-        the JAX trainer replicates a ragged batch)."""
+        the JAX trainer replicates a ragged batch).  Over several
+        processes every process's batch must have this shape, so that all
+        take the same branch."""
         if self.mesh is None:
             return False
+        distributed.check_same_shape(tuple(batch[0].shape))
         n = len(batch[0])
         return n % accum_steps == 0 and (n // accum_steps) % self.mesh.shape["data"] == 0
 
@@ -284,7 +306,7 @@ class UncertaintyGuidedProgressiveTrainer:
                 prev_resolution=prev_res, alpha=self.uncertainty_alpha,
                 augment=self.augment, fused_loss=self.fused_loss,
                 accum_steps=self.accum_steps, aug_quantize=self.aug_quantize,
-                mesh=self.mesh if sharded else None, shard_model=self.shard_model)
+                mesh=distributed.step_mesh(self.mesh, sharded), shard_model=self.shard_model)
         return self._train_steps[key]
 
     def _get_pipeline(self, stage: int) -> UncertaintyPipeline:
@@ -299,7 +321,7 @@ class UncertaintyGuidedProgressiveTrainer:
                 self._model(stage), prev_model, self.optimizer, stage,
                 self.stage_configs[stage]["resolution"], prev_res,
                 task_type="segmentation", n_unc=self.pipeline_unc,
-                devices=pipeline_device_list(self.pipeline_unc, self.device),
+                devices=pipeline_device_list(self.pipeline_unc, self.device, self.devices),
                 alpha=self.uncertainty_alpha, augment=self.augment,
                 fused_loss=self.fused_loss, accum_steps=self.accum_steps,
                 aug_quantize=self.aug_quantize)
@@ -315,7 +337,7 @@ class UncertaintyGuidedProgressiveTrainer:
             self._eval_steps[key] = make_seg_eval_step(
                 self._model(stage), stage, self.stage_configs[stage]["resolution"],
                 prev_model=prev_model, prev_resolution=prev_res,
-                alpha=self.uncertainty_alpha, mesh=self.mesh if sharded else None,
+                alpha=self.uncertainty_alpha, mesh=distributed.step_mesh(self.mesh, sharded),
                 shard_model=self.shard_model)
         return self._eval_steps[key]
 
@@ -365,10 +387,14 @@ class UncertaintyGuidedProgressiveTrainer:
                                   stats=self.loader_stats)
 
     def _checkpoint(self, path: Path, stage: int, epoch: int, **extra) -> Path:
-        return save_checkpoint(
-            path, self._model(stage).state_dict(), stage=stage, epoch=epoch,
-            optimizer_state_dict=self.optimizer.state_dict(),
-            uncertainty_alpha=self.uncertainty_alpha, history=self.history, **extra)
+        """Write ``path`` (process 0; the others wait for it)."""
+        if distributed.is_writer():
+            save_checkpoint(
+                path, self._model(stage).state_dict(), stage=stage, epoch=epoch,
+                optimizer_state_dict=self.optimizer.state_dict(),
+                uncertainty_alpha=self.uncertainty_alpha, history=self.history, **extra)
+        distributed.barrier()
+        return path
 
     # ------------------------------------------------------------------
     def train_progressive(
@@ -404,11 +430,13 @@ class UncertaintyGuidedProgressiveTrainer:
             resume_stage, resume_epoch = self._find_resume_point(save_path)
             if resume_stage is not None:
                 self._print(f"Resuming from stage {resume_stage}, epoch {resume_epoch + 1}")
+        writer = distributed.is_writer()
         csv_log = CSVLogger(
             save_path / "training_log.csv",
             ["stage", "epoch", "train_loss", "val_loss", "train_dice", "val_dice",
-             "train_acc", "val_acc", "base_loss", "uncertainty_mean", "lr", "epoch_time_s"])
-        tb = TBWriter(self.tb_logdir)
+             "train_acc", "val_acc", "base_loss", "uncertainty_mean", "lr", "epoch_time_s"]
+        ) if writer else None
+        tb = TBWriter(self.tb_logdir if writer else None)
         self._print("Starting Uncertainty-Guided Progressive Growing U-Net Training")
 
         stage_list = list(stages) if stages is not None else list(range(1, max_stages + 1))
@@ -466,14 +494,15 @@ class UncertaintyGuidedProgressiveTrainer:
                 self.history["uncertainty_weights_mean"].append(va_um)
                 self.history["uncertainty_weights_std"].append(va_us)
                 self.history["base_loss"].append(va_base)
-                csv_log.log(
-                    stage=stage, epoch=epoch + 1,
-                    train_loss=round(tr_loss, 6), val_loss=round(va_loss, 6),
-                    train_dice=round(tr_dice, 6), val_dice=round(va_dice, 6),
-                    train_acc=round(tr_acc, 6), val_acc=round(va_acc, 6),
-                    base_loss=round(va_base, 6), uncertainty_mean=round(va_um, 6),
-                    lr=get_learning_rate(self.optimizer),
-                    epoch_time_s=round(time.time() - t0, 3))
+                if csv_log is not None:
+                    csv_log.log(
+                        stage=stage, epoch=epoch + 1,
+                        train_loss=round(tr_loss, 6), val_loss=round(va_loss, 6),
+                        train_dice=round(tr_dice, 6), val_dice=round(va_dice, 6),
+                        train_acc=round(tr_acc, 6), val_acc=round(va_acc, 6),
+                        base_loss=round(va_base, 6), uncertainty_mean=round(va_um, 6),
+                        lr=get_learning_rate(self.optimizer),
+                        epoch_time_s=round(time.time() - t0, 3))
                 tb.scalars(len(self.history["train_loss"]) - 1,
                            **{f"stage{stage}/train_loss": tr_loss,
                               f"stage{stage}/val_loss": va_loss,
@@ -500,7 +529,7 @@ class UncertaintyGuidedProgressiveTrainer:
                     self._checkpoint(save_path / f"ug_pgunet_stage{stage}_best.pth", stage,
                                      epoch, val_dice=va_dice, train_dice=tr_dice)
                 rolled = checkpoint_every and (epoch + 1) % checkpoint_every == 0
-                stopping = preemption is not None and preemption.should_stop()
+                stopping = distributed.agree(preemption is not None and preemption.should_stop())
                 if rolled or stopping:
                     self._checkpoint(save_path / f"ug_pgunet_stage{stage}_last.pth", stage,
                                      epoch, val_dice=va_dice)
@@ -515,7 +544,8 @@ class UncertaintyGuidedProgressiveTrainer:
         self._print("Uncertainty-guided progressive training "
                     + ("preempted — resumable from the _last checkpoint"
                        if self.preempted else "completed!"))
-        self.save_training_plots(save_path)
+        if writer:
+            self.save_training_plots(save_path)
         return self.history
 
     def finetune_native(self, train_loader: Iterable, stage: int = 4, epochs: int = 1,
@@ -570,9 +600,12 @@ class UncertaintyGuidedProgressiveTrainer:
         home = tensor_device(mesh.first)
         for epoch in range(epochs):
             t0 = time.time()
+            acc = []
             with contextlib.closing(prefetch_to_device((crop(*b) for b in train_loader), size=2,
                                                        device=home)) as batches:
-                acc = [step(batch, self.pos_weight) for batch in batches]
+                for batch in batches:
+                    distributed.check_same_shape(tuple(batch[0].shape))
+                    acc.append(step(batch, self.pos_weight))
             tr_loss, _, tr_dice, *_ = self._average(acc)
             hist["train_loss"].append(tr_loss)
             hist["train_dice"].append(tr_dice)
@@ -589,11 +622,12 @@ class UncertaintyGuidedProgressiveTrainer:
         self.optimizer, self._optimizer_stage = optimizer, stage
         for key in (stage, (stage, "mesh")):  # built on the optimizer replaced here
             self._train_steps.pop(key, None)
-        if save_dir is not None:
+        if save_dir is not None and distributed.is_writer():
             save_checkpoint(Path(save_dir) / f"ug_pgunet_stage{stage}_native.pth",
                             model.state_dict(), optimizer_state_dict=optimizer.state_dict(),
                             stage=stage, native_finetune=True, epochs=epochs,
                             uncertainty_alpha=self.uncertainty_alpha, history=hist)
+        distributed.barrier()
         return hist
 
     # ------------------------------------------------------------------
@@ -634,6 +668,7 @@ class UncertaintyGuidedProgressiveTrainer:
         self._model(stage).load_state_dict(obj["model_state_dict"], strict=True)
         if obj.get("optimizer_state_dict") is not None:
             self.optimizer.load_state_dict(obj["optimizer_state_dict"])
+        distributed.broadcast_module(self._model(stage))
         if isinstance(obj.get("history"), dict):
             for k, v in obj["history"].items():
                 if k in self.history and isinstance(v, list):
@@ -643,6 +678,7 @@ class UncertaintyGuidedProgressiveTrainer:
         """Load one stage's weights from a ``.pth`` (strict)."""
         _, state_dict = load_checkpoint(checkpoint_path)
         self._model(stage).load_state_dict(state_dict, strict=True)
+        distributed.broadcast_module(self._model(stage))
         self._print(f"Loaded weights for stage {stage} from {checkpoint_path}")
 
     def save_uncertainty_analysis(self, data_loader: Iterable, stage: int, save_path):

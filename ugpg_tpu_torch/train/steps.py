@@ -52,7 +52,13 @@ kernels, one forward and one backward launch per shard), and the global
 loss is the mean of the shards' means (the shards are equal): the mesh
 step trains the unsharded step's function on the same batch.  The metrics
 are the same global means and sums.  ``shard_model`` runs the wide convs
-column-parallel over each data row's ``model`` devices.
+column-parallel over each data row's ``model`` devices.  Over several
+processes (``parallel/distributed.py``) the mesh is each process's own and
+the global batch every process's: the draws are made for the global batch
+and each process keeps its rows, BN's moments and the metrics are gathered
+from every process, the classification loss is taken on every process's
+logits, and the gradients are averaged over the processes before the
+update.
 
 The JAX package's whole-epoch ``lax.scan`` programs have no counterpart in
 eager PyTorch; CUDA graphs would be theirs.
@@ -84,6 +90,7 @@ from ugpg_tpu_torch.ops.losses import (
     weighted_cross_entropy_mean,
 )
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
+from ugpg_tpu_torch.parallel import distributed
 from ugpg_tpu_torch.parallel.mesh import shard_batch
 from ugpg_tpu_torch.parallel.tensor import ReplicaLayout, replica_features, replica_forward
 from ugpg_tpu_torch.uncertainty import (
@@ -247,7 +254,9 @@ def make_seg_train_step(
     def micro_mesh(images: torch.Tensor, masks: torch.Tensor, pos_weight: float, aug,
                    unc) -> Metrics:
         if augment and isinstance(aug, torch.Generator):  # the unsharded step's draw
-            aug = sample_monuseg_params(aug, images.shape[0], quantize_angles=aug_quantize)
+            n = images.shape[0]
+            aug = distributed.own_rows(sample_monuseg_params(
+                aug, n * distributed.world_size(), quantize_angles=aug_quantize), n)
         mesh = layout.mesh
         augs = shard_batch(aug, mesh) if augment else [None] * mesh.shape["data"]
         xs, ys = [], []
@@ -298,6 +307,8 @@ def make_seg_train_step(
             for p in params:  # the micro-batches' gradients were summed
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
+        if layout is not None:
+            distributed.average_gradients(params)
         optimizer.step()
         if accum_steps == 1:
             return parts[0]
@@ -374,7 +385,20 @@ def _cls_inputs(images: torch.Tensor, resolution: int, normalize: bool, prev_mod
     return x, weights
 
 
-def _cls_metrics(logits, labels, class_weights, weights) -> tuple[torch.Tensor, Metrics]:
+def _global_cls(logits, labels, weights) -> tuple:
+    """(logits, labels, weights) of the global batch: every process's, in
+    process order (``parallel/distributed.py``); the logits differentiably,
+    so that each process's loss is the global one and the averaged
+    gradients are its gradient.  One process: as given."""
+    if distributed.world_size() == 1:
+        return logits, labels, weights
+    logits = distributed.gather_parts(logits).flatten(0, 1)
+    if weights is None:
+        return (logits, *distributed.gather_rows(labels), None)
+    return (logits, *distributed.gather_rows(labels, weights))
+
+
+def _cls_metrics(logits, labels, weights, class_weights) -> tuple[torch.Tensor, Metrics]:
     """(final loss, the six metrics)."""
     base = weighted_cross_entropy_mean(logits, labels, class_weights)
     final = base if weights is None else (softmax_cross_entropy(logits, labels) * weights).mean()
@@ -469,18 +493,19 @@ def make_cls_train_step(
         if external:
             weights = unc
         model.train()
-        final, metrics = _cls_metrics(model(x, generator=generator), labels, class_weights,
-                                      weights)
+        final, metrics = _cls_metrics(model(x, generator=generator), labels, weights,
+                                      class_weights)
         final.backward()
         return metrics
 
     def micro_mesh(images, labels, class_weights, generator, aug, unc) -> Metrics:
         b, _, h, w = images.shape
+        world = distributed.world_size()  # draws for the global batch, this process's rows
         if augment and aug is None:
-            aug = sample_herlev_params(generator, b, h, w)
+            aug = distributed.own_rows(sample_herlev_params(generator, b * world, h, w), b)
         # drawn after the augmentation, as the unsharded forward draws them
-        keep = [None if k is None else shard_batch(k, layout.mesh)
-                for k in model.head_masks(b, generator, images.device)]
+        keep = [None if k is None else shard_batch(distributed.own_rows(k, b), layout.mesh)
+                for k in model.head_masks(b * world, generator, images.device)]
         shards = shard_batch(images, layout.mesh)
         if augment:
             shards = [apply_herlev_params(img, part)
@@ -493,7 +518,7 @@ def make_cls_train_step(
         logits = torch.cat([
             model.head(f, True, generator, [None if k is None else k[i] for k in keep])
             .to(images.device) for i, f in enumerate(replica_features(model, xs, layout))])
-        final, metrics = _cls_metrics(logits, labels, class_weights, weights)
+        final, metrics = _cls_metrics(*_global_cls(logits, labels, weights), class_weights)
         final.backward()
         return metrics
 
@@ -526,6 +551,8 @@ def make_cls_train_step(
             for p in params:  # the micro-batches' gradients were summed
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
+        if layout is not None:
+            distributed.average_gradients(params)
         optimizer.step()
         if accum_steps == 1:
             return parts[0]
@@ -560,12 +587,12 @@ def make_cls_eval_step(
         if layout is None:
             x, weights = _cls_inputs(images, resolution, normalize, prev_model, prev_resolution,
                                      num_classes, alpha)
-            return _cls_metrics(model(x), labels, class_weights, weights)[1]
+            return _cls_metrics(model(x), labels, weights, class_weights)[1]
         xs, weights = _cls_replicas(model, prev_model, shard_batch(images, layout.mesh), resolution,
                                     normalize, prev_resolution, num_classes, alpha, layout,
                                     images.device)
         logits = torch.cat([model.head(f).to(images.device)
                             for f in replica_features(model, xs, layout)])
-        return _cls_metrics(logits, labels, class_weights, weights)[1]
+        return _cls_metrics(*_global_cls(logits, labels, weights), class_weights)[1]
 
     return step
