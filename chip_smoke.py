@@ -260,7 +260,23 @@
    coordinator on phase 9's tree, 2 processes, stage 1, one epoch: both
    exit 0 and only process 0 writes; serve --mesh 1 under a coordinator
    exits 2 with the reason.
-18. Prints a "kernels" JSON line, then as its last line
+18. Whole epochs (``scan_epochs``), TF32 off, cuDNN deterministic: the
+   trainer at full width, float32, batch 8, fused loss, augmented, noisy
+   disks at 256 px, 24 batches and a ragged tail of 4 in 3 chunks, stages
+   1 and 4 (a seeded stage 3 as the frozen source): the whole-epoch path
+   replays a CUDA graph of the step (3 warm-up steps, 1 capture) and its
+   train and validation epochs, parameters and BN statistics equal the
+   per-step path's bit for bit (else within twice the per-step path's own
+   run-to-run distance, printed); one loss forward and one backward launch
+   per step, the kernels held on the last replayed step's own inputs.
+   Stage-1 and stage-4 images/s of both paths in turns (median and spread
+   of 5; stage 4 also without augmentation), host us per step and per
+   replay, the device's idle share, capture seconds, peak memory.
+   Herlev stage 2 (batch 16) through both paths, the plateau scheduler
+   halving the learning rate after every epoch, equal, one capture.
+   train_monuseg --scan_epochs --scan_chunk_mb 64 on phase 9's tree and
+   train_herlev --scan_epochs on phase 11's, at once: exit 0, epoch logged.
+19. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -376,6 +392,7 @@ from ugpg_tpu_torch.ops.cuda.uncertainty_bce import (  # noqa: E402
 from ugpg_tpu_torch.train.aug_trainer import AugMoNuSegTrainer  # noqa: E402
 from ugpg_tpu_torch.train.cls_trainer import HerlevTrainer  # noqa: E402
 from ugpg_tpu_torch.train.cls_trainer import create_config as create_herlev_config  # noqa: E402
+from ugpg_tpu_torch.train.graphs import WARMUP_STEPS  # noqa: E402
 from ugpg_tpu_torch.train.optim import torch_rmsprop  # noqa: E402
 from ugpg_tpu_torch.train.seg_trainer import (  # noqa: E402
     DEFAULT_STAGE_CONFIGS,
@@ -4188,6 +4205,400 @@ def groups_and_processes(tmp: Path, mon_root: Path, card: str) -> tuple[dict, di
     return launches, errors, {"groups": groups, "processes": processes}
 
 
+# ------------------------------------------------------------ phase 18: whole epochs, CUDA graphs
+SCAN_BATCHES, SCAN_TAIL, SCAN_CHUNKS = 24, 4, 3  # 3 chunks of 8 batches of 8, a tail of 4
+SCAN_TURNS = 5
+SCAN_HERLEV_BATCHES, SCAN_HERLEV_EPOCHS = 6, 3
+SCAN_MON_CHUNK_MB = 64
+
+
+@contextlib.contextmanager
+def captured_graph_loss():
+    """The loss kernels' tensors as a CUDA graph captures them: the
+    graph's own buffers, which every replay fills again, so that after a
+    replay they hold that step's logits, masks, probabilities, upstream
+    gradient and the kernels' outputs.  Holding them keeps the graph's pool
+    from reusing their memory within the step."""
+    got, fwd = {}, uncertainty_bce_mod.uncertainty_weighted_bce_forward
+    bwd = uncertainty_bce_mod.uncertainty_weighted_bce_backward
+
+    def record_fwd(x, z, p, pos_weight, alpha):
+        out = fwd(x, z, p, pos_weight, alpha)
+        if torch.cuda.is_current_stream_capturing():  # detached: the storage, not autograd's graph
+            got["fwd"] = (x.detach(), z, p, pos_weight, alpha, out)
+        return out
+
+    def record_bwd(x, z, p, pos_weight, alpha, g):
+        dx = bwd(x, z, p, pos_weight, alpha, g)
+        if torch.cuda.is_current_stream_capturing():
+            got["bwd"] = (x.detach(), z, p, pos_weight, alpha, g, dx)
+        return dx
+
+    uncertainty_bce_mod.uncertainty_weighted_bce_forward = record_fwd
+    uncertainty_bce_mod.uncertainty_weighted_bce_backward = record_bwd
+    try:
+        yield got
+    finally:
+        uncertainty_bce_mod.uncertainty_weighted_bce_forward = fwd
+        uncertainty_bce_mod.uncertainty_weighted_bce_backward = bwd
+
+
+@torch.no_grad()
+def hold_replayed_loss(got: dict, label: str, card: str) -> dict:
+    """Both loss kernels' outputs of the last replayed step against their
+    plain versions on that step's own inputs: phase 6's tolerances."""
+    x, z, p, pw, alpha, out = got["fwd"]
+    want = uncertainty_weighted_bce_reference(x, z, p, pw, alpha)
+    xb, zb, pb, pwb, alphab, g, dx = got["bwd"]
+    want_dx = uncertainty_weighted_bce_backward_reference(xb, zb, pb, pwb, alphab, g)
+    torch.cuda.synchronize()
+    rel = max(abs(a.item() - b.item()) / abs(b.item()) for a, b in zip(out, want))
+    err = (dx - want_dx).abs().max().item()
+    assert rel <= 1e-5 and err <= 1e-5 * want_dx.abs().max().item(), (label, rel, err)
+    worst = {"uncertainty_weighted_bce_fwd": max(abs(a.item() - b.item())
+                                                 for a, b in zip(out, want)),
+             "uncertainty_weighted_bce_bwd": err}
+    log(f"check loss kernels on a replayed step's own inputs, {label}: logits "
+        f"{tuple(x.shape)}, p {tuple(p.shape)}, alpha {alpha}, max_abs_err "
+        f"{json.dumps(worst)} -> ok on {card}")
+    return worst
+
+
+def _scan_gap(a: tuple, b: tuple) -> float:
+    """Largest absolute difference of two runs' (train, val metrics, model)."""
+    gap = max(abs(x - y) for ma, mb in zip(a[:2], b[:2]) for x, y in zip(ma, mb))
+    for x, y in zip(a[2].state_dict().values(), b[2].state_dict().values()):
+        gap = max(gap, (x.double() - y.double()).abs().max().item())
+    return gap
+
+
+def _agree(label: str, runs: dict, again, card: str) -> dict:
+    """The scan run against the per-step run bit for bit; failing that,
+    within twice the per-step path's own run-to-run distance (``again``
+    runs it once more), which is printed."""
+    gap = _scan_gap(runs["scan"], runs["loop"])
+    if gap == 0.0:
+        log(f"whole epochs, {label}: metrics, parameters and BN statistics equal the per-step "
+            f"path bit for bit on {card}")
+        return {"bit_for_bit": True, "max_abs_gap": 0.0}
+    own = _scan_gap(again(), runs["loop"])
+    log(f"whole epochs, {label}: {gap:.3e} from the per-step path, whose own run-to-run "
+        f"distance is {own:.3e} on {card}")
+    assert gap <= 2 * own, (label, gap, own)
+    return {"bit_for_bit": False, "max_abs_gap": gap, "per_step_run_to_run": own}
+
+
+def _timed_epoch(tr, batches: list, stage: int) -> dict:
+    """One train epoch: wall s, host s until the epoch's last step was
+    enqueued (the entry of the reduction, before it reads the rows), the
+    host's s in ``replay()`` calls (the scan path), peak GiB."""
+    from ugpg_tpu_torch.train import seg_trainer as seg_mod
+
+    stamp = []
+    average = seg_mod._average_rows
+
+    def at_fetch(*a):  # the epoch's rows, every launch enqueued, not yet read
+        stamp.append(time.perf_counter())
+        return average(*a)
+
+    seg_mod._average_rows = at_fetch
+    graph = tr._epochs.get((stage, "train", False))
+    replay_s = graph.graph.replay_s if graph and graph.graph else 0.0
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.train_epoch(batches, stage)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        seg_mod._average_rows = average
+    graph = tr._epochs.get((stage, "train", False))
+    return {"wall_s": wall, "host_s": stamp[0] - t0,
+            "replay_s": (graph.graph.replay_s - replay_s) if graph and graph.graph else None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            # a graph's pool is reserved, not allocated, while it replays
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+
+
+def _time_paths(loop, scan, batches: list, stage: int, label: str, card: str) -> dict:
+    """Train epochs of the per-step and the whole-epoch trainer in turns
+    (median and spread of SCAN_TURNS), then one of each profiled for the
+    device's idle share.  First one untimed epoch of each: the scan
+    trainer captures its graphs there (anew where cuDNN's settings changed
+    since the agreement check, which was deterministic)."""
+    for tr in (loop, scan):
+        tr.train_epoch(batches, stage)
+    runs = {"per_step": [], "scan": []}
+    for _ in range(SCAN_TURNS):
+        for name, tr in (("per_step", loop), ("scan", scan)):
+            runs[name].append(_timed_epoch(tr, batches, stage))
+    n_images = sum(len(b[0]) for b in batches)
+    speed = {}
+    for name, rs in runs.items():
+        ips = [n_images / r["wall_s"] for r in rs]
+        host = [r["host_s"] / len(batches) * 1e6 for r in rs]
+        speed[name] = {"images_per_s": {"median": statistics.median(ips), "min": min(ips),
+                                        "max": max(ips), "runs": ips},
+                       "host_us_per_step": {"median": statistics.median(host),
+                                            "min": min(host), "max": max(host)},
+                       "peak_gib": max(r["peak_gib"] for r in rs),
+                       "peak_reserved_gib": max(r["peak_reserved_gib"] for r in rs)}
+        if rs[0]["replay_s"] is not None:  # every uniform step of a turn is a replay
+            per = [r["replay_s"] / (len(batches) - 1) * 1e6 for r in rs]
+            speed[name]["host_us_per_replay"] = statistics.median(per)
+    idle = {}
+    for name, tr in (("per_step", loop), ("scan", scan)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train_epoch(batches, stage)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        union, total = _busy_ms(prof)
+        idle[name] = {"wall_ms": wall, "busy_ms": union, "kernel_ms_sum": total,
+                      "idle_share": (1 - union / wall) if union > 0 else None,
+                      "kernels": _kernel_ms(prof)}
+    kernels = {name: idle[name].pop("kernels") for name in idle}
+    log(f"whole epochs, stage {stage}, {label}, batch {TRAIN_BATCH}, float32: images/s in turns "
+        f"(median [min, max] of {SCAN_TURNS}): " + ", ".join(
+            f"{k} {v['images_per_s']['median']:.2f} [{v['images_per_s']['min']:.2f}, "
+            f"{v['images_per_s']['max']:.2f}]" for k, v in speed.items())
+        + "; host us per step until the first wait at the epoch's end: " + ", ".join(
+            f"{k} {v['host_us_per_step']['median']:.1f}" for k, v in speed.items())
+        + f"; host us per replay() {speed['scan'].get('host_us_per_replay', 0.0):.1f}"
+        + "; peak GiB allocated (a graph's pool is reserved, not allocated, as it replays) / "
+        "reserved (the process's cached pool): " + ", ".join(
+            f"{k} {v['peak_gib']:.3f} / {v['peak_reserved_gib']:.3f}" for k, v in speed.items())
+        + f"; device busy and idle {json.dumps(idle)} on {card}")
+    _log_kernel_diff(kernels, f"stage {stage}, {label}", card)
+    return {"speed": speed, "idle": idle}
+
+
+def _kernel_ms(prof) -> dict:
+    """Device ms per kernel name in a profile."""
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "Activity Buffer Request":
+            out[e.name] = out.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def _log_kernel_diff(kernels: dict, label: str, card: str, top: int = 12) -> None:
+    """Which kernels each path's epoch ran: the largest of each, and the
+    kernels with the most device time that only one path ran."""
+    per, scan = kernels["per_step"], kernels["scan"]
+    only = {name: {k[:120]: round(v, 3) for k, v in sorted(
+                ((k, v) for k, v in a.items() if k not in b), key=lambda kv: -kv[1])[:top]}
+            for name, a, b in (("per_step", per, scan), ("scan", scan, per))}
+    biggest = {name: {k[:120]: round(v, 3)
+                      for k, v in sorted(ks.items(), key=lambda kv: -kv[1])[:top]}
+               for name, ks in kernels.items()}
+    log(f"whole epochs, {label}: device ms of the largest kernels {json.dumps(biggest)}; "
+        f"only in one path {json.dumps(only)}; kernel names per_step {len(per)}, scan "
+        f"{len(scan)} on {card}")
+
+
+def scan_segmentation(card: str) -> tuple[dict, dict, dict]:
+    """Phase 18, segmentation: the trainer at full width, float32 (TF32
+    off; cuDNN deterministic for the agreement, its default for the
+    timings), batch 8, fused loss, augmented, noisy
+    synthetic disks at 256 px: 24 batches and a ragged tail of 4, chunks
+    of 8 batches (3 chunks).  Stages 1 and 4 (stage 4 over a seeded stage
+    3 as the frozen source): a scan trainer and the per-step path of a
+    trainer built the same way (its optimizer the capturable variant) from
+    the same seed, one train and one validation epoch each, equal; the
+    scan trainer's counters, reset just before its train epoch, show one
+    loss forward and one backward per step, replayed, and the kernels are
+    held on the last replayed step's inputs.  Stages 1 and 4 then time the
+    scan trainer's epochs in turns with the default per-step trainer's (the
+    host-float optimizer, as a user trains without ``scan_epochs``),
+    profile one of each for the device's idle share and the kernels each
+    ran, and report the host's time per step, the capture seconds and the
+    peak memory."""
+    images, masks = disk_dataset(SCAN_BATCHES * TRAIN_BATCH + SCAN_TAIL, 256, seed=18)
+    noise = np.random.default_rng(18).standard_normal(images.shape).astype(np.float32)
+    images = np.clip(images + 0.05 * noise, 0.0, 1.0)
+    batches = [(images[i:i + TRAIN_BATCH], masks[i:i + TRAIN_BATCH])
+               for i in range(0, SCAN_BATCHES * TRAIN_BATCH, TRAIN_BATCH)]
+    batches.append((images[-SCAN_TAIL:], masks[-SCAN_TAIL:]))
+    chunk = (SCAN_BATCHES // SCAN_CHUNKS) * (batches[0][0].nbytes + batches[0][1].nbytes)
+    cfgs = {s: {**DEFAULT_STAGE_CONFIGS[s], "epochs_per_stage": 1} for s in (1, 3, 4)}
+
+    def trainer(scan: bool, stage: int, built_to_scan: bool = True):
+        """A trainer at ``stage``.  ``built_to_scan``: built with
+        ``scan_epochs``, so that every step, the per-step path's too, takes
+        the capturable optimizer; its epochs are whole where ``scan``, else
+        per step.  Else the per-step trainer a user runs by default."""
+        tr = UncertaintyGuidedProgressiveTrainer(
+            stage_configs=cfgs, verbose=False, seed=18, augment=True, fused_loss=True,
+            scan_epochs=built_to_scan, scan_chunk_bytes=chunk)
+        if stage == 4:  # a seeded frozen source
+            tr._model(3).load_state_dict(_seeded(PGUNet3(use_bn=True), 33).state_dict())
+        tr.current_stage = stage
+        tr.setup_optimizer(stage)
+        tr.scan_epochs = scan
+        return tr
+
+    def epoch(tr, stage):
+        return (tr.train_epoch(batches, stage), tr.validate_epoch(batches, stage),
+                tr.models[stage])
+
+    launches = dict.fromkeys(LOSS_KERNELS, 0)
+    errors = dict.fromkeys(LOSS_KERNELS, 0.0)
+    out = {"agreement": {}, "capture_s": {}}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for stage in (1, 4):
+            scan, loop = trainer(True, stage), trainer(False, stage)
+            with captured_graph_loss() as got:
+                _lib.reset_launch_counts()
+                train_metrics = scan.train_epoch(batches, stage)
+                torch.cuda.synchronize()
+                counts = _lib.launch_counts()
+                held = hold_replayed_loss(got, f"stage {stage}, the last replayed step", card)
+            runs = {"scan": (train_metrics, scan.validate_epoch(batches, stage),
+                             scan.models[stage]),
+                    "loop": epoch(loop, stage)}
+            steps = SCAN_BATCHES + 1
+            assert counts == dict.fromkeys(LOSS_KERNELS, steps), counts
+            graph = scan._epochs[(stage, "train", False)].graph
+            assert graph.captures == 1 and graph.eager_steps == WARMUP_STEPS, graph.stats()
+            assert graph.replays == SCAN_BATCHES - WARMUP_STEPS
+            assert graph.launches == dict.fromkeys(LOSS_KERNELS, 1), graph.launches
+            for kernel in LOSS_KERNELS:
+                launches[kernel] += counts[kernel]
+                errors[kernel] = max(errors[kernel], held[kernel])
+            out["agreement"][stage] = _agree(f"stage {stage}", runs,
+                                             lambda: epoch(trainer(False, stage), stage), card)
+            out["capture_s"][stage] = {kind: scan._epochs[(stage, kind, False)].graph.capture_s
+                                       for kind in ("train", "eval")}
+            if stage == 1:  # a small step, where the host holds the card back
+                torch.backends.cudnn.deterministic = prev
+                out["stage1"] = _time_paths(trainer(False, 1, False), scan, batches, 1,
+                                            "augmented", card)
+                torch.backends.cudnn.deterministic = True
+            log(f"whole epochs, stage {stage}: {steps} steps ({SCAN_CHUNKS} chunks of "
+                f"{SCAN_BATCHES // SCAN_CHUNKS} batches, the tail per step), loss launches "
+                f"{json.dumps(counts)}, graph: {WARMUP_STEPS} warm-up steps, 1 capture "
+                f"({graph.capture_s:.3f} s), {graph.replays} replays on {card}")
+        # stage 4: both paths' epochs in turns, on the trainers of the check above, with
+        # cuDNN's default (non-deterministic) algorithms, as a user trains; then the same
+        # without augmentation (phase 7's step)
+        torch.backends.cudnn.deterministic = prev
+        out["augmented"] = _time_paths(trainer(False, 4, False), scan, batches, 4, "augmented",
+                                       card)
+        del scan, loop
+        torch.cuda.empty_cache()
+        plain = {}
+        for name, flag in (("per_step", False), ("scan", True)):
+            tr = trainer(flag, 4, flag)
+            tr.augment = False
+            plain[name] = tr
+        out["plain"] = _time_paths(plain["per_step"], plain["scan"], batches, 4,
+                                   "without augmentation", card)
+        log(f"whole epochs: capture s {json.dumps(out['capture_s'])} on {card}")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return launches, errors, out
+
+
+def scan_herlev(card: str) -> dict:
+    """Phase 18, Herlev stage 2 (64 px, the reference widths, float32,
+    cuDNN deterministic, batch 16, augmented, dropout on): 6 batches and a
+    tail of 4 in chunks of 3 batches, three epochs with the plateau
+    scheduler halving the learning rate after each (patience -1), through
+    the whole-epoch path and the per-step path from the same seed: equal,
+    the graph captured once (the learning rate is a tensor it reads)."""
+    rng = np.random.default_rng(19)
+    res = CLS_STAGE_RESOLUTIONS[2]
+    sizes = [HERLEV_BATCH] * SCAN_HERLEV_BATCHES + [4]
+    batches = [(rng.random((n, res, res, 3), dtype=np.float32),
+                rng.integers(0, 7, n).astype(np.int64)) for n in sizes]
+    per = batches[0][0].nbytes + batches[0][1].nbytes
+
+    def run(scan: bool):
+        cfg = create_herlev_config()
+        cfg.update(num_classes=7, verbose=False, augment=True, scan_epochs=True,
+                   scan_chunk_bytes=3 * per, class_weights=[1.0, 1.5, 0.8, 1.2, 1.0, 0.9, 1.1])
+        tr = HerlevTrainer(cfg, seed=19)
+        tr.transfer_weights(1, 2)
+        tr.setup_optimizer_scheduler(2)
+        tr.scan_epochs = scan  # off: per step, on the same (capturable) optimizer
+        tr._scheduler.patience = -1  # every epoch's step halves the learning rate
+        lrs, metrics = [], []
+        for _ in range(SCAN_HERLEV_EPOCHS):
+            lrs.append(float(tr.optimizer.param_groups[0]["lr"]))
+            metrics.append((tr.train_epoch(batches, 2), tr.validate_epoch(batches, 2)))
+            tr._scheduler.step(metrics[-1][1][0], tr.optimizer)
+        return tr, metrics, lrs
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (scan, ms, lrs), (loop, ml, lrl) = run(True), run(False)
+        gap = max(abs(a - b) for x, y in zip(ms, ml) for u, v in zip(x, y) for a, b in zip(u, v))
+        for x, y in zip(scan.models[2].state_dict().values(), loop.models[2].state_dict().values()):
+            gap = max(gap, (x.double() - y.double()).abs().max().item())
+        if gap:
+            (_, again, _) = run(False)
+            own = max(abs(a - b) for x, y in zip(again, ml) for u, v in zip(x, y)
+                      for a, b in zip(u, v))
+            assert gap <= 2 * own, (gap, own)
+        graph = scan._epochs[(2, "train", False)].graph
+        assert lrs == lrl and lrs[1] == lrs[0] / 2 and lrs[2] == lrs[0] / 4, (lrs, lrl)
+        assert graph.captures == 1, graph.stats()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    log(f"whole epochs, Herlev stage 2, batch {HERLEV_BATCH}: {SCAN_HERLEV_EPOCHS} epochs, "
+        f"learning rate {lrs} (the plateau scheduler, one capture), "
+        + ("bit for bit the per-step path" if not gap else f"{gap:.3e} from the per-step path")
+        + f"; train metrics {ms[-1][0]} on {card}")
+    return {"max_abs_gap": gap, "lrs": lrs, "capture_s": graph.capture_s}
+
+
+def scan_command_lines(tmp: Path, mon_root: Path, card: str) -> dict:
+    """``train_monuseg --scan_epochs --scan_chunk_mb 64`` on phase 9's tree
+    and ``train_herlev --scan_epochs`` on phase 11's (written again), stage
+    1, one epoch each, at once: exit 0 and the epoch logged."""
+    herlev_root = tmp / "Herlev"
+    write_herlev_tree(herlev_root)
+    procs = {
+        "train_monuseg": start_command(port_command(
+            "ugpg_tpu_torch.cli.train_monuseg", "--data_dir", str(mon_root), "--output_dir",
+            str(tmp / "mon"), "--stages", "1", "--epochs", "1", "--batch_size",
+            str(TRAIN_BATCH), "--scan_epochs", "--scan_chunk_mb", str(SCAN_MON_CHUNK_MB))),
+        "train_herlev": start_command(port_command(
+            "ugpg_tpu_torch.cli.train_herlev", "--data_dir", str(herlev_root), "--output_dir",
+            str(tmp / "herlev"), "--stages", "1", "--epochs", "1", "--batch_size",
+            str(HERLEV_BATCH), "--scan_epochs")),
+    }
+    t0 = time.perf_counter()
+    rows = {}
+    for (label, proc), out in zip(procs.items(), ("mon", "herlev")):
+        finish_command(proc, f"{label} --scan_epochs")
+        with open(tmp / out / "training_log.csv") as f:
+            rows[label] = list(csv.DictReader(f))
+        assert len(rows[label]) == 1 and rows[label][0]["epoch"] == "1", rows[label]
+    log(f"command lines: train_monuseg --scan_epochs --scan_chunk_mb {SCAN_MON_CHUNK_MB} and "
+        f"train_herlev --scan_epochs, stage 1, one epoch each at once: exit 0, the epoch logged "
+        f"({json.dumps({k: v[0] for k, v in rows.items()})}) in "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return {k: v[0] for k, v in rows.items()}
+
+
+def whole_epochs(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dict, dict]:
+    """Phase 18."""
+    with tf32(False):
+        launches, errors, seg = scan_segmentation(card)
+        torch.cuda.empty_cache()
+        herlev_run = scan_herlev(card)
+    torch.cuda.empty_cache()
+    commands = scan_command_lines(tmp, mon_root, card)
+    return launches, errors, {"segmentation": seg, "herlev": herlev_run, "commands": commands}
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -4264,6 +4675,12 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             group_launches, group_errors, phase17 = groups_and_processes(
                 Path(tmp), Path(mon_tmp) / "MoNuSeg", card)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            scan_launches, scan_errors, phase18 = whole_epochs(
+                Path(tmp), Path(mon_tmp) / "MoNuSeg", card)
+            log(f"whole epochs: phase 18 in {time.perf_counter() - t0:.1f} s")
     for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's; the int8 path's
         launches[kernel] += stack_launches[kernel] + int8_launches[kernel]
     # the int8 path is the bf16-taps instance's main path; the pipeline's epoch, the loss
@@ -4289,6 +4706,12 @@ def main():
     for kernel, n in group_launches.items():
         launches[kernel] += n
     for kernel, err in group_errors.items():
+        errors[kernel] = max(errors[kernel], err)
+    # phase 18: one loss forward and backward per step of the whole-epoch path, replayed
+    # from a CUDA graph, held on a replayed step's own inputs
+    for kernel, n in scan_launches.items():
+        launches[kernel] += n
+    for kernel, err in scan_errors.items():
         errors[kernel] = max(errors[kernel], err)
 
     rows = []
@@ -4396,6 +4819,19 @@ def main():
         f"{groups['step0_max_rel_err']:.2e} (Herlev {groups['herlev_step0_max_rel_err']:.2e}); "
         f"two gloo processes step 0 max rel err {processes['step0_max_rel_err']:.2e}, BN stats "
         f"max|d| {processes['bn_stats_max_abs_err']:.2e} on {card}")
+    seg, herlev_scan = phase18["segmentation"], phase18["herlev"]
+    log(f"whole epochs (scan_epochs; CUDA graph replays against per-step epochs, stage 4, batch "
+        f"{TRAIN_BATCH}, float32): " + "; ".join(
+            f"{label}: images/s " + ", ".join(
+                f"{k} {v['images_per_s']['median']:.2f}" for k, v in seg[label]["speed"].items())
+            + ", idle " + ", ".join(
+                f"{k} " + ("not measured" if v["idle_share"] is None
+                           else format(v["idle_share"], ".1%"))
+                for k, v in seg[label]["idle"].items())
+            + f", host us per replay() {seg[label]['speed']['scan']['host_us_per_replay']:.1f}"
+            for label in ("stage1", "augmented", "plain"))
+        + f"; capture s {json.dumps(seg['capture_s'])}; agreement "
+        f"{json.dumps(seg['agreement'])}; Herlev {json.dumps(herlev_scan)} on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -184,11 +184,12 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
     named twice), ported since, train stages 1-2 (at 8/16 px); beside a mesh
     pipeline_unc raises the JAX package's ValueError and the others build.
     axis_name, ported since, raises JAX's unbound-axis NameError at the
-    first train step and validates.  The scan options and other backends
-    still raise."""
+    first train step and validates.  The config's scan_epochs and
+    scan_chunk_bytes, ported since, train stages 1-2 (scan_epochs through
+    the whole-epoch path).  Other backends still raise."""
     config = kwargs.pop("config", {})
-    if set(config) & {"tb_logdir", "remat", "pipeline_unc"} or set(kwargs) & {"mesh",
-                                                                              "axis_name"}:
+    if set(config) & {"tb_logdir", "remat", "pipeline_unc", "scan_epochs",
+                      "scan_chunk_bytes"} or set(kwargs) & {"mesh", "axis_name"}:
         config = {k: (str(tmp_path / v) if k == "tb_logdir" else v) for k, v in config.items()}
         if "mesh" in kwargs:
             kwargs["mesh"] = make_mesh(kwargs["mesh"], devices=["cpu"] * kwargs["mesh"])
@@ -210,6 +211,9 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
         assert tr.models[2].unet.inc.conv.remat == ("remat" in config)
         assert list(tr._pipelines) == ([2] if "pipeline_unc" in config else [])
         assert ((2, "mesh") in tr._train_steps) == ("mesh" in kwargs)
+        assert (list(tr._epochs) == [(2, "train", False), (2, "eval", False)]) == (
+            "scan_epochs" in config)
+        assert tr.scan_chunk_bytes == config.get("scan_chunk_bytes", 1 << 30)
         if "mesh" in kwargs:
             return
         mesh = make_mesh(2, devices=["cpu"] * 2)
@@ -230,14 +234,16 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
     ["--checkpoint_backend", "orbax"],
 ])
 def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys, monkeypatch):
-    """Exit 2 naming the flag.  Ported since: --tb_logdir, --remat and
-    --pipeline_unc reach the trainer's config (--pipeline_unc: the train
+    """Exit 2 naming the flag.  Ported since: --tb_logdir, --remat,
+    --pipeline_unc, --scan_epochs and --scan_chunk_mb (as the config's
+    scan_chunk_bytes; the default 1024 MiB) reach the trainer's config (--pipeline_unc: the train
     loaders drop the ragged final batch), --mesh reaches the trainer (and
     beside --pipeline_unc exits 2 with the JAX package's ValueError);
     under a coordinator --mesh joins the processes first
     (``init_process_group`` records its call here) and, without a process
     count, exits 2 before any rendezvous."""
-    if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh"):
+    if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh", "--scan_epochs",
+                    "--scan_chunk_mb"):
         from ugpg_tpu_torch.train import cls_trainer
 
         seen = {}
@@ -268,7 +274,9 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
             monkeypatch.delenv("WORLD_SIZE")
         else:
             key = flags[0][2:]
-            assert seen[key] == {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1}[key]
+            want = {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1, "scan_epochs": True}
+            assert key == "scan_chunk_mb" or seen[key] == want[key]
+            assert seen["scan_chunk_bytes"] == (512 << 20 if key == "scan_chunk_mb" else 1 << 30)
             with pytest.raises(KeyboardInterrupt):
                 train_herlev.cli(argv + flags + ["--mesh", "2"])
             assert seen["mesh"].shape == {"data": 2, "model": 1}

@@ -713,3 +713,118 @@ def test_conv3x3_operator_and_refusals(cuda):
         dc.conv3x3(x, w1[:4], b1[:4])
     with pytest.raises(ValueError, match="pack_conv"):
         dc.conv3x3(x, w1, b1, packed=(w1, b1))
+
+
+# ---------------------------------------------------------------- CUDA graphs of the loss kernels
+def test_uncertainty_bce_captured_and_replayed_equals_eager_calls(cuda):
+    """The loss kernels recorded into a CUDA graph: every replay on new
+    inputs (copied into the graph's buffers) equals the eager calls on those
+    inputs bit for bit; the capture counts one launch of each into its own
+    tally, not into the run's counts, and its workspace is the one made
+    before the capture on that stream."""
+    from ugpg_tpu_torch.ops.cuda import uncertainty_bce as ub
+
+    shape = (8, 1, 64, 64)
+    x, z, p = (t.clone() for t in _loss_inputs(shape, cuda, seed=21))
+    g = torch.tensor(1.0, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ub.prepare_workspace(cuda)
+        uncertainty_weighted_bce_forward(x, z, p, 5.0, 1.0)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    workspaces = dict(ub._workspaces)
+    _lib.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with _lib.recording() as tally, torch.cuda.graph(graph, stream=side):
+        final, base = uncertainty_weighted_bce_forward(x, z, p, 5.0, 1.0)
+        dx = uncertainty_weighted_bce_backward(x, z, p, 5.0, 1.0, g)
+    assert tally == {"uncertainty_weighted_bce_fwd": 1, "uncertainty_weighted_bce_bwd": 1}
+    assert _lib.launch_counts() == {} and ub._workspaces == workspaces
+    for seed in (22, 23, 24):
+        for dst, src in zip((x, z, p), _loss_inputs(shape, cuda, seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        _lib.add_launches(tally)
+        want = uncertainty_weighted_bce_forward(x, z, p, 5.0, 1.0)
+        want_dx = uncertainty_weighted_bce_backward(x, z, p, 5.0, 1.0, g)
+        torch.cuda.synchronize()
+        assert torch.equal(final, want[0]) and torch.equal(base, want[1])
+        assert torch.equal(dx, want_dx)
+    assert _lib.launch_counts() == {"uncertainty_weighted_bce_fwd": 6,
+                                    "uncertainty_weighted_bce_bwd": 6}
+
+
+def test_uncertainty_bce_capture_without_a_workspace_raises(cuda):
+    """On a stream with no workspace the forward refuses to be captured
+    (it would allocate and zero it inside the graph) and names the cure."""
+    from ugpg_tpu_torch.ops.cuda import uncertainty_bce as ub
+
+    x, z, p = _loss_inputs((4, 1, 16, 16), cuda, seed=25)
+    side = torch.cuda.Stream()
+    before = dict(ub._workspaces)
+    with pytest.raises(RuntimeError, match="prepare_workspace"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            uncertainty_weighted_bce_forward(x, z, p, 5.0, 1.0)
+    assert ub._workspaces == before
+
+
+def test_scan_epochs_replay_a_graph_and_equal_the_per_step_path(cuda):
+    """``scan_epochs`` on the card: the chunks' steps replay a CUDA graph
+    (three warm-up steps, one capture per stage and kind) and the epochs
+    equal the per-step path of a trainer built the same way (its optimizer
+    torch's capturable variant) bit for bit (cuDNN deterministic), the
+    ragged tail included; one loss forward and backward per train step.  A
+    trainer built without ``scan_epochs`` keeps the host-float optimizer."""
+    import numpy as np
+
+    from ugpg_tpu_torch.data.synthetic import disk_dataset
+    from ugpg_tpu_torch.train.seg_trainer import UncertaintyGuidedProgressiveTrainer
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        images, masks = disk_dataset(8 * 8 + 4, 32, seed=3)
+        images = images + np.random.default_rng(0).normal(0, 0.05, images.shape).astype(
+            np.float32)
+        batches = [(images[i:i + 8], masks[i:i + 8]) for i in range(0, 68, 8)]
+        cfgs = {1: {"resolution": 16, "epochs_per_stage": 1, "lr": 3e-4},
+                2: {"resolution": 32, "epochs_per_stage": 1, "lr": 1e-4}}
+        per = images[:8].nbytes + masks[:8].nbytes
+        runs = []
+        for scan in (False, True):
+            tr = UncertaintyGuidedProgressiveTrainer(
+                stage_configs=cfgs, verbose=False, width=0.25, augment=True, fused_loss=True,
+                scan_epochs=True, scan_chunk_bytes=4 * per)
+            tr.scan_epochs = scan  # off: the per-step path, on the same optimizer variant
+            out = []
+            for stage in (1, 2):
+                if stage > 1:
+                    tr.transfer_weights(1, 2)
+                tr.setup_optimizer(stage)
+                for _ in range(2):
+                    _lib.reset_launch_counts()
+                    out.append(tr.train_epoch(batches, stage))
+                    counts = _lib.launch_counts()
+                    out.append(tr.validate_epoch(batches, stage))
+            runs.append((tr, out, counts))
+        (loop, want, want_counts), (scan, got, got_counts) = runs
+        assert got == want
+        assert got_counts == want_counts == {"uncertainty_weighted_bce_fwd": 9,
+                                             "uncertainty_weighted_bce_bwd": 9}
+        for (name, a), b in zip(loop.models[2].state_dict().items(),
+                                scan.models[2].state_dict().values()):
+            assert torch.equal(a, b), name
+        graph = scan._epochs[(2, "train", False)].graph
+        assert graph.captures == 1 and graph.eager_steps == 3 and graph.replays == 2 * 8 - 3
+        assert graph.launches == {"uncertainty_weighted_bce_fwd": 1,
+                                  "uncertainty_weighted_bce_bwd": 1}
+        torch.backends.cudnn.deterministic = False  # other kernels: a new capture
+        scan.train_epoch(batches, 2)
+        assert graph.captures == 2 and graph.eager_steps == 6
+        for flag, capturable in ((False, False), (True, True)):
+            tr = UncertaintyGuidedProgressiveTrainer(stage_configs=cfgs, verbose=False,
+                                                     width=0.25, scan_epochs=flag)
+            assert tr.setup_optimizer(1).param_groups[0]["capturable"] is capturable
+    finally:
+        torch.backends.cudnn.deterministic = prev

@@ -27,12 +27,14 @@ import torch
 
 from tests.test_torch_classifier import jax_cls_variables, port_classifier
 from tests.test_torch_models import jax_variables
+from tests.test_torch_scan_epoch import UPDATE_RTOL, update_gaps
 from tests.test_torch_train import _jax_module, _port_model
 from ugpg_tpu.models.classifier import HerlevClassificationModel as JaxClassifier
 from ugpg_tpu.parallel.pipeline import UncertaintyPipeline as JaxPipeline
 from ugpg_tpu.train.optim import torch_rmsprop as jax_rmsprop
 from ugpg_tpu_torch.data.augment import sample_herlev_params
 from ugpg_tpu_torch.data.synthetic import ArrayLoader, disk_dataset
+from ugpg_tpu_torch.io.from_jax import state_dict_from_jax
 from ugpg_tpu_torch.models import classifier as port_classifier_mod
 from ugpg_tpu_torch.parallel.pipeline import (
     UncertaintyPipeline,
@@ -314,3 +316,157 @@ def test_herlev_trainer_pipeline_unc_matches_plain_trainer(tmp_path):
     np.testing.assert_allclose(h1["val_acc"], h0["val_acc"], atol=1e-6)
     assert 1.0 <= h1["uncertainty_weights_mean"][-1] <= 2.0 + 1e-6
     assert (tmp_path / "1" / "herlev_stage2_best.pth").exists()
+
+
+# ---------------------------------------------------------------- run_epoch_scan
+def test_pipelined_scan_matches_jax_pipelined_scan():
+    """``run_epoch_scan`` (``tests/test_pipeline.py:212``) against JAX's on two
+    of its CPU devices: three batches in one chunk and in chunks of two
+    (double-buffered), at a learning rate of 1e-8, so that RMSprop's sign
+    noise does not part the trajectories (``tests/test_torch_scan_epoch.py``):
+    each chunk's mean metrics rtol 2e-5, the parameters after the epoch
+    rtol 1e-4 plus 1e-5 x the tensor's largest magnitude."""
+    v1, v2 = _seg_models(seed=9)
+    batches = _seg_batches(3, seed=10)
+    keys = jax.random.split(jax.random.key(13), 3)
+    per = batches[0][0].nbytes + batches[0][1].nbytes
+    for chunk, sizes in ((None, [3]), (2 * per, [2])):
+        jpipe = JaxPipeline(_jax_module(2), _jax_module(1), jax_rmsprop(1e-8, weight_decay=1e-4),
+                            2, RES, PREV_RES, n_unc=1, devices=jax.devices()[:2],
+                            augment=True, donate=False)
+        state, jparts, jtail = jpipe.run_epoch_scan(
+            jpipe.create_state(v2), jpipe.place_prev(v1), batches, PW, keys, chunk_bytes=chunk)
+        model, prev = _port_model(2, v2), _port_model(1, v1)
+        pipe = UncertaintyPipeline(model, prev, torch_rmsprop(model.parameters(), 1e-8,
+                                                              weight_decay=1e-4),
+                                   2, RES, PREV_RES, devices=CPU2, augment=True)
+        parts, tail = pipe.run_epoch_scan(batches, PW, aug=_draws(keys, BATCH, 1),
+                                          chunk_bytes=chunk)
+        assert [len(p) for p in parts] == [n for _, n in jparts] == sizes
+        assert len(tail) == len(jtail) == 3 - sum(sizes)
+        for rows, (jm, _) in zip(parts, jax.device_get(jparts)):
+            _assert_metrics(dict(zip(SEG_KEYS, rows.mean(0))), jm, SEG_KEYS, 2e-5)
+        after = state_dict_from_jax(jax.device_get(state.variables))
+        for name, p in model.named_parameters():
+            want = after[name].numpy()
+            np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-4,
+                                       atol=1e-5 * float(np.abs(want).max()), err_msg=name)
+
+
+def test_pipelined_scan_update_matches_jax_at_the_real_learning_rate():
+    """The update that the comparison at lr 1e-8 cannot see: one chunk of
+    two augmented steps at stage 2's learning rate (1e-4) through both
+    pipelines, each parameter's change against JAX's to ``UPDATE_RTOL``
+    (``tests/test_torch_scan_epoch.py``); a skipped update and an epoch of
+    the first batch only must fail that check."""
+    v1, v2 = _seg_models(seed=9)
+    batches = _seg_batches(2, seed=10)
+    keys = jax.random.split(jax.random.key(13), 2)
+    jpipe = JaxPipeline(_jax_module(2), _jax_module(1), jax_rmsprop(1e-4, weight_decay=1e-4),
+                        2, RES, PREV_RES, n_unc=1, devices=jax.devices()[:2],
+                        augment=True, donate=False)
+    state, _, _ = jpipe.run_epoch_scan(jpipe.create_state(v2), jpipe.place_prev(v1), batches,
+                                       PW, keys, chunk_bytes=None)
+
+    def run(epoch):
+        pipe, model = _port_seg_pipeline(v1, v2, True)
+        pipe.run_epoch_scan(epoch, PW, aug=_draws(keys, BATCH, 1)[:len(epoch)])
+        return model
+
+    before = state_dict_from_jax(v2)
+    gaps = update_gaps(run(batches), before, state.variables)
+    assert max(gaps.values()) <= UPDATE_RTOL, sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
+    for fault in (_port_model(2, v2), run(batches[:1])):
+        assert max(update_gaps(fault, before, state.variables).values()) > UPDATE_RTOL
+
+
+@pytest.mark.parametrize("task", ["segmentation", "classification"])
+def test_pipelined_scan_equals_run_epoch_in_chunks_with_a_tail(task):
+    """The chunked epoch (two chunks of two, the producer a chunk ahead,
+    then a full and a ragged batch per step) is ``run_epoch``'s, bit for
+    bit: the same steps on the same draws, in order."""
+    if task == "segmentation":
+        v1, v2 = _seg_models(seed=5)
+        images, masks = disk_dataset(num_samples=BATCH * 5 + 2, image_size=RES, seed=6)
+        batches = [(images[i:i + BATCH], masks[i:i + BATCH]) for i in range(0, 5 * BATCH, BATCH)]
+        batches.append((images[-2:], masks[-2:]))
+
+        def build():
+            return _port_seg_pipeline(v1, v2, True, fused_loss=True)
+
+        weights, keys = PW, SEG_KEYS
+    else:
+        v1, v2 = jax_cls_variables(1, K_CLS, seed=3), jax_cls_variables(2, K_CLS, seed=4)
+        rng = np.random.default_rng(12)
+        batches = [(rng.random((n, 16, 16, 3)).astype(np.float32),
+                    rng.integers(0, K_CLS, n).astype(np.int64)) for n in (4, 4, 4, 4, 4, 2)]
+
+        def build():
+            model, prev = port_classifier(2, v2, K_CLS), port_classifier(1, v1, K_CLS)
+            pipe = UncertaintyPipeline(model, prev, torch_rmsprop(model.parameters(), 1e-4), 2,
+                                       16, 8, devices=CPU2, task_type="classification",
+                                       num_classes=K_CLS, augment=True, normalize=True)
+            pipe.create_state()
+            pipe.place_prev()
+            return pipe, model
+
+        weights = torch.tensor([1.0, 2.0, 0.5])
+        keys = ("final_loss", "base_loss", "correct", "count", "uncertainty_weight_mean",
+                "uncertainty_weight_std")
+    per = batches[0][0].nbytes + batches[0][1].nbytes
+    (pipe, model), (pipe_s, model_s) = build(), build()
+    want = pipe.run_epoch(batches, weights, aug=torch.Generator().manual_seed(0),
+                          generator=torch.Generator().manual_seed(1))
+    parts, tail = pipe_s.run_epoch_scan(batches, weights, aug=torch.Generator().manual_seed(0),
+                                        generator=torch.Generator().manual_seed(1),
+                                        chunk_bytes=2 * per)
+    assert [len(p) for p in parts] == [2, 2] and len(tail) == 2
+    got = [dict(zip(keys, r)) for p in parts for r in p] + tail
+    for g, w in zip(got, want):
+        for k in keys:
+            assert float(g[k]) == float(w[k]), k
+    for (name, a), b in zip(model.state_dict().items(), model_s.state_dict().values()):
+        assert torch.equal(a, b), name
+
+
+def test_trainers_pipeline_unc_with_scan_epochs_match_without(tmp_path):
+    """``pipeline_unc=1`` with ``scan_epochs`` (chunks of one batch and a
+    ragged tail) trains both trainers' stage 2 as ``pipeline_unc=1``
+    alone, bit for bit."""
+    cfgs = {1: {"resolution": 8, "epochs_per_stage": 1, "lr": 3e-4},
+            2: {"resolution": 16, "epochs_per_stage": 1, "lr": 1e-4}}
+    images, masks = disk_dataset(num_samples=10, image_size=16, seed=5)
+    batches = [(images[:4], masks[:4]), (images[4:8], masks[4:8]), (images[8:], masks[8:])]
+    per = images[:4].nbytes + masks[:4].nbytes
+    runs = []
+    for scan in (False, True):
+        tr = UncertaintyGuidedProgressiveTrainer(stage_configs=cfgs, verbose=False, width=0.25,
+                                                 augment=True, fused_loss=True, pipeline_unc=1,
+                                                 device="cpu", scan_epochs=scan,
+                                                 scan_chunk_bytes=per)
+        tr.setup_optimizer(1)
+        tr.train_epoch(batches, 1)
+        tr.transfer_weights(1, 2)
+        tr.setup_optimizer(2)
+        runs.append((tr.train_epoch(batches, 2), tr.models[2].state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+
+    rng = np.random.default_rng(3)
+    cls_batches = [(rng.random((n, 16, 16, 3)).astype(np.float32),
+                    rng.integers(0, K_CLS, n).astype(np.int64)) for n in (4, 4, 2)]
+    out = []
+    for scan in (False, True):
+        cfg = create_config()
+        cfg.update(num_classes=K_CLS, verbose=False, augment=True, pipeline_unc=1,
+                   scan_epochs=scan, scan_chunk_bytes=cls_batches[0][0].nbytes)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(port_classifier_mod.CLS_STAGE_RESOLUTIONS, 1, 8)
+            mp.setitem(port_classifier_mod.CLS_STAGE_RESOLUTIONS, 2, 16)
+            tr = HerlevTrainer(cfg, device="cpu")
+            tr.setup_optimizer_scheduler(2)
+            out.append((tr.train_epoch(cls_batches, 2), tr.models[2].state_dict()))
+    assert out[0][0] == out[1][0]
+    for k, v in out[0][1].items():
+        assert torch.equal(v, out[1][1][k]), k

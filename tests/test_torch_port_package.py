@@ -147,9 +147,11 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
     others build.  mesh (the CPU named twice) and shard_model (without a
     mesh it acts on nothing, as in JAX), ported since, train two stages;
     axis_name raises JAX's unbound-axis NameError at the first train step
-    and validates.  The scan options and other backends still raise."""
+    and validates.  scan_epochs and scan_chunk_bytes, ported since, train
+    two stages (scan_epochs through the whole-epoch path, the cap alone
+    through the per-step path).  Other backends still raise."""
     if set(kwargs) & {"tb_logdir", "remat", "pipeline_unc", "mesh", "shard_model",
-                      "axis_name"}:
+                      "axis_name", "scan_epochs", "scan_chunk_bytes"}:
         monkeypatch.setitem(sys.modules, "tensorflow", None)
         kw = {k: (tmp_path / v if k == "tb_logdir" else v) for k, v in kwargs.items()}
         if "mesh" in kw:
@@ -171,6 +173,9 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
         assert tr.models[2].inc.conv.remat == ("remat" in kw)
         assert list(tr._pipelines) == ([2] if "pipeline_unc" in kw else [])
         assert ((2, "mesh") in tr._train_steps) == ("mesh" in kw)
+        assert (list(tr._epochs) == [(2, "train", False), (2, "eval", False)]) == (
+            "scan_epochs" in kw)
+        assert tr.scan_chunk_bytes == kw.get("scan_chunk_bytes", 1 << 30)
         if "mesh" in kw or "shard_model" in kw:
             return
         mesh = make_mesh(2, devices=["cpu"] * 2)
@@ -320,7 +325,8 @@ class _StubTrainer:
 def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_path, capsys,
                                                         monkeypatch):
     """Never ignored: the command exits 2 naming the flag.  Ported since:
-    --tb_logdir, --remat and --pipeline_unc reach the trainer, and beside
+    --tb_logdir, --remat, --pipeline_unc, --scan_epochs and --scan_chunk_mb
+    (MiB, as the trainer's scan_chunk_bytes) reach the trainer, and beside
     --mesh --pipeline_unc exits 2 with the JAX package's ValueError; --mesh
     of train, test and serve builds the mesh; under a coordinator train
     joins the processes first (no rendezvous here: ``init_process_group``
@@ -338,7 +344,7 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
                 "--device", "cpu", *flags]
         main = train_monuseg.main
         if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh",
-                        "--native_finetune"):
+                        "--native_finetune", "--scan_epochs", "--scan_chunk_mb"):
             real = aug_trainer.AugMoNuSegTrainer
             monkeypatch.setattr(aug_trainer, "AugMoNuSegTrainer", _StubTrainer)
             if flags[0] == "--native_finetune":
@@ -362,9 +368,11 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
                 monkeypatch.delenv("WORLD_SIZE")
                 joined.clear()
             else:
-                key = flags[0][2:]
-                assert main(argv).kwargs[key] == {"tb_logdir": "tb", "remat": True,
-                                                  "pipeline_unc": 1}[key]
+                key, want = {"--tb_logdir": ("tb_logdir", "tb"), "--remat": ("remat", True),
+                             "--pipeline_unc": ("pipeline_unc", 1),
+                             "--scan_epochs": ("scan_epochs", True),
+                             "--scan_chunk_mb": ("scan_chunk_bytes", 512 << 20)}[flags[0]]
+                assert main(argv).kwargs[key] == want
                 mesh_kwargs = main(argv + ["--mesh", "2"]).kwargs
                 assert mesh_kwargs["mesh"].shape == {"data": 2, "model": 1}
                 if key != "pipeline_unc":

@@ -14,9 +14,9 @@ N = 1 exits 2 with the JAX package's message); with ``--pipeline_unc`` the
 train loaders drop the ragged final batch, as the JAX command's do.
 ``--mesh DATA[,MODEL]`` trains data-parallel (and column-parallel) over a
 mesh, as ``train_monuseg``'s does, across processes under a coordinator.
-The flags that are not to be ported (``--scan_epochs``, ``--scan_chunk_mb``,
-another ``--checkpoint_backend``) exit with status 2 and a "not ported"
-message.
+``--scan_epochs`` and ``--scan_chunk_mb`` (default 1024, 0 = unbounded) as
+in ``train_monuseg``.  A ``--checkpoint_backend`` other than ``pth`` is not
+to be ported: it exits with status 2 and a "not ported" message.
 
 SIGTERM stops the run at the end of the current epoch with a
 ``herlev_stage{S}_last.pth`` written, and ``cli`` exits 75 (EX_TEMPFAIL);
@@ -72,15 +72,18 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="shard over a (data, model) device mesh (e.g. '4,2'; 'auto' = all "
                         "devices data-parallel)")
     # not to be ported: given, they exit with "not ported"
-    p.add_argument("--scan_epochs", action="store_true", help="not ported: epoch scans")
-    p.add_argument("--scan_chunk_mb", type=int, default=None, help="not ported: epoch scans")
+    p.add_argument("--scan_epochs", action="store_true",
+                   help="run each epoch as whole chunks, stacked and moved to the device once, "
+                        "the steps replayed from a CUDA graph on one card (eagerly elsewhere); "
+                        "the same trajectory as the per-step path")
+    p.add_argument("--scan_chunk_mb", type=int, default=1024,
+                   help="cap (MiB) on a stacked chunk under --scan_epochs; a larger epoch runs "
+                        "as several chunks (0 = unbounded)")
     return p
 
 
 def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
     never = {  # ROADMAP.md, "Not to port"
-        "--scan_epochs": args.scan_epochs,
-        "--scan_chunk_mb": args.scan_chunk_mb is not None,
         f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
     }
     missing = [flag for flag, on in never.items() if on]
@@ -113,7 +116,9 @@ def main(argv=None):
     config.update(stages=args.stages, epochs_per_stage=args.epochs, batch_size=args.batch_size,
                   binary_classification=args.binary, uncertainty_alpha=args.uncertainty_alpha,
                   output_dir=args.output_dir, accum_steps=args.accum_steps,
-                  tb_logdir=args.tb_logdir, remat=args.remat, pipeline_unc=args.pipeline_unc)
+                  tb_logdir=args.tb_logdir, remat=args.remat, pipeline_unc=args.pipeline_unc,
+                  scan_epochs=args.scan_epochs,
+                  scan_chunk_bytes=(args.scan_chunk_mb << 20) or None)
     if args.data_dir:
         config["data_dir"] = args.data_dir
     if config["binary_classification"]:

@@ -21,9 +21,12 @@ then fine-tunes the last requested stage at native resolution
 (``--native_size``, default 1000 px), spatially sharded over the mesh (H
 over ``data``; ``--native_w_axis``: W over ``model`` too), writing
 ``ug_pgunet_stage{S}_native.pth``; it requires ``--mesh`` and is skipped
-after an interrupt.  The flags that are not to be ported
-(``--scan_epochs``, ``--scan_chunk_mb``, another ``--checkpoint_backend``)
-exit with status 2 and a "not ported" message; none is ignored.
+after an interrupt.  ``--scan_epochs`` runs every epoch as whole chunks of
+at most ``--scan_chunk_mb`` MiB (default 1024, 0 = unbounded), stacked and
+moved to the device once, the steps replayed from a CUDA graph on one card
+and run eagerly on the CPU or a mesh (the trainer's ``scan_epochs``).  A
+``--checkpoint_backend`` other than ``pth`` is not to be ported: it exits
+with status 2 and a "not ported" message; no flag is ignored.
 
 ``--resume`` loads every requested stage that has a ``_best.pth`` and no
 ``_last.pth``, and ``train_progressive`` continues mid-stage from the
@@ -107,15 +110,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--native_w_axis", action="store_true",
                    help="2-D spatial grid for --native_finetune: W sharded over 'model'")
     # not to be ported: given, they exit with "not ported"
-    p.add_argument("--scan_epochs", action="store_true", help="not ported: epoch scans")
-    p.add_argument("--scan_chunk_mb", type=int, default=None, help="not ported: epoch scans")
+    p.add_argument("--scan_epochs", action="store_true",
+                   help="run each epoch as whole chunks, stacked and moved to the device once, "
+                        "the steps replayed from a CUDA graph on one card (eagerly elsewhere); "
+                        "the same trajectory as the per-step path")
+    p.add_argument("--scan_chunk_mb", type=int, default=1024,
+                   help="cap (MiB) on a stacked chunk under --scan_epochs; a larger epoch runs "
+                        "as several chunks (0 = unbounded)")
     return p
 
 
 def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
     never = {  # ROADMAP.md, "Not to port"
-        "--scan_epochs": args.scan_epochs,
-        "--scan_chunk_mb": args.scan_chunk_mb is not None,
         f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
     }
     missing = [flag for flag, on in never.items() if on]
@@ -154,6 +160,8 @@ def main(argv=None):
                                     accum_steps=args.accum_steps,
                                     aug_quantize=args.aug_quantize, tb_logdir=args.tb_logdir,
                                     remat=args.remat, pipeline_unc=args.pipeline_unc,
+                                    scan_epochs=args.scan_epochs,
+                                    scan_chunk_bytes=(args.scan_chunk_mb << 20) or None,
                                     mesh=mesh, device=args.device)
     except ValueError as e:  # e.g. --pipeline_unc leaving no train device, or beside --mesh
         parser.error(str(e))

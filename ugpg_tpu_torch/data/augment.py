@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from ugpg_tpu_torch.device import device_constant
+
 __all__ = [
     "affine_sample",
     "rotation_matrices",
@@ -174,7 +176,7 @@ def jitter(images: torch.Tensor, brightness: torch.Tensor, contrast: torch.Tenso
     bf, cf, sf = (f.to(images.dtype)[:, None, None, None] for f in (brightness, contrast,
                                                                      saturation))
     x = images * bf
-    weights = torch.tensor(_GRAY, dtype=images.dtype, device=images.device)
+    weights = device_constant("gray", lambda: _GRAY, images.device, images.dtype)
     gray = torch.einsum("nchw,c->nhw", x, weights)[:, None]
     x = (1.0 - cf) * gray.mean(dim=(1, 2, 3), keepdim=True) + cf * x
     x = (1.0 - sf) * gray + sf * x  # the pre-saturation gray, torchvision's order
@@ -322,6 +324,8 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 def imagenet_normalize(images: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std per channel of a (B, 3, H, W) batch."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)[:, None, None]
-    std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)[:, None, None]
+    mean = device_constant("imagenet_mean", lambda: IMAGENET_MEAN, images.device,
+                           images.dtype)[:, None, None]
+    std = device_constant("imagenet_std", lambda: IMAGENET_STD, images.device,
+                          images.dtype)[:, None, None]
     return (images - mean) / std

@@ -10,11 +10,15 @@ with ``ctypes``: every pointer and the stream travel as ``c_void_p``.
 Every C entry launches on the stream it is given, allocates nothing,
 does not synchronise, and returns ``cudaGetLastError()``; ``check``
 raises on anything but 0.  Each wrapper counts its launches here
-(``count``), so a run can show which kernels it went through.
+(``count``), so a run can show which kernels it went through.  A launch
+recorded into a CUDA graph runs at every replay, not when it is recorded:
+inside ``recording()`` the counts go to the graph's own tally, which its
+runner adds back once per replay (``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,6 +40,8 @@ __all__ = [
     "count",
     "launch_counts",
     "reset_launch_counts",
+    "recording",
+    "add_launches",
 ]
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -51,6 +57,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _launches: dict[str, int] = {}
+_recorded: dict[str, int] | None = None  # the tally of a graph being captured
 
 
 def _nvcc() -> str:
@@ -158,7 +165,33 @@ def on_device(fn, device: torch.device, *args) -> int:
 
 def count(kernel: str) -> None:
     with _lock:
-        _launches[kernel] = _launches.get(kernel, 0) + 1
+        tally = _launches if _recorded is None else _recorded
+        tally[kernel] = tally.get(kernel, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the launches made inside into a tally of their own (yielded),
+    not into the run's counts: what a CUDA graph captures runs only when it
+    is replayed."""
+    global _recorded
+    with _lock:
+        if _recorded is not None:
+            raise RuntimeError("a graph is being captured already")
+        _recorded = tally = {}
+    try:
+        yield tally
+    finally:
+        with _lock:
+            _recorded = None
+
+
+def add_launches(tally: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x a graph's captured ``tally`` to the run's counts (a
+    replay launches every kernel the capture recorded)."""
+    with _lock:
+        for kernel, n in tally.items():
+            _launches[kernel] = _launches.get(kernel, 0) + n * times
 
 
 def launch_counts() -> dict[str, int]:

@@ -19,7 +19,10 @@ The host path is kept short, since at the training path's sizes a call's
 host work is longer than its kernel: the C entries are bound once, the
 forward's workspace (the blocks' partial sums and the ticket that picks the
 last block) is allocated and zeroed once per device and stream, and a call
-allocates only its output.
+allocates only its output.  Under CUDA graph capture the workspace must
+exist already (``prepare_workspace`` on the capture stream, or an eager
+call there first): made during capture it would come from the graph's
+private pool, and the zeroing would run only at replay.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ __all__ = [
     "uncertainty_weighted_bce_backward",
     "uncertainty_weighted_bce_reference",
     "uncertainty_weighted_bce_backward_reference",
+    "prepare_workspace",
 ]
 
 _P = ctypes.c_void_p
@@ -82,9 +86,23 @@ def _workspace(device: torch.device, stream: int, size: int) -> torch.Tensor:
     first time; the kernel leaves its ticket at 0 again."""
     ws = _workspaces.get((device.index, stream))
     if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "uncertainty_weighted_bce: no workspace on the capturing stream; call "
+                "prepare_workspace on it before the capture")
         ws = _workspaces.setdefault((device.index, stream),
                                     torch.zeros(size, dtype=torch.uint8, device=device))
     return ws
+
+
+def prepare_workspace(device: torch.device) -> None:
+    """Make the forward's workspace for ``device``'s current stream now (it
+    is zeroed there), outside any capture."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    _, _, size = _entries or _bind()
+    _workspace(device, torch._C._cuda_getCurrentRawStream(device.index), size)
 
 
 def _broadcasts(shape, to) -> bool:

@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from ugpg_tpu_torch.device import device_constant
+
 __all__ = ["resize_bilinear_align_corners", "resize_nearest", "upsample2x_bilinear_align_corners"]
 
 
@@ -74,7 +76,13 @@ def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_bilinear_ac_matrix(in_size, out_size)).to(device)
+    return device_constant(("bilinear_ac", in_size, out_size),
+                           lambda: _bilinear_ac_matrix(in_size, out_size), device)
+
+
+def _indices(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    return device_constant(("nearest", in_size, out_size),
+                           lambda: _nearest_indices(in_size, out_size), device)
 
 
 class _ResizeBF16(torch.autograd.Function):
@@ -138,7 +146,7 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     if (h, w) == (out_h, out_w):
         return x
     if out_h != h:
-        x = x.index_select(-2, torch.from_numpy(_nearest_indices(h, out_h)).to(x.device))
+        x = x.index_select(-2, _indices(h, out_h, x.device))
     if out_w != w:
-        x = x.index_select(-1, torch.from_numpy(_nearest_indices(w, out_w)).to(x.device))
+        x = x.index_select(-1, _indices(w, out_w, x.device))
     return x

@@ -43,8 +43,9 @@ statistics (``models/blocks.py::cross_replica_batch_norm``).  The
 column-parallel layout of ``param_shardings`` is cut from the parameters
 at every step, so no update can lose it.
 
-``shard_stacked_batch`` is not ported: it feeds the JAX package's
-``lax.scan`` epoch programs, which ROADMAP.md lists as "Not to port".
+``shard_stacked_batch``: a stacked chunk of an epoch (S, B, ...) with axis 1,
+the per-step batch, split over ``data``, as the whole-epoch path places it
+(``train/steps.py::put_stacked``): one ``ShardedStack`` per array.
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ __all__ = [
     "param_shardings",
     "shard_variables",
     "shard_batch",
+    "shard_stacked_batch",
+    "ShardedStack",
     "tensor_device",
 ]
 
@@ -267,4 +270,41 @@ def shard_batch(batch, mesh: Mesh) -> list:
     if isinstance(batch, Mapping):
         parts = {k: split(t) for k, t in batch.items()}
         return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return split(batch)
+
+
+class ShardedStack(list):
+    """A stacked array split on axis 1 over a mesh's ``data`` axis: part i
+    (S, B / n, ...) on data row i's first device.  ``step(s)``: step s's
+    whole batch (B, ...), its parts joined in order on ``home``, the
+    mesh's first device, where the mesh steps take their batch."""
+
+    def __init__(self, parts, home: torch.device):
+        super().__init__(parts)
+        self.home = home
+
+    def step(self, s: int) -> torch.Tensor:
+        return torch.cat([p[s].to(self.home) for p in self])
+
+
+def shard_stacked_batch(batch, mesh: Mesh):
+    """A stacked chunk (an array, or a tuple, list or dict of them, each
+    (S, B, ...)) with axis 1 split over ``data``: a ``ShardedStack`` per
+    array (the JAX package's ``P(None, 'data')`` placement).  Raises
+    ``ValueError`` when B does not divide."""
+    n = mesh.shape["data"]
+    home = tensor_device(mesh.first)
+
+    def split(t):
+        t = torch.as_tensor(t)
+        if t.shape[1] % n:
+            raise ValueError(f"a batch of {t.shape[1]} does not split over {n} data shards")
+        rows = t.shape[1] // n
+        return ShardedStack([t[:, i * rows:(i + 1) * rows].to(mesh.device_at(data=i))
+                             for i in range(n)], home)
+
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(split(t) for t in batch)
+    if isinstance(batch, Mapping):
+        return {k: split(t) for k, t in batch.items()}
     return split(batch)

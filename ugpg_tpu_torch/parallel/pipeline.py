@@ -40,6 +40,15 @@ CUDA stream of its own, and the consumer's stream waits on an event
 recorded after them; on the CPU the same code runs without streams.
 Whether the side stream gains anything on one card is a measurement
 (``chip_smoke.py``), not a claim.
+
+``run_epoch_scan`` (the trainers' ``scan_epochs``) pipelines whole chunks:
+the epoch's uniform prefix in equal chunks of at most ``chunk_bytes``
+(``train/steps.py::plan_epoch_chunks``), each stacked and moved once to the
+unc group and once to the train group; the producer makes the chunk's
+block of maps (segmentation) or weights (classification) one chunk ahead
+of the consumer, which runs the previous chunk's steps eagerly; the ragged
+tail runs per step.  The steps and the draws are ``run_epoch``'s, so the
+trajectory is too.
 """
 
 from __future__ import annotations
@@ -60,7 +69,17 @@ from ugpg_tpu_torch.data.augment import (
 )
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners
 from ugpg_tpu_torch.parallel.mesh import Mesh, make_mesh, tensor_device
-from ugpg_tpu_torch.train.steps import _nchw, make_cls_train_step, make_seg_train_step
+from ugpg_tpu_torch.train.steps import (
+    CLS_METRIC_KEYS,
+    METRIC_KEYS,
+    _nchw,
+    _row,
+    make_cls_train_step,
+    make_seg_train_step,
+    micro_params,
+    plan_epoch_chunks,
+    stack_epoch,
+)
 from ugpg_tpu_torch.uncertainty import classification_uncertainty_weights
 from ugpg_tpu_torch.utils.profiling import annotate
 
@@ -115,14 +134,6 @@ def pipeline_check(n_unc: int, device: torch.device, devices=None) -> torch.devi
     first."""
     train, _ = pipeline_devices(n_unc, pipeline_device_list(n_unc, device, devices))
     return tensor_device(train.first)
-
-
-def _micro_params(draw, batch: int, accum_steps: int) -> dict:
-    """One batch's parameters, drawn per micro-batch in order and
-    concatenated (what the step's own draws would give)."""
-    m = batch // accum_steps
-    parts = [draw(m) for _ in range(accum_steps)]
-    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
 def _build_seg_unc_body(prev_model: nn.Module, resolution: int, prev_resolution: int,
@@ -270,6 +281,51 @@ class UncertaintyPipeline:
             metrics.append(self._consume(inflight.popleft(), loss_weights, generator))
         return metrics
 
+    def run_epoch_scan(self, batches: Sequence[tuple], loss_weights, aug=None,
+                       generator: torch.Generator | None = None,
+                       chunk_bytes: int | None = None) -> tuple[list, list]:
+        """Chunk-level pipelined epoch (the module's docstring; the JAX
+        package's ``run_epoch_scan``): the producer one chunk ahead of the
+        consumer.  Arguments as ``run_epoch``'s; ``chunk_bytes`` caps a
+        chunk (None: the whole uniform prefix).  Returns ``(parts,
+        tail_metrics)``: per chunk the (S, 6) metric rows of its steps on
+        the train device (``METRIC_KEYS``, or ``CLS_METRIC_KEYS`` as
+        floats), and the tail steps' metrics."""
+        batches = list(batches)
+        if not batches:
+            return [], []
+        if not self._unc:
+            self.place_prev()
+        self._validate_batches(batches)
+        params = self._draw(batches, aug)
+        ranges, tail_start = plan_epoch_chunks(batches, chunk_bytes)
+        keys = METRIC_KEYS if self.task_type == "segmentation" else CLS_METRIC_KEYS
+        parts: list = []
+        inflight: deque = deque()
+        unc_home = tensor_device(self.unc_mesh.first)
+        for a, b in ranges:
+            stacked, _ = stack_epoch(batches[a:b])
+            images_u = torch.as_tensor(stacked[0]).to(unc_home)  # moved once per group
+            train = [torch.as_tensor(x).to(self.train_device) for x in stacked]
+            with annotate("uncertainty_pipeline.produce_chunk"):
+                block = [self._produce((images_u[s], None), params[a + s])[0]
+                         for s in range(b - a)]
+            inflight.append((block, train, params[a:b]))
+            if len(inflight) > 1:  # one chunk ahead
+                parts.append(self._consume_chunk(inflight.popleft(), loss_weights, generator,
+                                                 keys))
+        while inflight:
+            parts.append(self._consume_chunk(inflight.popleft(), loss_weights, generator, keys))
+        tail = [self._consume(self._produce(batch, p), loss_weights, generator)
+                for batch, p in zip(batches[tail_start:], params[tail_start:])]
+        return parts, tail
+
+    def _consume_chunk(self, item, loss_weights, generator, keys) -> torch.Tensor:
+        block, (images, masks_or_labels), params = item
+        return torch.stack([_row(self._consume((outs, (images[s], masks_or_labels[s]),
+                                                params[s]), loss_weights, generator), keys)
+                            for s, outs in enumerate(block)])
+
     def _draw(self, batches: list, aug) -> list:
         """The augmentation parameters of every batch (None without)."""
         if not self.augment:
@@ -289,7 +345,7 @@ class UncertaintyPipeline:
             else:
                 def draw(m, h=h, w=w):
                     return sample_herlev_params(aug, m, h, w)
-            out.append(_micro_params(draw, b, self.accum_steps))
+            out.append(micro_params(draw, b, self.accum_steps))
         return out
 
     def _produce(self, batch: tuple, params: dict | None):

@@ -29,6 +29,9 @@
   ``parallel/pipeline.py``)
 * ``mesh`` and ``shard_model``: data-parallel (and column-parallel) steps
   with cross-replica BN (``train/steps.py``)
+* the config's ``scan_epochs`` and ``scan_chunk_bytes``: whole epochs in
+  chunks, replayed from a CUDA graph on one card (as in
+  ``train/seg_trainer.py``)
 
 The loop reads the device once per epoch.
 """
@@ -68,13 +71,21 @@ from ugpg_tpu_torch.train.optim import (
     ReduceLROnPlateau,
     freeze_subtrees,
     get_learning_rate,
+    load_optimizer_state,
     torch_adam,
 )
 from ugpg_tpu_torch.train.steps import (
     CLS_METRIC_KEYS,
+    draw_cls_epoch,
+    make_cls_eval_epoch,
     make_cls_eval_step,
+    make_cls_train_epoch,
     make_cls_train_step,
     not_ported,
+    reduce_cls_rows,
+    run_scan_epoch,
+    scan_batches,
+    scan_rows,
 )
 from ugpg_tpu_torch.utils.anomaly import TrainingDivergedError, nonfinite_metrics
 from ugpg_tpu_torch.utils.profiling import CSVLogger
@@ -109,6 +120,18 @@ def create_config() -> dict:
 def _plain_config(config: Mapping[str, Any]) -> dict:
     return {k: v for k, v in config.items()
             if isinstance(v, (int, float, str, bool, list, dict, type(None)))}
+
+
+def _reduce_rows(rows: torch.Tensor) -> tuple[float, ...]:
+    """(loss, base loss, accuracy %, weight mean, weight std) from the
+    epoch's (n, 6) metric rows (``reduce_cls_rows`` in float64): one read
+    from the device."""
+    if not len(rows):
+        return (0.0,) * 5
+    r = reduce_cls_rows(rows.cpu().numpy().astype(np.float64))
+    return (float(r["final_loss"]), float(r["base_loss"]),
+            100.0 * float(r["correct"]) / max(float(r["count"]), 1.0),
+            float(r["uncertainty_weight_mean"]), float(r["uncertainty_weight_std"]))
 
 
 class HerlevTrainer:
@@ -158,9 +181,16 @@ class HerlevTrainer:
         shapes must agree.  Process 0 writes the checkpoints, the log, the
         events and the history; the others wait at a barrier.
 
+        The config's ``scan_epochs`` and ``scan_chunk_bytes`` (default 1
+        GiB, None unbounded): whole epochs in chunks, as the segmentation
+        trainer runs them (``train/seg_trainer.py``); each chunk's
+        augmentation parameters and dropout masks are drawn before it, per
+        step in the per-step path's order, so the trajectory is that path's
+        (on a card such a trainer takes the capturable optimizer for every
+        step, ``train/optim.py``).
+
         Not ported, raising ``NotImplementedError``: a
-        ``checkpoint_backend`` other than ``"pth"``, and the config's
-        ``scan_epochs`` and ``scan_chunk_bytes`` (ROADMAP.md, "Not to
+        ``checkpoint_backend`` other than ``"pth"`` (ROADMAP.md, "Not to
         port"); ``pipeline_unc`` with a ``mesh`` raises ``ValueError``."""
         self.config = dict(config)
         self.device = resolve_device(device)
@@ -175,12 +205,14 @@ class HerlevTrainer:
             data_axis_size(mesh)
             self.device = tensor_device(mesh.first)
         self.mesh, self.shard_model, self.axis_name = mesh, bool(shard_model), axis_name
-        not_ported(checkpoint_backend=checkpoint_backend != "pth",
-                   scan_epochs=bool(cfg.get("scan_epochs")),
-                   scan_chunk_bytes=cfg.get("scan_chunk_bytes") is not None)
+        not_ported(checkpoint_backend=checkpoint_backend != "pth")
+        self.scan_epochs = bool(cfg.get("scan_epochs", False))
+        self.scan_chunk_bytes = cfg.get("scan_chunk_bytes", 1 << 30)
         self.devices = devices
         if self.pipeline_unc:
             self.device = pipeline_check(self.pipeline_unc, self.device, devices)
+        # one optimizer variant for every step of a trainer (train/optim.py)
+        self._capturable = self.scan_epochs and self.device.type == "cuda"
         self.remat = bool(cfg.get("remat"))
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be None, float32 or bfloat16, got {dtype}")
@@ -216,6 +248,10 @@ class HerlevTrainer:
         self._train_steps: dict[int, Any] = {}
         self._eval_steps: dict[int, Any] = {}
         self._pipelines: dict[int, UncertaintyPipeline] = {}
+        # whole-epoch functions per (stage, "train" | "eval", sharded); a
+        # validation epoch's stacked device copy per stage
+        self._epochs: dict[tuple, Any] = {}
+        self._val_stack_cache: dict[int, tuple] = {}
         self.history: dict[str, list] = {
             "train_loss": [], "val_loss": [],
             "train_acc": [], "val_acc": [],
@@ -261,11 +297,13 @@ class HerlevTrainer:
         params = (freeze_subtrees(model, ("unet",)) if stage in self._frozen_stages
                   else list(model.parameters()))
         self.optimizer = torch_adam(params, self.stage_configs[stage]["lr"],
-                                    weight_decay=self.config.get("weight_decay", 1e-4))
+                                    weight_decay=self.config.get("weight_decay", 1e-4),
+                                    capturable=self._capturable)
         self._scheduler = ReduceLROnPlateau(factor=0.5, patience=5)
         for key in (stage, (stage, "mesh")):
             self._train_steps.pop(key, None)
         self._pipelines.pop(stage, None)
+        self._epochs.clear()
         return self.optimizer
 
     def transfer_weights(self, prev_stage: int, current_stage: int) -> int:
@@ -282,6 +320,7 @@ class HerlevTrainer:
                 copied += 1
         cur.load_state_dict(state, strict=True)
         distributed.broadcast_module(cur)
+        self._epochs.clear()
         self._print(f"  Transferred {copied} classifier tensors")
         return copied
 
@@ -351,16 +390,62 @@ class HerlevTrainer:
     def _reduce_epoch(metrics: list[dict]) -> tuple[float, ...]:
         """(loss, base loss, accuracy %, weight mean, weight std): one read
         from the device for the epoch."""
-        if not metrics:
-            return (0.0,) * 5
-        host = torch.stack([torch.stack([m[k].float() for k in CLS_METRIC_KEYS])
-                            for m in metrics]).cpu().numpy().astype(np.float64)
-        col = {k: host[:, j] for j, k in enumerate(CLS_METRIC_KEYS)}
-        n = len(metrics)
-        return (float(col["final_loss"].sum() / n), float(col["base_loss"].sum() / n),
-                100.0 * float(col["correct"].sum()) / max(float(col["count"].sum()), 1.0),
-                float(col["uncertainty_weight_mean"].sum() / n),
-                float(col["uncertainty_weight_std"].sum() / n))
+        return _reduce_rows(scan_rows([], metrics, CLS_METRIC_KEYS))
+
+
+    # ------------------------------------------------------------------ whole epochs
+    def _epoch_fn(self, stage: int, train: bool, sharded: bool):
+        """The stage's whole-epoch train or eval function (a CUDA graph's
+        runner on one card); those of other stages are dropped."""
+        if train and self.optimizer is None:
+            self.setup_optimizer_scheduler(stage)
+        for key in [k for k in self._epochs if k[0] != stage]:
+            del self._epochs[key]
+        key = (stage, "train" if train else "eval", sharded)
+        if key not in self._epochs:
+            prev_model, prev_res = self._prev(stage)
+            kw = dict(prev_model=prev_model, prev_resolution=prev_res,
+                      alpha=self.uncertainty_alpha, normalize=True,
+                      mesh=distributed.step_mesh(self.mesh, sharded),
+                      shard_model=self.shard_model)
+            res = self.stage_configs[stage]["resolution"]
+            self._epochs[key] = (
+                make_cls_train_epoch(self._model(stage), self.optimizer, stage, res,
+                                     self.num_classes,
+                                     augment=bool(self.config.get("augment", True)),
+                                     accum_steps=self.accum_steps, **kw)
+                if train else make_cls_eval_epoch(self._model(stage), stage, res,
+                                                  self.num_classes, **kw))
+        return self._epochs[key]
+
+    def _scan_epoch(self, batches: list, stage: int, train: bool, token=None):
+        """One train or validation epoch on the whole-epoch path
+        (``train/steps.py::run_scan_epoch``): each chunk's augmentation
+        parameters and dropout masks drawn before it, the tail per step, a
+        validation set of one chunk kept per stage."""
+        accum = self.accum_steps if train else 1
+        sharded = self._sharded(batches[0], accum)
+        draw = None
+        if train:
+            augment = bool(self.config.get("augment", True))
+
+            def tail(batch):
+                return self._get_train_step(stage, self._sharded(batch, accum))(
+                    batch, self.class_weights, self.generator)
+
+            def draw(n, stacked):
+                _, b, h, w = stacked[0].shape[:4]
+                return dict(zip(("aug", "drop"), draw_cls_epoch(
+                    self.generator, self._model(stage), n, b, h, w, augment, accum)))
+        else:
+            def tail(batch):
+                return self._get_eval_step(stage, self._sharded(batch))(batch,
+                                                                        self.class_weights)
+        return _reduce_rows(run_scan_epoch(
+            batches, self._epoch_fn(stage, train, sharded), (self.class_weights,), tail,
+            ("images", "labels"), CLS_METRIC_KEYS, self.scan_chunk_bytes,
+            mesh=self.mesh if sharded else None, device=self.device, draw=draw,
+            cache=None if train else self._val_stack_cache, cache_key=stage, token=token))
 
     def _prefetch(self, dataloader: Iterable):
         return prefetch_to_device(iter(dataloader), size=2, device=self.device)
@@ -370,9 +455,17 @@ class HerlevTrainer:
         if self.pipeline_unc and stage > 1:
             pipe = self._get_pipeline(stage)
             augment = bool(self.config.get("augment", True))
+            if self.scan_epochs:
+                return _reduce_rows(scan_rows(*pipe.run_epoch_scan(
+                    list(dataloader), self.class_weights, aug=self.generator if augment else None,
+                    generator=self.generator, chunk_bytes=self.scan_chunk_bytes),
+                    CLS_METRIC_KEYS))
             return self._reduce_epoch(pipe.run_epoch(
                 list(dataloader), self.class_weights,
                 aug=self.generator if augment else None, generator=self.generator))
+        dataloader, whole = scan_batches(dataloader, self.scan_epochs, self.mesh)
+        if whole:
+            return self._scan_epoch(dataloader, stage, True)
         log_every = self.config.get("log_interval", 10)
         collected = []
         with contextlib.closing(self._prefetch(dataloader)) as batches:
@@ -387,6 +480,10 @@ class HerlevTrainer:
         return self._reduce_epoch(collected)
 
     def validate_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
+        token = id(dataloader)
+        dataloader, whole = scan_batches(dataloader, self.scan_epochs, self.mesh)
+        if whole:
+            return self._scan_epoch(dataloader, stage, False, token)
         with contextlib.closing(self._prefetch(dataloader)) as batches:
             return self._reduce_epoch([self._get_eval_step(stage, self._sharded(batch))(
                 batch, self.class_weights) for batch in batches])
@@ -577,6 +674,7 @@ class HerlevTrainer:
         sd = read_checkpoint(checkpoint_path)["model_state_dict"]
         self._model(stage).load_state_dict(classifier_state_dict(sd, stage), strict=True)
         distributed.broadcast_module(self._model(stage))
+        self._epochs.clear()
         self._print(f"Loaded weights for stage {stage} from {checkpoint_path}")
 
     def _find_resume_point(self, save_path: Path):
@@ -606,7 +704,8 @@ class HerlevTrainer:
         self._model(stage).load_state_dict(sd, strict=True)
         distributed.broadcast_module(self._model(stage))
         if meta.get("optimizer_state_dict") is not None:
-            self.optimizer.load_state_dict(meta["optimizer_state_dict"])
+            load_optimizer_state(self.optimizer, meta["optimizer_state_dict"])
+        self._epochs.clear()  # a graph would read the replaced optimizer state
         sched = meta.get("scheduler") or {}
         if sched:
             self._scheduler.best = float(sched.get("best", float("inf")))

@@ -20,6 +20,16 @@ gradient (L2), not decoupled:
 state.  ``ReduceLROnPlateau`` is the JAX package's host-side scheduler
 (mode 'min', a relative threshold of 1e-4, no cooldown) acting on a torch
 optimizer's learning rate.
+
+``capturable=True`` (a ``scan_epochs`` trainer's choice on a card)
+builds torch's capturable variant, which a CUDA graph can replay: its step
+count lives on the device and the learning rate is a 0-d float32 tensor
+there, which ``set_learning_rate`` writes in place, so a graph that
+captured the step sees every change.  That variant rounds otherwise than
+the host-float one (RMSprop divides by ``-lr`` before the update; Adam's
+bias corrections are float32 tensors), so a trainer uses one variant for
+every step, captured or eager.  Other trainers, and every trainer on the
+CPU, keep the host-float variant, the one held against the JAX package.
 """
 
 from __future__ import annotations
@@ -31,25 +41,36 @@ import torch
 from torch import nn
 
 __all__ = ["torch_rmsprop", "torch_adam", "freeze_subtrees", "ReduceLROnPlateau",
-           "get_learning_rate", "set_learning_rate"]
+           "get_learning_rate", "set_learning_rate", "load_optimizer_state"]
+
+
+def _lr(params: list, lr: float, capturable: bool):
+    """(params, lr as the variant takes it: a device tensor when capturable)."""
+    if lr is None:
+        raise ValueError("lr must be a number, got None")
+    params = list(params)
+    if not capturable:
+        return params, lr
+    first = params[0]["params"][0] if isinstance(params[0], dict) else params[0]
+    return params, torch.tensor(float(lr), dtype=torch.float32, device=first.device)
 
 
 def torch_rmsprop(params: Iterable[torch.nn.Parameter], lr: float,
-                  weight_decay: float = 0.0) -> torch.optim.RMSprop:
+                  weight_decay: float = 0.0, capturable: bool = False) -> torch.optim.RMSprop:
     """RMSprop with the reference's settings: no momentum, not centered."""
-    if lr is None:
-        raise ValueError("lr must be a number, got None")
+    params, lr = _lr(params, lr, capturable)
     return torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8,
-                               weight_decay=weight_decay, momentum=0, centered=False)
+                               weight_decay=weight_decay, momentum=0, centered=False,
+                               capturable=capturable)
 
 
 def torch_adam(params: Iterable[torch.nn.Parameter], lr: float, weight_decay: float = 0.0,
-               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> torch.optim.Adam:
+               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+               capturable: bool = False) -> torch.optim.Adam:
     """Adam with L2 weight decay (not AdamW), no amsgrad."""
-    if lr is None:
-        raise ValueError("lr must be a number, got None")
+    params, lr = _lr(params, lr, capturable)
     return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
-                            amsgrad=False)
+                            amsgrad=False, capturable=capturable)
 
 
 def freeze_subtrees(model: nn.Module, frozen_roots: tuple[str, ...]) -> list[nn.Parameter]:
@@ -96,6 +117,34 @@ def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:
+    """Every group's learning rate; a tensor one (capturable) is written in place."""
     for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
+    return optimizer
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> torch.optim.Optimizer:
+    """``optimizer.load_state_dict(state)``, keeping the optimizer's own
+    variant: a state written by the other one (the card's capturable
+    optimizer, resumed on the CPU, or the reverse) gets this optimizer's
+    ``capturable``, its learning rate's form and its step counts' device."""
+    capturable = [g.get("capturable", False) for g in optimizer.param_groups]
+    lr_tensors = [g["lr"] if isinstance(g["lr"], torch.Tensor) else None
+                  for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, cap, lr_t in zip(optimizer.param_groups, capturable, lr_tensors):
+        group["capturable"] = cap
+        lr = float(group["lr"])
+        if lr_t is not None:
+            group["lr"] = lr_t.fill_(lr)  # the same tensor: a captured graph reads it
+        else:
+            group["lr"] = lr
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = (st["step"].to(device=p.device, dtype=torch.float32) if cap
+                              else st["step"].to(device="cpu", dtype=torch.float32))
     return optimizer

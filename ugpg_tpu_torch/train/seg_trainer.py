@@ -24,6 +24,11 @@
   BN (``train/steps.py``), ``shard_model`` the wide convs column-parallel;
   ``finetune_native``: a stage fine-tuned at native resolution on a
   spatially sharded grid (``parallel/spatial.py``)
+* ``scan_epochs``: each epoch's uniform prefix in chunks of at most
+  ``scan_chunk_bytes``, stacked and moved to the device once per chunk,
+  its steps replayed from a CUDA graph on one card (``train/graphs.py``),
+  run eagerly elsewhere (``train/steps.py``, "Whole epochs"); the ragged
+  tail per step
 
 The loop reads the device once per epoch: the steps return device
 scalars, averaged at the epoch's end.
@@ -65,12 +70,18 @@ from ugpg_tpu_torch.parallel.spatial import (
     spatial_divisor,
 )
 from ugpg_tpu_torch.progressive.transfer import transfer_weights
-from ugpg_tpu_torch.train.optim import get_learning_rate, torch_rmsprop
+from ugpg_tpu_torch.train.optim import get_learning_rate, load_optimizer_state, torch_rmsprop
 from ugpg_tpu_torch.train.steps import (
     METRIC_KEYS,
+    draw_seg_epoch,
+    make_seg_eval_epoch,
     make_seg_eval_step,
+    make_seg_train_epoch,
     make_seg_train_step,
     not_ported,
+    run_scan_epoch,
+    scan_batches,
+    scan_rows,
 )
 from ugpg_tpu_torch.uncertainty import generate_uncertainty_map
 from ugpg_tpu_torch.utils.anomaly import TrainingDivergedError, nonfinite_metrics
@@ -87,6 +98,15 @@ DEFAULT_STAGE_CONFIGS = {
     3: {"resolution": 128, "epochs_per_stage": 40, "lr": 1e-4},
     4: {"resolution": 256, "epochs_per_stage": 40, "lr": 1e-4},
 }
+
+
+def _average_rows(rows: torch.Tensor) -> tuple[float, ...]:
+    """Epoch means of the six metrics from their (n, 6) rows: one read
+    from the device."""
+    if not len(rows):
+        return (0.0,) * len(METRIC_KEYS)
+    host = rows.cpu()
+    return tuple(float(np.mean(host[:, j].numpy())) for j in range(len(METRIC_KEYS)))
 
 
 class UncertaintyGuidedProgressiveTrainer:
@@ -110,7 +130,7 @@ class UncertaintyGuidedProgressiveTrainer:
         shard_model: bool = True,
         checkpoint_backend: str = "pth",
         scan_epochs: bool = False,
-        scan_chunk_bytes: int | None = None,
+        scan_chunk_bytes: int | None = 1 << 30,
         tb_logdir=None,
         accum_steps: int = 1,
         remat: bool = False,
@@ -177,11 +197,26 @@ class UncertaintyGuidedProgressiveTrainer:
         events and the plots; the others wait at a barrier.  Models are
         made process 0's when built, transferred or resumed.
 
+        ``scan_epochs``: each epoch runs as whole chunks (the JAX trainer's
+        ``lax.scan`` epochs): its uniform prefix is cut into equal chunks of
+        at most ``scan_chunk_bytes`` (default 1 GiB; None: one chunk), each
+        stacked and moved to the device once, the steps' augmentation
+        parameters drawn before it in the per-step path's order, and the
+        metrics read once at the epoch's end; the ragged tail runs per
+        step.  On one card the chunk's steps replay a CUDA graph of the
+        step (``train/graphs.py``; a capture that fails raises), else they
+        run eagerly; a validation epoch of one chunk and no tail keeps its
+        stacked copy per stage.  The trajectory is the per-step path's: a
+        trainer built with ``scan_epochs`` on a card takes torch's
+        capturable optimizers, which a graph can replay, for every step,
+        the tail's too; other trainers keep the host-float variant
+        (``train/optim.py``).  With a mesh over several processes, or a
+        batch that does not split over the mesh, epochs run per step.
+
         Options of the JAX trainer that are not ported raise
         ``NotImplementedError``: ``checkpoint_backend`` other than
-        ``"pth"``, ``scan_epochs`` and ``scan_chunk_bytes`` (ROADMAP.md,
-        "Not to port"); ``pipeline_unc`` with a ``mesh`` raises
-        ``ValueError``."""
+        ``"pth"`` (ROADMAP.md, "Not to port"); ``pipeline_unc`` with a
+        ``mesh`` raises ``ValueError``."""
         self.device = resolve_device(device)
         self.pipeline_unc = int(pipeline_unc)
         if self.pipeline_unc and mesh is not None:
@@ -193,11 +228,13 @@ class UncertaintyGuidedProgressiveTrainer:
             data_axis_size(mesh)
             self.device = tensor_device(mesh.first)
         self.mesh, self.shard_model, self.axis_name = mesh, bool(shard_model), axis_name
-        not_ported(checkpoint_backend=checkpoint_backend != "pth",
-                   scan_epochs=scan_epochs, scan_chunk_bytes=scan_chunk_bytes is not None)
+        not_ported(checkpoint_backend=checkpoint_backend != "pth")
+        self.scan_epochs, self.scan_chunk_bytes = bool(scan_epochs), scan_chunk_bytes
         self.devices = devices
         if self.pipeline_unc:
             self.device = pipeline_check(self.pipeline_unc, self.device, devices)
+        # one optimizer variant for every step of a trainer (train/optim.py)
+        self._capturable = self.scan_epochs and self.device.type == "cuda"
         self.tb_logdir = tb_logdir
         self.remat = bool(remat)
         if dtype not in (None, torch.float32, torch.bfloat16):
@@ -233,6 +270,10 @@ class UncertaintyGuidedProgressiveTrainer:
         self._train_steps: dict[Any, Any] = {}
         self._eval_steps: dict[Any, Any] = {}
         self._pipelines: dict[int, UncertaintyPipeline] = {}
+        # per (stage, "train" | "eval", sharded) the whole-epoch functions,
+        # and per stage a validation epoch's stacked device copy
+        self._epochs: dict[tuple, Any] = {}
+        self._val_stack_cache: dict[int, tuple] = {}
         # seconds the steps waited on the prefetch queue, and its batches
         self.loader_stats = {"wait_s": 0.0, "batches": 0}
         self.history: dict[str, list] = {
@@ -259,11 +300,13 @@ class UncertaintyGuidedProgressiveTrainer:
         """A fresh RMSprop for the stage; the stage's steps are rebuilt on it."""
         self.optimizer = torch_rmsprop(self._model(stage).parameters(),
                                        self.stage_configs[stage]["lr"],
-                                       weight_decay=self.weight_decay)
+                                       weight_decay=self.weight_decay,
+                                       capturable=self._capturable)
         self._optimizer_stage = stage
         for key in (stage, (stage, "mesh")):
             self._train_steps.pop(key, None)
         self._pipelines.pop(stage, None)
+        self._epochs.clear()
         return self.optimizer
 
     def transfer_weights(self, prev_stage: int, new_stage: int) -> list[str]:
@@ -273,6 +316,7 @@ class UncertaintyGuidedProgressiveTrainer:
         merged, copied = transfer_weights(self._model(prev_stage).state_dict(), new.state_dict())
         new.load_state_dict(merged)
         distributed.broadcast_module(new)
+        self._epochs.clear()
         self._print(f"transfer_weights(stage={new_stage}): copied {len(copied)} keys "
                     f"(examples: {copied[:5]})")
         return copied
@@ -344,10 +388,56 @@ class UncertaintyGuidedProgressiveTrainer:
     @staticmethod
     def _average(acc: list[dict]) -> tuple[float, ...]:
         """Epoch means of the six metrics: one read from the device."""
-        if not acc:
-            return (0.0,) * len(METRIC_KEYS)
-        host = torch.stack([torch.stack([m[k] for k in METRIC_KEYS]) for m in acc]).cpu()
-        return tuple(float(np.mean(host[:, j].numpy())) for j in range(len(METRIC_KEYS)))
+        return _average_rows(scan_rows([], acc, METRIC_KEYS))
+
+    # ------------------------------------------------------------------ whole epochs
+    def _epoch_fn(self, stage: int, train: bool, sharded: bool):
+        """The stage's whole-epoch train or eval function (a CUDA graph's
+        runner on one card); those of other stages are dropped."""
+        if train and self._optimizer_stage != stage:
+            self.setup_optimizer(stage)
+        for key in [k for k in self._epochs if k[0] != stage]:
+            del self._epochs[key]
+        key = (stage, "train" if train else "eval", sharded)
+        if key not in self._epochs:
+            prev_model, prev_res = self._prev(stage)
+            kw = dict(prev_model=prev_model, prev_resolution=prev_res,
+                      alpha=self.uncertainty_alpha,
+                      mesh=distributed.step_mesh(self.mesh, sharded),
+                      shard_model=self.shard_model)
+            res = self.stage_configs[stage]["resolution"]
+            self._epochs[key] = (
+                make_seg_train_epoch(self._model(stage), self.optimizer, stage, res,
+                                     augment=self.augment, fused_loss=self.fused_loss,
+                                     accum_steps=self.accum_steps,
+                                     aug_quantize=self.aug_quantize, **kw)
+                if train else make_seg_eval_epoch(self._model(stage), stage, res, **kw))
+        return self._epochs[key]
+
+    def _scan_epoch(self, batches: list, stage: int, train: bool, token=None):
+        """One train or validation epoch on the whole-epoch path
+        (``train/steps.py::run_scan_epoch``): the augmentation parameters
+        drawn before each chunk, the tail per step, a validation set of one
+        chunk kept per stage (``token``: the loader's identity)."""
+        accum = self.accum_steps if train else 1
+        sharded = self._sharded(batches[0], accum)
+        draw = None
+        if train:
+            def tail(batch):
+                return self._get_train_step(stage, self._sharded(batch, accum))(
+                    batch, self.pos_weight, self.aug_generator)
+            if self.augment:
+                def draw(n, stacked):
+                    return {"aug": draw_seg_epoch(self.aug_generator, n, stacked[0].shape[1],
+                                                  accum, self.aug_quantize)}
+        else:
+            def tail(batch):
+                return self._get_eval_step(stage, self._sharded(batch))(batch, self.pos_weight)
+        return _average_rows(run_scan_epoch(
+            batches, self._epoch_fn(stage, train, sharded), (self.pos_weight,), tail,
+            ("images", "masks"), METRIC_KEYS, self.scan_chunk_bytes,
+            mesh=self.mesh if sharded else None, device=self.device, draw=draw,
+            cache=None if train else self._val_stack_cache, cache_key=stage, token=token))
 
     # ------------------------------------------------------------------
     def train_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
@@ -359,8 +449,15 @@ class UncertaintyGuidedProgressiveTrainer:
         if self.pipeline_unc and stage > 1:
             batches = list(dataloader)
             pipe = self._get_pipeline(stage)
-            return self._average(pipe.run_epoch(
-                batches, self.pos_weight, aug=self.aug_generator if self.augment else None))
+            aug = self.aug_generator if self.augment else None
+            if self.scan_epochs:
+                return _average_rows(scan_rows(*pipe.run_epoch_scan(
+                    batches, self.pos_weight, aug=aug, chunk_bytes=self.scan_chunk_bytes),
+                    METRIC_KEYS))
+            return self._average(pipe.run_epoch(batches, self.pos_weight, aug=aug))
+        dataloader, whole = scan_batches(dataloader, self.scan_epochs, self.mesh)
+        if whole:
+            return self._scan_epoch(dataloader, stage, True)
         acc = []
         # closed on any exit, so the prefetch thread never outlives the epoch
         with contextlib.closing(self._prefetch(dataloader)) as batches:
@@ -378,6 +475,10 @@ class UncertaintyGuidedProgressiveTrainer:
 
     def validate_epoch(self, dataloader: Iterable, stage: int) -> tuple[float, ...]:
         """One validation epoch (eval-mode BN, the plain loss, no update)."""
+        token = id(dataloader)
+        dataloader, whole = scan_batches(dataloader, self.scan_epochs, self.mesh)
+        if whole:
+            return self._scan_epoch(dataloader, stage, False, token)
         with contextlib.closing(self._prefetch(dataloader)) as batches:
             return self._average([self._get_eval_step(stage, self._sharded(batch))(
                 batch, self.pos_weight) for batch in batches])
@@ -579,7 +680,8 @@ class UncertaintyGuidedProgressiveTrainer:
         prev_model = self._model(stage - 1) if stage > 1 else None
         optimizer = torch_rmsprop(model.parameters(),
                                   lr if lr is not None else self.stage_configs[stage]["lr"],
-                                  weight_decay=self.weight_decay)
+                                  weight_decay=self.weight_decay,
+                                  capturable=self._capturable)
         kw = dict(w_axis=w_axis, prev_model=prev_model, alpha=self.uncertainty_alpha,
                   dtype=dtype)
         step = make_spatial_train_step(model, optimizer, stage, mesh, accum_steps=accum_steps,
@@ -622,6 +724,7 @@ class UncertaintyGuidedProgressiveTrainer:
         self.optimizer, self._optimizer_stage = optimizer, stage
         for key in (stage, (stage, "mesh")):  # built on the optimizer replaced here
             self._train_steps.pop(key, None)
+        self._epochs.clear()
         if save_dir is not None and distributed.is_writer():
             save_checkpoint(Path(save_dir) / f"ug_pgunet_stage{stage}_native.pth",
                             model.state_dict(), optimizer_state_dict=optimizer.state_dict(),
@@ -667,8 +770,9 @@ class UncertaintyGuidedProgressiveTrainer:
         obj = read_checkpoint(save_path / f"ug_pgunet_stage{stage}_last.pth")
         self._model(stage).load_state_dict(obj["model_state_dict"], strict=True)
         if obj.get("optimizer_state_dict") is not None:
-            self.optimizer.load_state_dict(obj["optimizer_state_dict"])
+            load_optimizer_state(self.optimizer, obj["optimizer_state_dict"])
         distributed.broadcast_module(self._model(stage))
+        self._epochs.clear()  # a graph would read the replaced optimizer state
         if isinstance(obj.get("history"), dict):
             for k, v in obj["history"].items():
                 if k in self.history and isinstance(v, list):
@@ -679,6 +783,7 @@ class UncertaintyGuidedProgressiveTrainer:
         _, state_dict = load_checkpoint(checkpoint_path)
         self._model(stage).load_state_dict(state_dict, strict=True)
         distributed.broadcast_module(self._model(stage))
+        self._epochs.clear()
         self._print(f"Loaded weights for stage {stage} from {checkpoint_path}")
 
     def save_uncertainty_analysis(self, data_loader: Iterable, stage: int, save_path):

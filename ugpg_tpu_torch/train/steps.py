@@ -60,14 +60,28 @@ from every process, the classification loss is taken on every process's
 logits, and the gradients are averaged over the processes before the
 update.
 
-The JAX package's whole-epoch ``lax.scan`` programs have no counterpart in
-eager PyTorch; CUDA graphs would be theirs.
+Whole epochs (``make_*_epoch``, the trainers' ``scan_epochs``): the
+counterparts of the JAX package's ``lax.scan`` epoch programs.  An epoch's
+uniform prefix is cut into equal chunks of at most ``scan_chunk_bytes``
+(``plan_epoch_chunks``); each chunk is stacked (``stack_epoch``) and moved
+to the device once (``put_stacked``; on a mesh its batch axis split over
+``data``), every step's augmentation parameters and (Herlev) dropout masks
+are drawn before the chunk from the trainer's generator in the order the
+per-step path draws them (``draw_seg_epoch`` / ``draw_cls_epoch``, the
+counterpart of ``split_epoch_keys``), and the chunk's steps run the per-step
+path's own step function on each step's slice.  The metrics stay on the
+device, one row per step, and the trainers read them once an epoch
+(``run_scan_epoch``, the loop both trainers share).  On one card with no
+mesh a chunk's steps replay a CUDA graph of one step (``train/graphs.py``);
+on a mesh or the CPU they run eagerly.  Either way the update is the
+per-step path's, so the trajectories are the same.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -91,8 +105,9 @@ from ugpg_tpu_torch.ops.losses import (
 )
 from ugpg_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 from ugpg_tpu_torch.parallel import distributed
-from ugpg_tpu_torch.parallel.mesh import shard_batch
+from ugpg_tpu_torch.parallel.mesh import shard_batch, shard_stacked_batch
 from ugpg_tpu_torch.parallel.tensor import ReplicaLayout, replica_features, replica_forward
+from ugpg_tpu_torch.train.graphs import StepGraph, take
 from ugpg_tpu_torch.uncertainty import (
     apply_uncertainty_weighted_loss,
     binary_uncertainty,
@@ -102,7 +117,11 @@ from ugpg_tpu_torch.uncertainty import (
 )
 
 __all__ = ["make_seg_train_step", "make_seg_eval_step", "make_cls_train_step",
-           "make_cls_eval_step", "METRIC_KEYS", "CLS_METRIC_KEYS", "not_ported"]
+           "make_cls_eval_step", "METRIC_KEYS", "CLS_METRIC_KEYS", "not_ported",
+           "scan_usable", "plan_epoch_chunks", "stack_epoch", "put_stacked",
+           "draw_seg_epoch", "draw_cls_epoch", "make_seg_train_epoch", "make_seg_eval_epoch",
+           "make_cls_train_epoch", "make_cls_eval_epoch", "reduce_cls_rows", "scan_rows",
+           "scan_batches", "run_scan_epoch"]
 
 METRIC_KEYS = ("final_loss", "base_loss", "dice", "accuracy",
                "uncertainty_weight_mean", "uncertainty_weight_std")
@@ -410,7 +429,7 @@ def _cls_metrics(logits, labels, weights, class_weights) -> tuple[torch.Tensor, 
         "final_loss": final.detach(),
         "base_loss": base.detach(),
         "correct": (logits.detach().argmax(-1) == labels).sum().to(torch.int32),
-        "count": torch.tensor(labels.shape[0], dtype=torch.int32, device=logits.device),
+        "count": torch.full((), labels.shape[0], dtype=torch.int32, device=logits.device),
         "uncertainty_weight_mean": unc_mean,
         "uncertainty_weight_std": unc_std,
     }
@@ -451,8 +470,8 @@ def make_cls_train_step(
     mesh=None,
     shard_model: bool = True,
 ) -> Callable[..., Metrics]:
-    """``step(batch, class_weights, generator=None, aug=None, unc=None) ->
-    metrics``: one update of the classifier ``model`` through
+    """``step(batch, class_weights, generator=None, aug=None, unc=None,
+    drop=None) -> metrics``: one update of the classifier ``model`` through
     ``optimizer`` (which holds the parameters to train).  ``prev_model`` is
     the frozen previous stage (stage > 1).  ``generator`` (a
     ``torch.Generator`` on the model's device) draws the dropout masks and,
@@ -460,8 +479,12 @@ def make_cls_train_step(
     before them.  ``aug``: the augmentation parameters of the whole batch
     drawn before (``data/augment.py::sample_herlev_params`` per
     micro-batch, concatenated), sliced per micro-batch; the generator then
-    draws the dropout masks only.  ``augment=True`` with neither raises.
-    ``class_weights``: (K,) or None.
+    draws the dropout masks only.  ``drop``: the head's three dropout masks
+    of the whole batch drawn before (``model.head_masks`` per micro-batch,
+    after its augmentation, concatenated; None where a rate draws
+    nothing), sliced per micro-batch; with ``aug`` too the step draws
+    nothing.  ``augment=True`` with neither a generator nor ``aug``
+    raises.  ``class_weights``: (K,) or None.
 
     ``external_uncertainty=True`` (stage > 1): no ``prev_model``; ``unc`` is
     the previous stage's per-sample weights (B,) of the batch.
@@ -483,7 +506,7 @@ def make_cls_train_step(
     params = [p for p in model.parameters() if p.requires_grad]
     layout = _layout(mesh, shard_model)
 
-    def micro(images, labels, class_weights, generator, aug, unc) -> Metrics:
+    def micro(images, labels, class_weights, generator, aug, unc, drop) -> Metrics:
         if augment:
             b, _, h, w = images.shape
             images = apply_herlev_params(
@@ -493,19 +516,22 @@ def make_cls_train_step(
         if external:
             weights = unc
         model.train()
-        final, metrics = _cls_metrics(model(x, generator=generator), labels, weights,
-                                      class_weights)
+        logits = (model(x, generator=generator) if drop is None
+                  else model.head(model.features(x), True, None, drop))
+        final, metrics = _cls_metrics(logits, labels, weights, class_weights)
         final.backward()
         return metrics
 
-    def micro_mesh(images, labels, class_weights, generator, aug, unc) -> Metrics:
+    def micro_mesh(images, labels, class_weights, generator, aug, unc, drop) -> Metrics:
         b, _, h, w = images.shape
         world = distributed.world_size()  # draws for the global batch, this process's rows
         if augment and aug is None:
             aug = distributed.own_rows(sample_herlev_params(generator, b * world, h, w), b)
         # drawn after the augmentation, as the unsharded forward draws them
-        keep = [None if k is None else shard_batch(distributed.own_rows(k, b), layout.mesh)
-                for k in model.head_masks(b * world, generator, images.device)]
+        if drop is None:
+            drop = [None if k is None else distributed.own_rows(k, b)
+                    for k in model.head_masks(b * world, generator, images.device)]
+        keep = [None if k is None else shard_batch(k, layout.mesh) for k in drop]
         shards = shard_batch(images, layout.mesh)
         if augment:
             shards = [apply_herlev_params(img, part)
@@ -525,7 +551,7 @@ def make_cls_train_step(
     run = micro if layout is None else micro_mesh
 
     def step(batch, class_weights=None, generator: torch.Generator | None = None, aug=None,
-             unc=None) -> Metrics:
+             unc=None, drop=None) -> Metrics:
         device = params[0].device
         images, labels = _cls_batch(batch, device)
         n = images.shape[0]
@@ -542,11 +568,14 @@ def make_cls_train_step(
                 return None
             if isinstance(t, dict):
                 return {k: v[i * m:(i + 1) * m] for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return [part(v, i) for v in t]
             return t[i * m:(i + 1) * m]
 
         optimizer.zero_grad(set_to_none=True)
         parts = [run(images[i * m:(i + 1) * m], labels[i * m:(i + 1) * m], class_weights,
-                     generator, part(aug, i), part(unc, i)) for i in range(accum_steps)]
+                     generator, part(aug, i), part(unc, i), part(drop, i))
+                 for i in range(accum_steps)]
         if accum_steps > 1:
             for p in params:  # the micro-batches' gradients were summed
                 if p.grad is not None:
@@ -596,3 +625,303 @@ def make_cls_eval_step(
         return _cls_metrics(*_global_cls(logits, labels, weights), class_weights)[1]
 
     return step
+
+
+# ---------------------------------------------------------------- whole epochs
+def scan_usable(first_batch, mesh) -> bool:
+    """Whether an epoch may take the whole-epoch path, from its first batch
+    alone (before anything is stacked): one process, and on a mesh a batch
+    that splits over ``data``."""
+    if mesh is None:
+        return True
+    if distributed.world_size() > 1:
+        return False
+    return np.shape(first_batch[0])[0] % mesh.shape["data"] == 0
+
+
+def scan_batches(dataloader, scan_epochs: bool, mesh) -> tuple:
+    """``(batches, whole)``: whether a trainer's epoch takes the
+    whole-epoch path, decided on its first batch before anything is stacked
+    (``scan_usable``; over several processes a mesh's epochs run per step
+    and the loader is not listed), and its batches, a list once listed."""
+    if not scan_epochs or (mesh is not None and distributed.world_size() > 1):
+        return dataloader, False
+    batches = list(dataloader)
+    return batches, bool(batches) and scan_usable(batches[0], mesh)
+
+
+def _batch_nbytes(batch) -> int:
+    """Bytes of one batch as it is held (host arrays or tensors)."""
+    total = 0
+    for x in batch:
+        nb = getattr(x, "nbytes", None)
+        total += int(nb) if nb is not None else np.asarray(x).nbytes
+    return total
+
+
+def _uniform_prefix(batches: Sequence) -> int:
+    """How many leading batches have the first one's image shape."""
+    first = tuple(np.shape(batches[0][0]))
+    n = 1
+    while n < len(batches) and tuple(np.shape(batches[n][0])) == first:
+        n += 1
+    return n
+
+
+def plan_epoch_chunks(batches: Sequence, max_bytes: int | None):
+    """``(ranges, tail_start)``: the uniform prefix cut into equal chunks
+    ``(a, b)`` of at most ``max_bytes`` each (None: one chunk), and the
+    first batch of the tail, which runs per step (the prefix's remainder
+    and the ragged batches)."""
+    n = _uniform_prefix(batches)
+    if max_bytes is None:
+        return [(0, n)], n
+    s = max(1, int(max_bytes) // max(1, _batch_nbytes(batches[0])))
+    if s >= n:
+        return [(0, n)], n
+    n_chunks = n // s
+    return [(i * s, (i + 1) * s) for i in range(n_chunks)], n_chunks * s
+
+
+def stack_epoch(batches: Sequence, pin: bool = False):
+    """``(stacked, tail)``: the uniform prefix stacked to (S, B, ...) per
+    array (on the device for tensors, else in numpy) and the rest.
+    ``pin``: host arrays stack into page-locked tensors, which a card
+    copies from without holding the host."""
+    n = _uniform_prefix(batches)
+    prefix, tail = batches[:n], list(batches[n:])
+    if all(isinstance(x, torch.Tensor) for x in batches[0]):
+        stacked = tuple(torch.stack([b[i] for b in prefix]) for i in range(len(batches[0])))
+    elif pin:
+        stacked = []
+        for i in range(len(batches[0])):
+            parts = [torch.as_tensor(np.asarray(b[i])) for b in prefix]
+            out = torch.empty((len(parts), *parts[0].shape), dtype=parts[0].dtype,
+                              pin_memory=True)
+            stacked.append(torch.stack(parts, out=out))
+        stacked = tuple(stacked)
+    else:
+        stacked = tuple(np.stack([np.asarray(b[i]) for b in prefix])
+                        for i in range(len(batches[0])))
+    return stacked, tail
+
+
+def put_stacked(stacked, mesh=None, device: torch.device | None = None):
+    """A stacked chunk on the device, moved once: on ``mesh`` its axis 1
+    (the per-step batch) split over ``data`` (``shard_stacked_batch``),
+    else on ``device``."""
+    if mesh is not None:
+        return shard_stacked_batch(stacked, mesh)
+    return tuple(torch.as_tensor(x).to(device) for x in stacked)
+
+
+def micro_params(draw: Callable[[int], dict], batch: int, accum_steps: int) -> dict:
+    """One batch's parameters, drawn per micro-batch in order and
+    concatenated (what the step's own draws would give)."""
+    m = batch // accum_steps
+    parts = [draw(m) for _ in range(accum_steps)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def _stack_draws(draws: list):
+    if isinstance(draws[0], dict):
+        return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+    return [None if draws[0][j] is None else torch.stack([d[j] for d in draws])
+            for j in range(len(draws[0]))]
+
+
+def draw_seg_epoch(generator: torch.Generator, n_steps: int, batch: int, accum_steps: int = 1,
+                   aug_quantize: int = 0) -> dict:
+    """The MoNuSeg augmentation parameters of ``n_steps`` steps of
+    ``batch`` rows, stacked (S, B, ...): drawn from ``generator`` step by
+    step and micro-batch by micro-batch, as the per-step path draws them."""
+    return _stack_draws([micro_params(
+        lambda m: sample_monuseg_params(generator, m, quantize_angles=aug_quantize),
+        batch, accum_steps) for _ in range(n_steps)])
+
+
+def draw_cls_epoch(generator: torch.Generator, model, n_steps: int, batch: int, height: int,
+                   width: int, augment: bool, accum_steps: int = 1):
+    """``(aug, drop)`` of ``n_steps`` Herlev train steps, stacked: per step
+    and micro-batch the augmentation parameters (``augment``), then the
+    head's three dropout masks, drawn from ``generator`` in the order the
+    per-step path draws them.  ``aug`` is None without augmentation; a
+    mask slot is None where its rate draws nothing."""
+    m = batch // accum_steps
+    augs, drops = [], []
+    for _ in range(n_steps):
+        a, d = [], []
+        for _ in range(accum_steps):
+            if augment:
+                a.append(sample_herlev_params(generator, m, height, width))
+            d.append(model.head_masks(m, generator, generator.device))
+        if augment:
+            augs.append({k: torch.cat([p[k] for p in a]) for k in a[0]})
+        drops.append([None if d[0][j] is None else torch.cat([p[j] for p in d])
+                      for j in range(len(d[0]))])
+    return (_stack_draws(augs) if augment else None), _stack_draws(drops)
+
+
+def _row(m: Metrics, keys) -> torch.Tensor:
+    return torch.stack([m[k].float() for k in keys])
+
+
+def _epoch(body: Callable, model: nn.Module, mesh):
+    """``epoch(chunk, n, *consts) -> (n, K) rows``: ``body(inputs, *consts)``
+    on each of the chunk's n steps, replayed from a CUDA graph
+    (``epoch.graph``, a ``train/graphs.py::StepGraph``) where ``model`` is
+    on a card and there is no mesh, else eagerly (``epoch.graph`` None)."""
+    device = next(model.parameters()).device
+    graph = StepGraph(device) if device.type == "cuda" and mesh is None else None
+
+    def epoch(chunk: dict, n: int, *consts) -> torch.Tensor:
+        if graph is not None:
+            return graph.run(lambda x: body(x, *consts), chunk, n, key=consts)
+        return torch.stack([body(take(chunk, s), *consts) for s in range(n)])
+
+    epoch.graph = graph
+    return epoch
+
+
+def make_seg_train_epoch(model: nn.Module, optimizer: torch.optim.Optimizer, stage: int,
+                         resolution: int, prev_model: nn.Module | None = None,
+                         prev_resolution: int | None = None, alpha: float = 1.0,
+                         augment: bool = False, fused_loss: bool = False, accum_steps: int = 1,
+                         external_uncertainty: bool = False, aug_quantize: int = 0, mesh=None,
+                         shard_model: bool = True) -> Callable:
+    """Whole-epoch segmentation training (counterpart of the JAX package's
+    ``make_seg_train_epoch``): ``epoch(chunk, n, pos_weight) -> rows``,
+    the (n, 6) metrics of ``METRIC_KEYS`` of each of the chunk's n steps, on
+    the device.  ``chunk``: ``{"images": (S, B, H, W, C), "masks": (S, B,
+    H, W, 1)}`` from ``put_stacked``, with ``"aug"`` (``draw_seg_epoch``;
+    ``augment=True``) and ``"unc"`` (the stacked ``probs_up``;
+    ``external_uncertainty=True``).  Each step is ``make_seg_train_step``'s
+    with the same arguments.  On one card with no mesh the steps replay a
+    CUDA graph (``epoch.graph``)."""
+    step = make_seg_train_step(model, optimizer, stage, resolution, prev_model=prev_model,
+                               prev_resolution=prev_resolution, alpha=alpha, augment=augment,
+                               fused_loss=fused_loss, accum_steps=accum_steps,
+                               external_uncertainty=external_uncertainty,
+                               aug_quantize=aug_quantize, mesh=mesh, shard_model=shard_model)
+
+    def body(x, pos_weight):
+        return _row(step((x["images"], x["masks"]), pos_weight, aug=x.get("aug"),
+                         unc=x.get("unc")), METRIC_KEYS)
+
+    return _epoch(body, model, mesh)
+
+
+def make_seg_eval_epoch(model: nn.Module, stage: int, resolution: int,
+                        prev_model: nn.Module | None = None, prev_resolution: int | None = None,
+                        alpha: float = 1.0, mesh=None, shard_model: bool = True) -> Callable:
+    """Whole-epoch segmentation validation: ``epoch(chunk, n, pos_weight)
+    -> rows`` of ``make_seg_eval_step``'s metrics."""
+    step = make_seg_eval_step(model, stage, resolution, prev_model=prev_model,
+                              prev_resolution=prev_resolution, alpha=alpha, mesh=mesh,
+                              shard_model=shard_model)
+
+    def body(x, pos_weight):
+        return _row(step((x["images"], x["masks"]), pos_weight), METRIC_KEYS)
+
+    return _epoch(body, model, mesh)
+
+
+def make_cls_train_epoch(model: nn.Module, optimizer: torch.optim.Optimizer, stage: int,
+                         resolution: int, num_classes: int, prev_model: nn.Module | None = None,
+                         prev_resolution: int | None = None, alpha: float = 1.0,
+                         augment: bool = False, normalize: bool = False, accum_steps: int = 1,
+                         external_uncertainty: bool = False, mesh=None,
+                         shard_model: bool = True) -> Callable:
+    """Whole-epoch classification training: ``epoch(chunk, n,
+    class_weights) -> rows``, the (n, 6) metrics of ``CLS_METRIC_KEYS``
+    (``correct`` and ``count`` as floats; ``reduce_cls_rows`` sums them).
+    ``chunk``: ``{"images", "labels", "drop"}`` with ``"aug"``
+    (``draw_cls_epoch``) and ``"unc"`` (stacked weights (S, B);
+    ``external_uncertainty=True``)."""
+    step = make_cls_train_step(model, optimizer, stage, resolution, num_classes,
+                               prev_model=prev_model, prev_resolution=prev_resolution,
+                               alpha=alpha, augment=augment, normalize=normalize,
+                               accum_steps=accum_steps,
+                               external_uncertainty=external_uncertainty, mesh=mesh,
+                               shard_model=shard_model)
+
+    def body(x, class_weights):
+        return _row(step((x["images"], x["labels"]), class_weights, None, aug=x.get("aug"),
+                         unc=x.get("unc"), drop=x["drop"]), CLS_METRIC_KEYS)
+
+    return _epoch(body, model, mesh)
+
+
+def make_cls_eval_epoch(model: nn.Module, stage: int, resolution: int, num_classes: int,
+                        prev_model: nn.Module | None = None, prev_resolution: int | None = None,
+                        alpha: float = 1.0, normalize: bool = False, mesh=None,
+                        shard_model: bool = True) -> Callable:
+    """Whole-epoch classification validation: ``epoch(chunk, n,
+    class_weights) -> rows`` of ``make_cls_eval_step``'s metrics."""
+    step = make_cls_eval_step(model, stage, resolution, num_classes, prev_model=prev_model,
+                              prev_resolution=prev_resolution, alpha=alpha,
+                              normalize=normalize, mesh=mesh, shard_model=shard_model)
+
+    def body(x, class_weights):
+        return _row(step((x["images"], x["labels"]), class_weights), CLS_METRIC_KEYS)
+
+    return _epoch(body, model, mesh)
+
+
+def reduce_cls_rows(rows: np.ndarray) -> dict[str, Any]:
+    """The JAX package's ``_reduce_cls_epoch_metrics`` over (n, 6) rows:
+    ``correct`` and ``count`` summed, the others averaged."""
+    return {k: (rows[:, j].sum() if k in ("correct", "count") else rows[:, j].mean())
+            for j, k in enumerate(CLS_METRIC_KEYS)}
+
+
+def scan_rows(parts: list, tail_metrics: list, keys) -> torch.Tensor:
+    """An epoch's (n, K) metric rows in step order, on the device: the
+    chunks' rows and the tail steps' metrics (``keys``, as floats)."""
+    rows = list(parts) + [_row(m, keys)[None] for m in tail_metrics]
+    if not rows:
+        return torch.zeros((0, len(keys)))
+    return torch.cat([r.to(rows[0].device) for r in rows])
+
+
+def run_scan_epoch(batches: list, epoch: Callable, consts: tuple, tail_step: Callable,
+                   names: tuple, keys, max_bytes: int | None, mesh=None,
+                   device: torch.device | None = None, draw: Callable | None = None,
+                   cache: dict | None = None, cache_key=None, token=None) -> torch.Tensor:
+    """A trainer's train or validation epoch on the whole-epoch path (the
+    JAX trainers' ``_train_epoch_scan`` / ``_validate_epoch_scan``):
+    ``batches`` (a list whose first batch passed ``scan_usable``) cut by
+    ``plan_epoch_chunks(batches, max_bytes)``; each chunk stacked, named
+    ``names`` (the batch's arrays), given ``draw(n, stacked)``'s entries
+    (the steps' pre-drawn parameters) and run as ``epoch(chunk, n,
+    *consts)``; the tail as ``tail_step(batch) -> metrics``.  A chunk goes
+    to the device once: split over ``mesh`` (None: on ``device``), or, where
+    ``epoch`` replays a graph, as a page-locked host stack the graph copies
+    into its own buffers.  ``cache``: a validation epoch of one chunk and no
+    tail keeps its stacked device copy at ``cache[cache_key]`` for
+    ``token`` (the loader's identity) and this epoch's length, so a static
+    validation set is stacked and moved once.  Returns ``scan_rows``: the
+    (n, K) rows of every step, in order, on the device."""
+    ranges, tail_start = plan_epoch_chunks(batches, max_bytes)
+    graphs = epoch.graph is not None
+    keep = cache is not None and tail_start == len(batches) and len(ranges) == 1
+    parts = []
+    for a, b in ranges:
+        hit = cache.get(cache_key) if keep else None
+        if hit is not None and hit[0] == (token, len(batches)):
+            chunk = hit[1]
+        else:
+            stacked, _ = stack_epoch(batches[a:b], pin=graphs)
+            if not graphs:
+                placed = put_stacked(stacked, mesh, device)
+            elif keep:  # a device copy the graph's buffers are filled from
+                placed = tuple(torch.as_tensor(x).to(device) for x in stacked)
+            else:
+                placed = stacked
+            chunk = dict(zip(names, placed))
+            if draw is not None:
+                chunk.update(draw(b - a, stacked))
+            if keep:
+                cache[cache_key] = ((token, len(batches)), chunk)
+        parts.append(epoch(chunk, b - a, *consts))
+    return scan_rows(parts, [tail_step(batch) for batch in batches[tail_start:]], keys)

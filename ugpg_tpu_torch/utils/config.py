@@ -3,8 +3,8 @@
 Dataclasses for the two workloads with the reference's defaults,
 ``apply_overrides`` for command-line values, and JSON ``save_config`` /
 ``load_config``.  The JSON is the JAX package's: a file either package
-writes loads in the other.  ``mesh`` and ``checkpoint_backend`` are kept
-for that reason; the port's trainers refuse a mesh and write ``.pth``.
+writes loads in the other.  ``checkpoint_backend`` is kept for that
+reason; the port's trainers write ``.pth``.
 """
 
 from __future__ import annotations
@@ -39,8 +39,10 @@ class SegTrainConfig:
     use_aug_dataset: bool = True
     bf16: bool = False
     fused_loss: bool = False
-    # fuse each epoch's steps into one lax.scan program (one dispatch +
-    # one metric fetch per epoch); same trajectory as the per-step path
+    # whole-epoch chunks (one CUDA graph replay per step on a card, one
+    # metric read per epoch); same trajectory as the per-step path.  The
+    # chunk cap is the trainers' scan_chunk_bytes (1 << 30, as in the JAX
+    # package, whose config has no field for it either)
     scan_epochs: bool = False
     seed: int = 0
     # distribution + checkpoint backend (exposed as --mesh /
@@ -79,7 +81,7 @@ class HerlevTrainConfig:
     log_interval: int = 10
     augment: bool = True
     bf16: bool = False
-    scan_epochs: bool = False
+    scan_epochs: bool = False  # as SegTrainConfig's
     seed: int = 0
     mesh: str | None = None
     checkpoint_backend: str = "msgpack"
