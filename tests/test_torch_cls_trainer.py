@@ -186,10 +186,13 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
     axis_name, ported since, raises JAX's unbound-axis NameError at the
     first train step and validates.  The config's scan_epochs and
     scan_chunk_bytes, ported since, train stages 1-2 (scan_epochs through
-    the whole-epoch path).  Other backends still raise."""
+    the whole-epoch path).  checkpoint_backend="msgpack", ported since,
+    trains stages 1-2 into the JAX package's directories; orbax still
+    raises, with its reason."""
     config = kwargs.pop("config", {})
     if set(config) & {"tb_logdir", "remat", "pipeline_unc", "scan_epochs",
-                      "scan_chunk_bytes"} or set(kwargs) & {"mesh", "axis_name"}:
+                      "scan_chunk_bytes"} or set(kwargs) & {"mesh", "axis_name",
+                                                            "checkpoint_backend"}:
         config = {k: (str(tmp_path / v) if k == "tb_logdir" else v) for k, v in config.items()}
         if "mesh" in kwargs:
             kwargs["mesh"] = make_mesh(kwargs["mesh"], devices=["cpu"] * kwargs["mesh"])
@@ -214,6 +217,15 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
         assert (list(tr._epochs) == [(2, "train", False), (2, "eval", False)]) == (
             "scan_epochs" in config)
         assert tr.scan_chunk_bytes == config.get("scan_chunk_bytes", 1 << 30)
+        msgpack = "checkpoint_backend" in kwargs
+        for stage in (1, 2):
+            assert (tmp_path / "out" / f"herlev_stage{stage}_best.pth").is_file() != msgpack
+            assert (tmp_path / "out" / f"herlev_stage{stage}_best" / "variables.msgpack"
+                    ).is_file() == msgpack
+        if msgpack:
+            for backend in ("orbax", "orbax-async"):
+                with pytest.raises(NotImplementedError, match="not ported.*tensorstore"):
+                    HerlevTrainer(_config(), device="cpu", checkpoint_backend=backend)
         if "mesh" in kwargs:
             return
         mesh = make_mesh(2, devices=["cpu"] * 2)
@@ -223,9 +235,6 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
         else:
             HerlevTrainer(_config(**config), device="cpu", mesh=mesh)
         return
-    cfg = _config(**config)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        HerlevTrainer(cfg, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("flags", [
@@ -241,9 +250,10 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
     beside --pipeline_unc exits 2 with the JAX package's ValueError);
     under a coordinator --mesh joins the processes first
     (``init_process_group`` records its call here) and, without a process
-    count, exits 2 before any rendezvous."""
+    count, exits 2 before any rendezvous.  --checkpoint_backend msgpack,
+    ported since, reaches the trainer; orbax exits 2 with its reason."""
     if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh", "--scan_epochs",
-                    "--scan_chunk_mb"):
+                    "--scan_chunk_mb") or flags == ["--checkpoint_backend", "msgpack"]:
         from ugpg_tpu_torch.train import cls_trainer
 
         seen = {}
@@ -274,7 +284,8 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
             monkeypatch.delenv("WORLD_SIZE")
         else:
             key = flags[0][2:]
-            want = {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1, "scan_epochs": True}
+            want = {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1, "scan_epochs": True,
+                    "checkpoint_backend": "msgpack"}
             assert key == "scan_chunk_mb" or seen[key] == want[key]
             assert seen["scan_chunk_bytes"] == (512 << 20 if key == "scan_chunk_mb" else 1 << 30)
             with pytest.raises(KeyboardInterrupt):
@@ -292,6 +303,8 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
     err = capsys.readouterr().err
     missing = "no process count" if flags[0] == "--mesh" else "not ported"
     assert info.value.code == 2 and missing in err and flags[0] in err
+    if flags[0] == "--checkpoint_backend":
+        assert "tensorstore" in err
 
 
 def test_command_line_trains_stage_1(tmp_path, monkeypatch):

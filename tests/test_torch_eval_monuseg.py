@@ -252,9 +252,10 @@ def test_png_writer_and_gray_decoder_reject_what_they_do_not_take(tmp_path):
 
 
 def test_checkpoint_helpers(ckpts, tmp_path):
-    _, pth = ckpts[2]
+    jdir, pth = ckpts[2]
     assert has_checkpoint(pth) and not has_checkpoint(tmp_path / "missing.pth")
-    assert not has_checkpoint(tmp_path)  # a directory is not a .pth
+    assert not has_checkpoint(tmp_path)  # a directory without variables.msgpack is none
     assert sniff_stage(pth) == 2
+    assert has_checkpoint(jdir) and sniff_stage(jdir) == 2  # the JAX package's directory
     torch.save({"inc.conv.conv_op.0.weight": torch.zeros(1)}, tmp_path / "bare.pth")
     assert sniff_stage(tmp_path / "bare.pth") == 4 and sniff_stage(tmp_path / "bare.pth", 1) == 1

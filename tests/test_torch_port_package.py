@@ -70,7 +70,7 @@ def test_imports_with_jax_and_ugpg_tpu_blocked():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|PIL)\b"  # import statements
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|msgpack|orbax|PIL)\b"  # imports
     r"|\bugpg_tpu\.|\bugpg_tpu\s+import\b|import_module\(\s*['\"]ugpg_tpu['\".]",
     re.MULTILINE,
 )
@@ -87,6 +87,9 @@ def test_source_names_no_jax_and_no_ugpg_tpu_module():
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("    from PIL import Image")
     assert not _FORBIDDEN.search("from ugpg_tpu_torch.ops import resize")
+    assert _FORBIDDEN.search("import msgpack")
+    assert _FORBIDDEN.search("  import orbax.checkpoint as ocp")
+    assert not _FORBIDDEN.search("from ugpg_tpu_torch.io.msgpack import to_bytes")
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
@@ -149,9 +152,11 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
     axis_name raises JAX's unbound-axis NameError at the first train step
     and validates.  scan_epochs and scan_chunk_bytes, ported since, train
     two stages (scan_epochs through the whole-epoch path, the cap alone
-    through the per-step path).  Other backends still raise."""
+    through the per-step path).  checkpoint_backend="msgpack", ported
+    since, trains two stages into the JAX package's directories; orbax
+    still raises, with its reason."""
     if set(kwargs) & {"tb_logdir", "remat", "pipeline_unc", "mesh", "shard_model",
-                      "axis_name", "scan_epochs", "scan_chunk_bytes"}:
+                      "axis_name", "scan_epochs", "scan_chunk_bytes", "checkpoint_backend"}:
         monkeypatch.setitem(sys.modules, "tensorflow", None)
         kw = {k: (tmp_path / v if k == "tb_logdir" else v) for k, v in kwargs.items()}
         if "mesh" in kw:
@@ -176,6 +181,16 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
         assert (list(tr._epochs) == [(2, "train", False), (2, "eval", False)]) == (
             "scan_epochs" in kw)
         assert tr.scan_chunk_bytes == kw.get("scan_chunk_bytes", 1 << 30)
+        msgpack = "checkpoint_backend" in kw
+        for stage in (1, 2):
+            assert (tmp_path / "out" / f"ug_pgunet_stage{stage}_best.pth").is_file() != msgpack
+            assert (tmp_path / "out" / f"ug_pgunet_stage{stage}_best" / "variables.msgpack"
+                    ).is_file() == msgpack
+        if msgpack:
+            for backend in ("orbax", "orbax-async"):
+                with pytest.raises(NotImplementedError, match="not ported.*tensorstore"):
+                    UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False,
+                                                        checkpoint_backend=backend)
         if "mesh" in kw or "shard_model" in kw:
             return
         mesh = make_mesh(2, devices=["cpu"] * 2)
@@ -185,8 +200,6 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
         else:
             UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, mesh=mesh, **kw)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False, **kwargs)
 
 
 @pytest.mark.parametrize("call", ["finetune_native"])
@@ -334,7 +347,9 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
     before any), test evaluates on its own mesh without joining, as the JAX
     command does, and serve exits 2 naming --mesh and the JAX fetch that
     refuses it; --native_finetune fine-tunes the last stage over the mesh
-    (native size, the W axis) and without --mesh exits with JAX's message."""
+    (native size, the W axis) and without --mesh exits with JAX's message.
+    --checkpoint_backend msgpack, ported since, reaches the trainer;
+    orbax-async exits 2 naming the flag and the reason."""
     import torch.distributed as dist
 
     joined = []
@@ -344,7 +359,8 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
                 "--device", "cpu", *flags]
         main = train_monuseg.main
         if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh",
-                        "--native_finetune", "--scan_epochs", "--scan_chunk_mb"):
+                        "--native_finetune", "--scan_epochs", "--scan_chunk_mb") or \
+                flags == ["--checkpoint_backend", "msgpack"]:
             real = aug_trainer.AugMoNuSegTrainer
             monkeypatch.setattr(aug_trainer, "AugMoNuSegTrainer", _StubTrainer)
             if flags[0] == "--native_finetune":
@@ -371,7 +387,8 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
                 key, want = {"--tb_logdir": ("tb_logdir", "tb"), "--remat": ("remat", True),
                              "--pipeline_unc": ("pipeline_unc", 1),
                              "--scan_epochs": ("scan_epochs", True),
-                             "--scan_chunk_mb": ("scan_chunk_bytes", 512 << 20)}[flags[0]]
+                             "--scan_chunk_mb": ("scan_chunk_bytes", 512 << 20),
+                             "--checkpoint_backend": ("checkpoint_backend", "msgpack")}[flags[0]]
                 assert main(argv).kwargs[key] == want
                 mesh_kwargs = main(argv + ["--mesh", "2"]).kwargs
                 assert mesh_kwargs["mesh"].shape == {"data": 2, "model": 1}
@@ -414,6 +431,8 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
                           "serve": "ugpg_tpu/eval/serving.py:473"}.get(command)}.get(
         flags[0], "not ported")
     assert info.value.code == 2 and missing in err and flags[0] in err
+    if flags[0] == "--checkpoint_backend":
+        assert "tensorstore" in err
     assert joined == []
 
 

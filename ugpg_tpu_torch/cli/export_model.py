@@ -29,7 +29,8 @@ import sys
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Export a checkpoint as a torch.export serving "
                                             "artifact (PyTorch/CUDA)")
-    p.add_argument("--model", required=True, help="checkpoint (.pth)")
+    p.add_argument("--model", required=True, help="checkpoint (.pth or a msgpack checkpoint "
+                                             "directory)")
     p.add_argument("--out", required=True, help="artifact output directory")
     p.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 64])
     p.add_argument("--task", choices=["segmentation", "classification"], default="segmentation")

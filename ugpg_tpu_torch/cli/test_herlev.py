@@ -21,7 +21,8 @@ import sys
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Evaluate a trained Herlev classification model (PyTorch/CUDA)")
-    p.add_argument("--model", required=True, help="checkpoint (.pth)")
+    p.add_argument("--model", required=True, help="checkpoint (.pth or a msgpack checkpoint "
+                                             "directory)")
     p.add_argument("--data_dir", required=True, help="Herlev dataset root")
     p.add_argument("--split", default="test")
     p.add_argument("--batch_size", type=int, default=16)

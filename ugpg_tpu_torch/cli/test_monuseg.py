@@ -44,7 +44,8 @@ def resolve_dataset_path(data_arg: str | None) -> str | None:
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate / run inference with a trained "
                                 "UG-PG-UNet on MoNuSeg (PyTorch/CUDA)")
-    p.add_argument("--model", required=True, help="checkpoint (.pth)")
+    p.add_argument("--model", required=True, help="checkpoint (.pth or a msgpack checkpoint "
+                                             "directory)")
     p.add_argument("--data", type=str, default=None, help="MoNuSeg root")
     p.add_argument("--split", type=str, default="val")
     p.add_argument("--num_images", type=int, default=3, help="random images to visualize")

@@ -7,19 +7,21 @@ Takes the JAX command's flags, plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain PyTorch path).  One dataset per stage at that stage's
 resolution, the train loader shuffled with seed 42 + stage; class weights
 from the stage-1 training split.  Checkpoints are reference-format
-``.pth`` files (``--checkpoint_backend pth``, the only backend, and so the
-default; the JAX command defaults to msgpack).  ``--tb_logdir DIR``,
+``.pth`` files (``--checkpoint_backend pth``, the port's default) or the
+JAX package's msgpack directories (``--checkpoint_backend msgpack``, the
+JAX command's default); ``--resume`` reads either.  ``--tb_logdir DIR``,
 ``--remat`` and ``--pipeline_unc N`` as in ``train_monuseg`` (one card and
 N = 1 exits 2 with the JAX package's message); with ``--pipeline_unc`` the
 train loaders drop the ragged final batch, as the JAX command's do.
 ``--mesh DATA[,MODEL]`` trains data-parallel (and column-parallel) over a
 mesh, as ``train_monuseg``'s does, across processes under a coordinator.
 ``--scan_epochs`` and ``--scan_chunk_mb`` (default 1024, 0 = unbounded) as
-in ``train_monuseg``.  A ``--checkpoint_backend`` other than ``pth`` is not
-to be ported: it exits with status 2 and a "not ported" message.
+in ``train_monuseg``.  ``--checkpoint_backend orbax`` or ``orbax-async`` is
+not to be ported: it exits with status 2, a "not ported" message and the
+reason.
 
 SIGTERM stops the run at the end of the current epoch with a
-``herlev_stage{S}_last.pth`` written, and ``cli`` exits 75 (EX_TEMPFAIL);
+``herlev_stage{S}_last`` written, and ``cli`` exits 75 (EX_TEMPFAIL);
 rerun with ``--resume`` to continue.
 """
 
@@ -51,14 +53,15 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="gradient accumulation: each batch (size K*m) as K "
                         "micro-batches with one optimizer update")
     p.add_argument("--resume", action="store_true",
-                   help="resume mid-stage from the herlev_stage{S}_last.pth a "
-                        "preempted run wrote in output_dir")
+                   help="resume mid-stage from the herlev_stage{S}_last (.pth or msgpack "
+                        "directory) a preempted run wrote in output_dir")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the plain PyTorch path)")
     p.add_argument("--checkpoint_backend", default="pth",
                    choices=["pth", "msgpack", "orbax", "orbax-async"],
-                   help="checkpoint format: pth, the only one ported (the JAX "
-                        "command's default is msgpack)")
+                   help="checkpoint format: pth (default; the reference's files) or msgpack "
+                        "(the JAX package's directories, the JAX command's default); orbax "
+                        "is not ported")
     p.add_argument("--tb_logdir", type=str, default=None,
                    help="write per-epoch TensorBoard scalars to this directory")
     p.add_argument("--remat", action="store_true",
@@ -83,13 +86,11 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
-    never = {  # ROADMAP.md, "Not to port"
-        f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
-    }
-    missing = [flag for flag, on in never.items() if on]
-    if missing:
-        parser.error(f"not ported to ugpg_tpu_torch: {', '.join(missing)} "
-                     '(ROADMAP.md, "Not to port")')
+    from ugpg_tpu_torch.io.checkpoint import ORBAX_REASON
+
+    if args.checkpoint_backend.startswith("orbax"):
+        parser.error(f"not ported to ugpg_tpu_torch: --checkpoint_backend "
+                     f"{args.checkpoint_backend}: {ORBAX_REASON}")
 
 
 def main(argv=None):
@@ -156,11 +157,12 @@ def main(argv=None):
 
     try:
         trainer = HerlevTrainer(config, dtype=torch.bfloat16 if args.bf16 else None,
-                                mesh=mesh, device=args.device)
+                                mesh=mesh, checkpoint_backend=args.checkpoint_backend,
+                                device=args.device)
     except ValueError as e:  # e.g. --pipeline_unc leaving no train device, or beside --mesh
         parser.error(str(e))
     try:
-        # SIGTERM -> herlev_stage{S}_last.pth and an early return; cli()
+        # SIGTERM -> herlev_stage{S}_last and an early return; cli()
         # then exits 75 so that a scheduler requeues
         with PreemptionGuard() as guard:
             trainer.train_progressive(train_loaders, val_loaders, config["output_dir"],

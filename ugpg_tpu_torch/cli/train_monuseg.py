@@ -5,7 +5,9 @@
 Takes the JAX command's flags, plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain PyTorch path), where the JAX package reads
 ``JAX_PLATFORMS``.  Checkpoints are reference-format ``.pth`` files
-(``--checkpoint_backend pth``, the only backend).  ``--tb_logdir DIR``
+(``--checkpoint_backend pth``, the port's default) or the JAX package's
+msgpack directories (``--checkpoint_backend msgpack``, the JAX command's
+default; ``io/checkpoint.py``).  ``--tb_logdir DIR``
 writes per-epoch TensorBoard scalars, ``--remat`` recomputes every
 DoubleConv in the backward, ``--pipeline_unc N`` runs the frozen previous
 stage on the last N devices (``parallel/pipeline.py``; on ``cuda`` the
@@ -20,19 +22,21 @@ mesh: ``parallel/distributed.py``).  ``--native_finetune EPOCHS``
 then fine-tunes the last requested stage at native resolution
 (``--native_size``, default 1000 px), spatially sharded over the mesh (H
 over ``data``; ``--native_w_axis``: W over ``model`` too), writing
-``ug_pgunet_stage{S}_native.pth``; it requires ``--mesh`` and is skipped
+``ug_pgunet_stage{S}_native``; it requires ``--mesh`` and is skipped
 after an interrupt.  ``--scan_epochs`` runs every epoch as whole chunks of
 at most ``--scan_chunk_mb`` MiB (default 1024, 0 = unbounded), stacked and
 moved to the device once, the steps replayed from a CUDA graph on one card
-and run eagerly on the CPU or a mesh (the trainer's ``scan_epochs``).  A
-``--checkpoint_backend`` other than ``pth`` is not to be ported: it exits
-with status 2 and a "not ported" message; no flag is ignored.
+and run eagerly on the CPU or a mesh (the trainer's ``scan_epochs``).
+``--checkpoint_backend orbax`` or ``orbax-async`` is not to be ported: it
+exits with status 2, a "not ported" message and the reason; no flag is
+ignored.
 
-``--resume`` loads every requested stage that has a ``_best.pth`` and no
-``_last.pth``, and ``train_progressive`` continues mid-stage from the
-latest ``_last.pth``.  SIGTERM stops the run at the end of the current
-epoch with a ``_last.pth`` written, and ``cli`` exits 75 (EX_TEMPFAIL), so
-that a scheduler requeues it with ``--resume``.
+``--resume`` loads every requested stage that has a ``_best`` and no
+``_last``, and ``train_progressive`` continues mid-stage from the latest
+``_last``, each a ``.pth`` or a directory whatever ``--checkpoint_backend``
+says (so a JAX run's output directory resumes here).  SIGTERM stops the
+run at the end of the current epoch with a ``_last`` written, and ``cli``
+exits 75 (EX_TEMPFAIL), so that a scheduler requeues it with ``--resume``.
 """
 
 from __future__ import annotations
@@ -72,9 +76,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--uncertainty_alpha", type=float, default=1.0)
     p.add_argument("--resume", action="store_true",
                    help="resume from the stage checkpoints in output_dir "
-                        "(mid-stage when _last.pth checkpoints exist)")
+                        "(mid-stage when _last checkpoints exist; .pth files or msgpack "
+                        "directories)")
     p.add_argument("--checkpoint_every", type=int, default=5,
-                   help="write a rolling _last.pth checkpoint every N epochs")
+                   help="write a rolling _last checkpoint every N epochs")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute over float32 parameters")
     p.add_argument("--plain", action="store_true",
@@ -83,7 +88,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; cpu runs the plain PyTorch path)")
     p.add_argument("--checkpoint_backend", default="pth",
                    choices=["pth", "msgpack", "orbax", "orbax-async"],
-                   help="checkpoint format: pth, the only one ported")
+                   help="checkpoint format: pth (default; the reference's files) or msgpack "
+                        "(the JAX package's directories); orbax is not ported")
     p.add_argument("--accum_steps", type=int, default=1, metavar="K",
                    help="gradient accumulation: each batch (size K*m) as K "
                         "micro-batches with one optimizer update")
@@ -121,13 +127,11 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
-    never = {  # ROADMAP.md, "Not to port"
-        f"--checkpoint_backend {args.checkpoint_backend}": args.checkpoint_backend != "pth",
-    }
-    missing = [flag for flag, on in never.items() if on]
-    if missing:
-        parser.error(f"not ported to ugpg_tpu_torch: {', '.join(missing)} "
-                     '(ROADMAP.md, "Not to port")')
+    from ugpg_tpu_torch.io.checkpoint import ORBAX_REASON
+
+    if args.checkpoint_backend.startswith("orbax"):
+        parser.error(f"not ported to ugpg_tpu_torch: --checkpoint_backend "
+                     f"{args.checkpoint_backend}: {ORBAX_REASON}")
 
 
 def main(argv=None):
@@ -146,7 +150,7 @@ def main(argv=None):
 
     from ugpg_tpu_torch.cli import parse_mesh
     from ugpg_tpu_torch.data.monuseg import MoNuSegDataset, create_train_val_split
-    from ugpg_tpu_torch.io.checkpoint import has_checkpoint
+    from ugpg_tpu_torch.io.checkpoint import find_checkpoint
     from ugpg_tpu_torch.parallel import distributed
     from ugpg_tpu_torch.train.aug_trainer import AugMoNuSegTrainer, compute_pos_weight
     from ugpg_tpu_torch.utils.preemption import PreemptionGuard
@@ -162,6 +166,7 @@ def main(argv=None):
                                     remat=args.remat, pipeline_unc=args.pipeline_unc,
                                     scan_epochs=args.scan_epochs,
                                     scan_chunk_bytes=(args.scan_chunk_mb << 20) or None,
+                                    checkpoint_backend=args.checkpoint_backend,
                                     mesh=mesh, device=args.device)
     except ValueError as e:  # e.g. --pipeline_unc leaving no train device, or beside --mesh
         parser.error(str(e))
@@ -190,9 +195,9 @@ def main(argv=None):
         # train_progressive continues that stage mid-way
         out = Path(config["output_dir"])
         for stage in list(stages):
-            best = out / f"ug_pgunet_stage{stage}_best.pth"
-            last = out / f"ug_pgunet_stage{stage}_last.pth"
-            if has_checkpoint(best) and not has_checkpoint(last):
+            best = find_checkpoint(out, f"ug_pgunet_stage{stage}_best")
+            last = find_checkpoint(out, f"ug_pgunet_stage{stage}_last")
+            if best is not None and last is None:
                 trainer.load_stage_weights(stage, best)
                 stages.remove(stage)
                 print(f"Resume: stage {stage} restored from {best}")

@@ -1,7 +1,8 @@
 """MoNuSeg evaluation and inference (counterpart of ``ugpg_tpu/eval/monuseg.py``).
 
-* ``MoNuSegEvaluator``: reads a ``.pth`` (its stage from the container, a
-  bare state dict is stage 4) and builds the stage's model as ``Predictor``
+* ``MoNuSegEvaluator``: reads a ``.pth`` or a msgpack checkpoint directory
+  (``io/checkpoint.py``; its stage from the container, a bare state dict
+  is stage 4) and builds the stage's model as ``Predictor``
   does: BN folded, the kernels' weight layouts packed once.  One forward:
   resize to the stage resolution -> model -> sigmoid -> 0.5 threshold, and
   the uncertainty map from the logits (``uncertainty_from_logits``, the

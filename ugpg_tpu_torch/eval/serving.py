@@ -169,7 +169,9 @@ class Predictor(_BucketRouter):
         device: str | torch.device | None = None,
         calibration_batches: Iterable[np.ndarray] | None = None,
     ):
-        """``checkpoint``: a reference-format ``.pth`` (``ugpg-export-torch``).
+        """``checkpoint``: a reference-format ``.pth``, or a msgpack
+        checkpoint directory that the JAX package or the port wrote
+        (``io/checkpoint.py``).
         ``dtype``: compute dtype of the network body (heads stay float32);
         None is the checkpoint's float32, as the JAX package's command
         lines ask for it.

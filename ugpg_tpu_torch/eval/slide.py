@@ -140,7 +140,8 @@ class _SlideBase(_BucketRouter):
 
 
 class SlidePredictor(_SlideBase):
-    """Native-resolution segmentation predictor over a ``.pth`` checkpoint.
+    """Native-resolution segmentation predictor over a checkpoint (a ``.pth``
+    or a msgpack directory).
 
     Example:
         p = SlidePredictor("out/ug_pgunet_stage4_best.pth")

@@ -1,36 +1,66 @@
-"""Reference-format ``.pth`` checkpoints.
+"""Checkpoints: the reference's ``.pth`` files and the JAX package's
+flax-msgpack directories, read and written both.
 
 The container is the reference trainer's schema ``{stage, epoch,
 model_state_dict, optimizer_state_dict, val_dice, train_dice,
 uncertainty_alpha, history}``; the reader takes its stage from it, and a
-bare state dict is stage 4, as the reference's loader assumes.  The
-JAX package reads the same file (its ``io/torch_import.py``).  JAX
-msgpack/orbax checkpoint directories are not read here:
-``ugpg-export-torch`` converts them to ``.pth``.
+bare state dict is stage 4, as the reference's loader assumes.
 
-A file is written beside its name and renamed into place, so a checkpoint
-that exists is whole: ``has_checkpoint`` is the existence of the file (the
-JAX package's check that the data of a directory is there).
+* ``backend="pth"`` (the default, the reference repo's format): one
+  ``torch.save`` file.  The JAX package reads it too (its
+  ``io/torch_import.py``).
+* ``backend="msgpack"``: the JAX package's default checkpoint
+  (``ugpg_tpu/io/checkpoint.py``), a directory holding
+  ``variables.msgpack`` (``{'params', 'batch_stats'}`` in flax's layout
+  and names, ``io/from_jax.py``), ``opt_state.msgpack`` (the optax state
+  tree, ``train/optim.py``) and ``metadata.json`` (every other container
+  key, made JSON-plain; the exact learning rate beside the tree's float32
+  as ``lr``).  The bytes are flax's for the same tree (``io/msgpack.py``),
+  so the JAX package loads the directory with its own templates and its
+  trainers resume from it; ``num_batches_tracked``, which flax lacks,
+  reads back as 0.  The readers (``read_checkpoint``, ``load_checkpoint``,
+  ``has_checkpoint``, ``sniff_stage``) take either form, by the kind of
+  path.  An orbax directory (``variables_orbax/``) raises: see
+  ``ORBAX_REASON``.
+
+Each file is written beside its name and renamed into place, so a ``.pth``
+that exists is whole; a directory's ``metadata.json`` is removed first and
+written last, so a directory that has it is whole (the JAX trainers'
+resume test).
 
 The reference's Herlev classifier holds a whole ``PGUNet{stage}``, so its
 ``.pth`` carries the decoder's keys too, which its forward never reads.
 ``full_classifier_state_dict`` writes that key set, the missing blocks
 filled from a seeded fresh initialisation of the segmentation stage (the
 JAX export does the same); ``classifier_state_dict`` reads it back,
-dropping only the ``unet.`` keys of blocks the stage's encoder lacks.
+dropping only the ``unet.`` keys of blocks the stage's encoder lacks.  A
+directory holds JAX's key set (the encoder only), and reads back filled as
+a ``.pth``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
+import numpy as np
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint", "read_checkpoint", "container_stage",
-           "has_checkpoint", "sniff_stage", "classifier_decoder_fill",
+__all__ = ["BACKENDS", "ORBAX_REASON", "save_checkpoint", "load_checkpoint",
+           "read_checkpoint", "container_stage", "has_checkpoint", "sniff_stage",
+           "latest_checkpoint", "checkpoint_backend_of", "checkpoint_metadata",
+           "checkpoint_path", "find_checkpoint", "classifier_decoder_fill",
            "full_classifier_state_dict", "classifier_state_dict"]
+
+BACKENDS = ("pth", "msgpack")
+ORBAX_REASON = (
+    "orbax stores its arrays in tensorstore's format, which needs the orbax and tensorstore "
+    "packages, and the port imports torch, numpy and the standard library only; save with the "
+    "JAX package's backend='msgpack' instead (ROADMAP.md, \"Not to port\")")
+_VARS, _OPT, _META, _ORBAX = "variables.msgpack", "opt_state.msgpack", "metadata.json", \
+    "variables_orbax"
 
 
 def _to_cpu(obj):
@@ -44,14 +74,47 @@ def _to_cpu(obj):
     return obj
 
 
+def _write(path: Path, data: bytes) -> None:
+    """``path`` whole or not at all (written beside it, then renamed)."""
+    tmp = path.with_name(path.name + f".{os.getpid()}.tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)
+
+
+def _json_plain(obj):
+    """Metadata as JSON takes it: tensors and arrays as numbers or lists."""
+    if isinstance(obj, torch.Tensor):
+        obj = obj.detach().cpu().numpy()
+    if isinstance(obj, (np.ndarray, np.generic)):
+        return obj.tolist()
+    if isinstance(obj, Mapping):
+        return {str(k): _json_plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_plain(v) for v in obj]
+    return obj
+
+
+def _is_classifier(state_dict: Mapping[str, Any]) -> bool:
+    return any(k.startswith("classifier.") for k in state_dict)
+
+
 def save_checkpoint(path: str | os.PathLike, state_dict: Mapping[str, torch.Tensor],
+                    backend: str = "pth", param_names: Sequence[str] | None = None,
                     **metadata: Any) -> Path:
     """Write ``{**metadata, 'model_state_dict': state_dict}`` as ``path``
     (tensors moved to the CPU).  ``metadata`` carries the schema's other
     keys: ``stage``, ``epoch``, ``optimizer_state_dict``, ``val_dice``,
-    ``train_dice``, ``uncertainty_alpha``, ``history``.  The file appears
-    whole or not at all (written beside it, then renamed)."""
+    ``train_dice``, ``uncertainty_alpha``, ``history``.
+
+    ``backend="pth"``: one file, which appears whole or not at all.
+    ``backend="msgpack"``: the JAX package's directory (see the module's
+    docstring); a torch ``optimizer_state_dict`` is converted to the optax
+    tree with ``param_names``, the state-dict names of the optimizer's
+    parameters in its order (``train.optim.param_names``); an optax tree is
+    written as it is."""
     path = Path(path)
+    if checkpoint_backend_of(backend) == "msgpack":
+        return _save_directory(path, state_dict, param_names, metadata)
     path.parent.mkdir(parents=True, exist_ok=True)
     obj = _to_cpu({**metadata, "model_state_dict": dict(state_dict)})
     tmp = path.with_name(path.name + f".{os.getpid()}.tmp")
@@ -60,9 +123,70 @@ def save_checkpoint(path: str | os.PathLike, state_dict: Mapping[str, torch.Tens
     return path
 
 
+def checkpoint_backend_of(backend: str) -> str:
+    """``backend`` if the port writes it; orbax raises
+    ``NotImplementedError`` with ``ORBAX_REASON``, anything else
+    ``ValueError``."""
+    if backend in BACKENDS:
+        return backend
+    if backend in ("orbax", "orbax-async"):
+        raise NotImplementedError(f"checkpoint_backend={backend!r} is not ported to "
+                                  f"ugpg_tpu_torch: {ORBAX_REASON}")
+    raise ValueError(f"unknown checkpoint backend: {backend!r}")
+
+
+def _save_directory(path: Path, state_dict, param_names, metadata: dict) -> Path:
+    from ugpg_tpu_torch.io.from_jax import jax_variables_from_state_dict
+    from ugpg_tpu_torch.io.msgpack import to_bytes
+    from ugpg_tpu_torch.train.optim import is_jax_optimizer_state, optimizer_state_to_jax
+
+    metadata = dict(metadata)
+    if _is_classifier(state_dict):
+        state_dict = classifier_state_dict(state_dict, container_stage(metadata))
+    variables = jax_variables_from_state_dict(state_dict)
+    opt = metadata.pop("optimizer_state_dict", None)
+    if opt is not None and not is_jax_optimizer_state(opt):
+        if param_names is None:
+            raise ValueError("a msgpack checkpoint of a torch optimizer state needs "
+                             "param_names")
+        metadata["lr"] = float(opt["param_groups"][0]["lr"])
+        opt = optimizer_state_to_jax(opt, param_names, variables["params"])
+    path.mkdir(parents=True, exist_ok=True)
+    (path / _META).unlink(missing_ok=True)  # the directory is whole again once it is back
+    _write(path / _VARS, to_bytes(variables))
+    if opt is not None:
+        _write(path / _OPT, to_bytes(opt))
+    else:
+        (path / _OPT).unlink(missing_ok=True)
+    _write(path / _META, json.dumps(_json_plain(metadata), indent=2).encode())
+    return path
+
+
+def _read_directory(path: Path) -> dict[str, Any]:
+    from ugpg_tpu_torch.io.from_jax import state_dict_from_jax
+    from ugpg_tpu_torch.io.msgpack import msgpack_restore
+
+    if not (path / _VARS).is_file():
+        if (path / _ORBAX).exists():
+            raise NotImplementedError(f"{path}: {ORBAX_REASON}")
+        raise FileNotFoundError(f"{path}: no {_VARS}, not a checkpoint directory")
+    obj = {**checkpoint_metadata(path), "model_state_dict": state_dict_from_jax(
+        msgpack_restore((path / _VARS).read_bytes()))}
+    if _is_classifier(obj["model_state_dict"]):
+        obj["model_state_dict"] = full_classifier_state_dict(obj["model_state_dict"],
+                                                             container_stage(obj))
+    if (path / _OPT).is_file():
+        obj["optimizer_state_dict"] = msgpack_restore((path / _OPT).read_bytes())
+    return obj
+
+
 def read_checkpoint(path: str | os.PathLike) -> dict[str, Any]:
     """The whole container as a dict (a bare state dict comes back as
-    ``{'model_state_dict': ...}``), tensors on the CPU."""
+    ``{'model_state_dict': ...}``), tensors on the CPU.  ``path`` is a
+    ``.pth`` file or a msgpack directory; a directory's optimizer state is
+    the optax tree (``train.optim.load_optimizer_state`` takes it)."""
+    if Path(path).is_dir():
+        return _read_directory(Path(path))
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(obj, dict):
         raise ValueError(f"{path}: expected a state dict or a checkpoint container")
@@ -84,13 +208,66 @@ def load_checkpoint(path: str | os.PathLike) -> tuple[int, dict[str, torch.Tenso
 
 
 def has_checkpoint(path: str | os.PathLike) -> bool:
-    """True if ``path`` is a checkpoint file."""
-    return Path(path).is_file()
+    """True if ``path`` is a checkpoint file or a directory with
+    ``variables.msgpack`` (the JAX package's test)."""
+    path = Path(path)
+    return path.is_file() or (path / _VARS).is_file()
 
 
 def sniff_stage(path: str | os.PathLike, default: int = 4) -> int:
-    """The stage of the checkpoint file ``path`` (see ``container_stage``)."""
-    return container_stage(read_checkpoint(path), default)
+    """The stage of the checkpoint ``path`` (see ``container_stage``); a
+    directory's from its ``metadata.json`` alone."""
+    return container_stage(checkpoint_metadata(path), default)
+
+
+def checkpoint_path(directory: str | os.PathLike, name: str, backend: str) -> Path:
+    """Where a trainer writes checkpoint ``name`` (``ug_pgunet_stage4_best``):
+    ``name.pth`` or the directory ``name``."""
+    return Path(directory) / (f"{name}.pth" if backend == "pth" else name)
+
+
+def checkpoint_metadata(path: str | os.PathLike) -> dict[str, Any]:
+    """The container without its weights and optimizer state; a
+    directory's from its ``metadata.json`` alone."""
+    path = Path(path)
+    if path.is_dir():
+        meta = path / _META
+        return json.loads(meta.read_text()) if meta.is_file() else {}
+    return {k: v for k, v in read_checkpoint(path).items()
+            if k not in ("model_state_dict", "optimizer_state_dict")}
+
+
+def find_checkpoint(directory: str | os.PathLike, name: str) -> Path | None:
+    """The whole checkpoint ``name`` in ``directory`` in either form:
+    ``name.pth``, or the directory ``name`` with its ``metadata.json``.
+    Where both are there, the later epoch's (then the later written); an
+    orbax directory raises (``ORBAX_REASON``)."""
+    pth, folder = checkpoint_path(directory, name, "pth"), checkpoint_path(directory, name,
+                                                                            "msgpack")
+    if folder.is_dir() and not (folder / _VARS).is_file() and (folder / _ORBAX).exists():
+        raise NotImplementedError(f"{folder}: {ORBAX_REASON}")
+    found = [p for p in (pth, folder)
+             if p.is_file() or (has_checkpoint(p) and (p / _META).is_file())]
+    if len(found) < 2:
+        return found[0] if found else None
+
+    def written(p: Path) -> tuple[int, int]:
+        stamp = p if p.is_file() else p / _META
+        return int(checkpoint_metadata(p).get("epoch", -1)), stamp.stat().st_mtime_ns
+
+    return max(found, key=written)
+
+
+def latest_checkpoint(directory: str | os.PathLike, prefix: str = "") -> Path | None:
+    """The most recently written checkpoint (file or directory) under
+    ``directory`` whose name starts with ``prefix``; None if there is none."""
+    directory = Path(directory)
+    if not directory.is_dir():
+        return None
+    found = [p for p in directory.iterdir()
+             if p.name.startswith(prefix) and has_checkpoint(p)
+             and (p.suffix == ".pth" or p.is_dir())]
+    return max(found, key=lambda p: p.stat().st_mtime) if found else None
 
 
 def _decoder_blocks(stage: int) -> set[str]:

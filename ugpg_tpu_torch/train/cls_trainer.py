@@ -8,9 +8,12 @@
   ``1 + alpha A``, A the normalised entropy of the frozen previous stage
 * head-only weight transfer between stages (``classifier.*`` on an exact
   shape match); ``pretrained_unet_paths`` merges a segmentation ``.pth``
-  into a stage's encoder and freezes it (``freeze_subtrees``)
+  or msgpack directory into a stage's encoder and freezes it
+  (``freeze_subtrees``)
 * per stage the best-validation-accuracy ``herlev_stage{S}_best.pth`` with
-  the config (reference schema and key set), early stopping after 15
+  the config (reference schema and key set; ``checkpoint_backend="msgpack"``:
+  the JAX package's directory ``herlev_stage{S}_best``, and so for every
+  checkpoint below; resume reads either form), early stopping after 15
   epochs without improvement, ``training_log.csv``, the history JSON, and
   the NaN guard (``herlev_stage{S}_diverged.pth``, then
   ``TrainingDivergedError``)
@@ -50,10 +53,12 @@ import torch
 from ugpg_tpu_torch.data.loader import prefetch_to_device
 from ugpg_tpu_torch.device import resolve_device
 from ugpg_tpu_torch.io.checkpoint import (
+    checkpoint_backend_of,
+    checkpoint_path,
     classifier_decoder_fill,
     classifier_state_dict,
+    find_checkpoint,
     full_classifier_state_dict,
-    has_checkpoint,
     read_checkpoint,
     save_checkpoint,
 )
@@ -72,6 +77,7 @@ from ugpg_tpu_torch.train.optim import (
     freeze_subtrees,
     get_learning_rate,
     load_optimizer_state,
+    param_names,
     torch_adam,
 )
 from ugpg_tpu_torch.train.steps import (
@@ -81,7 +87,6 @@ from ugpg_tpu_torch.train.steps import (
     make_cls_eval_step,
     make_cls_train_epoch,
     make_cls_train_step,
-    not_ported,
     reduce_cls_rows,
     run_scan_epoch,
     scan_batches,
@@ -189,9 +194,10 @@ class HerlevTrainer:
         (on a card such a trainer takes the capturable optimizer for every
         step, ``train/optim.py``).
 
-        Not ported, raising ``NotImplementedError``: a
-        ``checkpoint_backend`` other than ``"pth"`` (ROADMAP.md, "Not to
-        port"); ``pipeline_unc`` with a ``mesh`` raises ``ValueError``."""
+        ``checkpoint_backend``: ``"pth"`` (the port's default) or
+        ``"msgpack"`` (the JAX package's directories); orbax raises
+        ``NotImplementedError`` with the reason.  ``pipeline_unc`` with a
+        ``mesh`` raises ``ValueError``."""
         self.config = dict(config)
         self.device = resolve_device(device)
         cfg = self.config
@@ -205,7 +211,7 @@ class HerlevTrainer:
             data_axis_size(mesh)
             self.device = tensor_device(mesh.first)
         self.mesh, self.shard_model, self.axis_name = mesh, bool(shard_model), axis_name
-        not_ported(checkpoint_backend=checkpoint_backend != "pth")
+        self.checkpoint_backend = checkpoint_backend_of(checkpoint_backend)
         self.scan_epochs = bool(cfg.get("scan_epochs", False))
         self.scan_chunk_bytes = cfg.get("scan_chunk_bytes", 1 << 30)
         self.devices = devices
@@ -277,8 +283,9 @@ class HerlevTrainer:
         return self.models[stage]
 
     def load_pretrained_unet(self, stage: int, ckpt_path) -> list[str]:
-        """Merge a segmentation ``.pth``'s matching encoder blocks into the
-        stage's ``unet`` (the name-keyed overlap merge) and freeze it."""
+        """Merge a segmentation checkpoint's (``.pth`` or msgpack
+        directory) matching encoder blocks into the stage's ``unet`` (the
+        name-keyed overlap merge) and freeze it."""
         self._print(f"Loading pretrained U-Net weights from: {ckpt_path}")
         seg = read_checkpoint(ckpt_path)["model_state_dict"]
         model = self._model(stage)
@@ -495,11 +502,15 @@ class HerlevTrainer:
         return full_classifier_state_dict(self._model(stage).state_dict(), stage,
                                           self._fills[stage])
 
-    def _save(self, path: Path, stage: int, epoch: int, **metadata) -> Path:
-        """Write ``path`` (process 0; the others wait for it)."""
+    def _save(self, save_path: Path, name: str, stage: int, epoch: int, **metadata) -> Path:
+        """Write checkpoint ``name`` in the trainer's backend (process 0;
+        the others wait for it)."""
+        path = checkpoint_path(save_path, name, self.checkpoint_backend)
         state = self._state_dict(stage)
         if distributed.is_writer():
-            save_checkpoint(path, state, stage=stage, epoch=epoch,
+            save_checkpoint(path, state, backend=self.checkpoint_backend,
+                            param_names=param_names(self.optimizer, self._model(stage)),
+                            stage=stage, epoch=epoch,
                             optimizer_state_dict=self.optimizer.state_dict(),
                             config=_plain_config(self.config), **metadata)
         distributed.barrier()
@@ -513,9 +524,10 @@ class HerlevTrainer:
 
         ``preemption`` (``utils.preemption.PreemptionGuard``) is polled at
         each epoch's end; when armed, the loop writes
-        ``herlev_stage{S}_last.pth`` and returns.  ``resume=True`` restores
-        the latest ``_last.pth`` in ``save_dir`` (earlier stages' weights
-        from their ``_best``, else ``_last``) and continues after its epoch."""
+        ``herlev_stage{S}_last`` and returns.  ``resume=True`` restores
+        the latest ``_last`` in ``save_dir``, a ``.pth`` or a directory (of
+        both, the later epoch's), earlier stages' weights from their
+        ``_best``, else ``_last``, and continues after its epoch."""
         save_path = Path(save_dir)
         save_path.mkdir(parents=True, exist_ok=True)
         resume_stage = resume_meta = None
@@ -566,8 +578,9 @@ class HerlevTrainer:
                     # trained weights, not a fresh initialisation, feed the
                     # transfer and the uncertainty
                     for suffix in ("last", "best"):
-                        ckpt = save_path / f"herlev_stage{resume_stage}_{suffix}.pth"
-                        if has_checkpoint(ckpt):
+                        ckpt = find_checkpoint(save_path,
+                                               f"herlev_stage{resume_stage}_{suffix}")
+                        if ckpt is not None:
                             self.load_stage_weights(resume_stage, ckpt)
                             break
                     resume_stage = None
@@ -613,7 +626,7 @@ class HerlevTrainer:
                     bad = nonfinite_metrics(train_loss=tr_loss, val_loss=va_loss)
                     if bad:
                         ckpt = self._save(
-                            save_path / f"herlev_stage{stage}_diverged.pth", stage, epoch + 1,
+                            save_path, f"herlev_stage{stage}_diverged", stage, epoch + 1,
                             diverged_metrics={k: repr(v) for k, v in bad.items()},
                             history=self.history)
                         raise TrainingDivergedError(stage, epoch + 1, bad, ckpt)
@@ -624,7 +637,7 @@ class HerlevTrainer:
                     best_val_loss = va_loss
                     epochs_without_improvement = 0
                     saved_any = True
-                    self._save(save_path / f"herlev_stage{stage}_best.pth", stage, epoch + 1,
+                    self._save(save_path, f"herlev_stage{stage}_best", stage, epoch + 1,
                                train_loss=tr_loss, val_loss=va_loss, train_acc=tr_acc,
                                val_acc=va_acc)
                     self._print(f"New best model saved! Val Acc: {va_acc:.2f}%")
@@ -636,7 +649,7 @@ class HerlevTrainer:
                 if distributed.agree(preemption is not None and preemption.should_stop()):
                     self.preempted = True
                     self._save(
-                        save_path / f"herlev_stage{stage}_last.pth", stage, epoch + 1,
+                        save_path, f"herlev_stage{stage}_last", stage, epoch + 1,
                         val_acc=va_acc, val_loss=va_loss, best_val_acc=best_val_acc,
                         best_val_loss=best_val_loss,
                         epochs_without_improvement=epochs_without_improvement,
@@ -668,43 +681,45 @@ class HerlevTrainer:
         return self.history
 
     # ------------------------------------------------------------------
-    def load_stage_weights(self, stage: int, checkpoint_path) -> None:
-        """Load one stage's weights from a reference ``.pth`` (strict, the
-        decoder's keys dropped)."""
-        sd = read_checkpoint(checkpoint_path)["model_state_dict"]
+    def load_stage_weights(self, stage: int, path) -> None:
+        """Load one stage's weights from a reference ``.pth`` or a msgpack
+        directory (strict, the decoder's keys dropped)."""
+        sd = read_checkpoint(path)["model_state_dict"]
         self._model(stage).load_state_dict(classifier_state_dict(sd, stage), strict=True)
         distributed.broadcast_module(self._model(stage))
         self._epochs.clear()
-        self._print(f"Loaded weights for stage {stage} from {checkpoint_path}")
+        self._print(f"Loaded weights for stage {stage} from {path}")
 
     def _find_resume_point(self, save_path: Path):
-        """The latest ``herlev_stage{S}_last.pth`` -> (stage, its container),
+        """The latest ``herlev_stage{S}_last`` -> (stage, its container),
         or (None, None); loads earlier stages' weights (the frozen
         uncertainty sources), ``_best`` before ``_last``."""
         stages = sorted(self.config["stages"])
         for stage in reversed(stages):
-            last = save_path / f"herlev_stage{stage}_last.pth"
-            if has_checkpoint(last):
+            last = find_checkpoint(save_path, f"herlev_stage{stage}_last")
+            if last is not None:
                 break
         else:
             return None, None
         meta = read_checkpoint(last)
         for s in (s for s in stages if s < stage):
             for suffix in ("best", "last"):
-                ckpt = save_path / f"herlev_stage{s}_{suffix}.pth"
-                if has_checkpoint(ckpt):
+                ckpt = find_checkpoint(save_path, f"herlev_stage{s}_{suffix}")
+                if ckpt is not None:
                     self.load_stage_weights(s, ckpt)
                     break
         return stage, meta
 
     def _restore_last(self, stage: int, meta: Mapping) -> None:
         """Weights, optimizer, scheduler, history and generator state from
-        the stage's ``_last.pth`` (``meta``), for a mid-stage resume."""
+        the stage's ``_last`` (``meta``), for a mid-stage resume."""
         sd = classifier_state_dict(meta["model_state_dict"], stage)
-        self._model(stage).load_state_dict(sd, strict=True)
-        distributed.broadcast_module(self._model(stage))
+        model = self._model(stage)
+        model.load_state_dict(sd, strict=True)
+        distributed.broadcast_module(model)
         if meta.get("optimizer_state_dict") is not None:
-            load_optimizer_state(self.optimizer, meta["optimizer_state_dict"])
+            load_optimizer_state(self.optimizer, meta["optimizer_state_dict"],
+                                 param_names(self.optimizer, model), meta.get("lr"))
         self._epochs.clear()  # a graph would read the replaced optimizer state
         sched = meta.get("scheduler") or {}
         if sched:
@@ -714,5 +729,5 @@ class HerlevTrainer:
             for k, v in meta["history"].items():
                 if k in self.history and isinstance(v, list):
                     self.history[k] = list(v)
-        if meta.get("generator_state") is not None:
-            self.generator.set_state(meta["generator_state"])
+        if meta.get("generator_state") is not None:  # a list in a directory's metadata
+            self.generator.set_state(torch.as_tensor(meta["generator_state"], dtype=torch.uint8))

@@ -7,11 +7,14 @@
 * BCE-with-logits(pos_weight=5) base loss, weighted by ``1 + alpha A`` where
   A comes from the frozen previous stage (stages > 1)
 * weight transfer at stage entry; the best-val-Dice checkpoint per stage,
-  as a reference-format ``.pth``; history, ``training_log.csv``, plots
-  (with matplotlib) and the uncertainty analysis JSON
+  as a reference-format ``.pth`` (``checkpoint_backend="msgpack"``: the
+  JAX package's directory of the same name without ``.pth``,
+  ``io/checkpoint.py``); history, ``training_log.csv``, plots (with
+  matplotlib) and the uncertainty analysis JSON
 * ``checkpoint_every=N``: a rolling ``ug_pgunet_stage{S}_last.pth``
   (weights, optimizer state, epoch, history); ``resume=True`` continues
-  from the latest one, mid-stage; a ``PreemptionGuard`` (``preemption=``)
+  from the latest one, mid-stage, in either form whatever the trainer's
+  own backend (a JAX run's directories too); a ``PreemptionGuard`` (``preemption=``)
   is polled at every epoch boundary, and when it is armed the loop writes
   ``_last`` and returns with ``preempted`` set
 * ``dtype=torch.bfloat16``: bf16 compute over float32 parameters and
@@ -49,7 +52,10 @@ from torch import nn
 from ugpg_tpu_torch.data.loader import prefetch_to_device
 from ugpg_tpu_torch.device import resolve_device
 from ugpg_tpu_torch.io.checkpoint import (
-    has_checkpoint,
+    checkpoint_backend_of,
+    checkpoint_metadata,
+    checkpoint_path,
+    find_checkpoint,
     load_checkpoint,
     read_checkpoint,
     save_checkpoint,
@@ -70,7 +76,12 @@ from ugpg_tpu_torch.parallel.spatial import (
     spatial_divisor,
 )
 from ugpg_tpu_torch.progressive.transfer import transfer_weights
-from ugpg_tpu_torch.train.optim import get_learning_rate, load_optimizer_state, torch_rmsprop
+from ugpg_tpu_torch.train.optim import (
+    get_learning_rate,
+    load_optimizer_state,
+    param_names,
+    torch_rmsprop,
+)
 from ugpg_tpu_torch.train.steps import (
     METRIC_KEYS,
     draw_seg_epoch,
@@ -78,7 +89,6 @@ from ugpg_tpu_torch.train.steps import (
     make_seg_eval_step,
     make_seg_train_epoch,
     make_seg_train_step,
-    not_ported,
     run_scan_epoch,
     scan_batches,
     scan_rows,
@@ -152,7 +162,11 @@ class UncertaintyGuidedProgressiveTrainer:
         scales every stage's channels (1.0 = the reference widths).
         ``seed`` seeds the ``torch.Generator`` of each stage's
         initialisation.  ``nan_guard``: a NaN/Inf epoch loss saves a
-        ``*_diverged.pth`` and raises ``TrainingDivergedError``.
+        ``*_diverged`` checkpoint and raises ``TrainingDivergedError``.
+        ``checkpoint_backend``: ``"pth"`` (the reference's files, the
+        port's default) or ``"msgpack"`` (the JAX package's directories,
+        its default); orbax raises ``NotImplementedError`` with the reason
+        (``io.checkpoint.ORBAX_REASON``).
         ``device``: ``cuda`` unless given; raises without CUDA.
         ``dtype``: None or float32, or bfloat16 compute (parameters and
         optimizer state stay float32).
@@ -213,10 +227,7 @@ class UncertaintyGuidedProgressiveTrainer:
         (``train/optim.py``).  With a mesh over several processes, or a
         batch that does not split over the mesh, epochs run per step.
 
-        Options of the JAX trainer that are not ported raise
-        ``NotImplementedError``: ``checkpoint_backend`` other than
-        ``"pth"`` (ROADMAP.md, "Not to port"); ``pipeline_unc`` with a
-        ``mesh`` raises ``ValueError``."""
+        ``pipeline_unc`` with a ``mesh`` raises ``ValueError``."""
         self.device = resolve_device(device)
         self.pipeline_unc = int(pipeline_unc)
         if self.pipeline_unc and mesh is not None:
@@ -228,7 +239,7 @@ class UncertaintyGuidedProgressiveTrainer:
             data_axis_size(mesh)
             self.device = tensor_device(mesh.first)
         self.mesh, self.shard_model, self.axis_name = mesh, bool(shard_model), axis_name
-        not_ported(checkpoint_backend=checkpoint_backend != "pth")
+        self.checkpoint_backend = checkpoint_backend_of(checkpoint_backend)
         self.scan_epochs, self.scan_chunk_bytes = bool(scan_epochs), scan_chunk_bytes
         self.devices = devices
         if self.pipeline_unc:
@@ -487,11 +498,16 @@ class UncertaintyGuidedProgressiveTrainer:
         return prefetch_to_device(iter(dataloader), size=2, device=self.device,
                                   stats=self.loader_stats)
 
-    def _checkpoint(self, path: Path, stage: int, epoch: int, **extra) -> Path:
-        """Write ``path`` (process 0; the others wait for it)."""
+    def _checkpoint(self, save_path: Path, name: str, stage: int, epoch: int,
+                    **extra) -> Path:
+        """Write checkpoint ``name`` in the trainer's backend (process 0;
+        the others wait for it)."""
+        path = checkpoint_path(save_path, name, self.checkpoint_backend)
         if distributed.is_writer():
+            model = self._model(stage)
             save_checkpoint(
-                path, self._model(stage).state_dict(), stage=stage, epoch=epoch,
+                path, model.state_dict(), backend=self.checkpoint_backend,
+                param_names=param_names(self.optimizer, model), stage=stage, epoch=epoch,
                 optimizer_state_dict=self.optimizer.state_dict(),
                 uncertainty_alpha=self.uncertainty_alpha, history=self.history, **extra)
         distributed.barrier()
@@ -511,14 +527,17 @@ class UncertaintyGuidedProgressiveTrainer:
     ) -> dict[str, list]:
         """Stages 1..max_stages (or ``stages``).  Per epoch: train,
         validate, log a ``training_log.csv`` row, and write
-        ``ug_pgunet_stage{S}_best.pth`` when the validation Dice improves;
-        ``checkpoint_every=N`` also writes ``ug_pgunet_stage{S}_last.pth``
-        every N epochs.  Loaders may be dicts keyed by stage.
+        ``ug_pgunet_stage{S}_best`` (``.pth``, or the directory) when the
+        validation Dice improves; ``checkpoint_every=N`` also writes
+        ``ug_pgunet_stage{S}_last`` every N epochs.  Loaders may be dicts
+        keyed by stage.
 
-        ``resume=True`` restores the latest ``_last.pth`` in ``save_dir``
-        (weights, optimizer state, history; earlier stages' weights from
-        their ``_best``, else ``_last``) and continues after its epoch; the
-        stage's ``_best`` keeps gating on the Dice it recorded.  The
+        ``resume=True`` restores the latest ``_last`` in ``save_dir``, a
+        ``.pth`` or a directory (``io.checkpoint.find_checkpoint``: of both,
+        the later epoch's), with weights, optimizer state and history;
+        earlier stages' weights from their ``_best``, else ``_last``; and
+        continues after its epoch; the stage's ``_best`` keeps gating on
+        the Dice it recorded.  The
         augmentation generator and the loaders' order are not restored (nor
         are they in the JAX package).  ``preemption`` (a
         ``utils.preemption.PreemptionGuard``) is polled at each epoch's
@@ -568,8 +587,9 @@ class UncertaintyGuidedProgressiveTrainer:
                     # trained weights, or the transfer below and the
                     # uncertainty source would use a fresh initialisation
                     for suffix in ("last", "best"):
-                        ckpt = save_path / f"ug_pgunet_stage{resume_stage}_{suffix}.pth"
-                        if has_checkpoint(ckpt):
+                        ckpt = find_checkpoint(save_path,
+                                               f"ug_pgunet_stage{resume_stage}_{suffix}")
+                        if ckpt is not None:
                             self.load_stage_weights(resume_stage, ckpt)
                             break
                     resume_stage = None
@@ -622,18 +642,18 @@ class UncertaintyGuidedProgressiveTrainer:
                     bad = nonfinite_metrics(train_loss=tr_loss, val_loss=va_loss)
                     if bad:
                         ckpt = self._checkpoint(
-                            save_path / f"ug_pgunet_stage{stage}_diverged.pth", stage, epoch,
+                            save_path, f"ug_pgunet_stage{stage}_diverged", stage, epoch,
                             diverged_metrics={k: repr(v) for k, v in bad.items()})
                         raise TrainingDivergedError(stage, epoch + 1, bad, ckpt)
                 if va_dice > best_val_dice:
                     best_val_dice = va_dice
-                    self._checkpoint(save_path / f"ug_pgunet_stage{stage}_best.pth", stage,
-                                     epoch, val_dice=va_dice, train_dice=tr_dice)
+                    self._checkpoint(save_path, f"ug_pgunet_stage{stage}_best", stage, epoch,
+                                     val_dice=va_dice, train_dice=tr_dice)
                 rolled = checkpoint_every and (epoch + 1) % checkpoint_every == 0
                 stopping = distributed.agree(preemption is not None and preemption.should_stop())
                 if rolled or stopping:
-                    self._checkpoint(save_path / f"ug_pgunet_stage{stage}_last.pth", stage,
-                                     epoch, val_dice=va_dice)
+                    self._checkpoint(save_path, f"ug_pgunet_stage{stage}_last", stage, epoch,
+                                     val_dice=va_dice)
                 if stopping:
                     self.preempted = True
                     self._print(
@@ -669,8 +689,9 @@ class UncertaintyGuidedProgressiveTrainer:
         prefetched to the mesh's first device.  The previous stage stays
         the uncertainty source.  ``val_loader``: a validation pass per
         epoch.  The stage's model keeps the result; ``save_dir``: also
-        ``ug_pgunet_stage{S}_native.pth`` (weights, optimizer state, the
-        JAX package's metadata keys), which the predictors load.
+        ``ug_pgunet_stage{S}_native`` in the trainer's backend (weights,
+        optimizer state, the JAX package's metadata keys), which the
+        predictors load.
         Returns the per-epoch train (and validation) loss and Dice."""
         mesh = mesh if mesh is not None else self.mesh
         if mesh is None:
@@ -726,8 +747,11 @@ class UncertaintyGuidedProgressiveTrainer:
             self._train_steps.pop(key, None)
         self._epochs.clear()
         if save_dir is not None and distributed.is_writer():
-            save_checkpoint(Path(save_dir) / f"ug_pgunet_stage{stage}_native.pth",
-                            model.state_dict(), optimizer_state_dict=optimizer.state_dict(),
+            save_checkpoint(checkpoint_path(save_dir, f"ug_pgunet_stage{stage}_native",
+                                            self.checkpoint_backend),
+                            model.state_dict(), backend=self.checkpoint_backend,
+                            param_names=param_names(optimizer, model),
+                            optimizer_state_dict=optimizer.state_dict(),
                             stage=stage, native_finetune=True, epochs=epochs,
                             uncertainty_alpha=self.uncertainty_alpha, history=hist)
         distributed.barrier()
@@ -736,41 +760,42 @@ class UncertaintyGuidedProgressiveTrainer:
     # ------------------------------------------------------------------
     @staticmethod
     def _best_val_dice_on_disk(save_path: Path, stage: int) -> float:
-        """val_dice recorded in the stage's ``_best.pth`` (0.0 if none)."""
-        path = save_path / f"ug_pgunet_stage{stage}_best.pth"
-        if not has_checkpoint(path):
-            return 0.0
+        """val_dice recorded in the stage's ``_best`` (0.0 if none)."""
         try:
-            return float(read_checkpoint(path).get("val_dice", 0.0))
+            path = find_checkpoint(save_path, f"ug_pgunet_stage{stage}_best")
+            return 0.0 if path is None else float(
+                checkpoint_metadata(path).get("val_dice", 0.0))
         except (OSError, RuntimeError, ValueError):
             return 0.0
 
     def _find_resume_point(self, save_path: Path):
-        """The latest stage with a ``_last.pth`` -> (stage, epoch), or
+        """The latest stage with a ``_last`` -> (stage, epoch), or
         (None, None); loads every earlier stage's weights (the frozen
         uncertainty sources), from ``_best`` before ``_last``."""
         for stage in (4, 3, 2, 1):
-            last = save_path / f"ug_pgunet_stage{stage}_last.pth"
-            if has_checkpoint(last):
+            last = find_checkpoint(save_path, f"ug_pgunet_stage{stage}_last")
+            if last is not None:
                 break
         else:
             return None, None
-        epoch = int(read_checkpoint(last).get("epoch", -1))
+        epoch = int(checkpoint_metadata(last).get("epoch", -1))
         for s in range(1, stage):
             for suffix in ("best", "last"):
-                ckpt = save_path / f"ug_pgunet_stage{s}_{suffix}.pth"
-                if has_checkpoint(ckpt):
+                ckpt = find_checkpoint(save_path, f"ug_pgunet_stage{s}_{suffix}")
+                if ckpt is not None:
                     self.load_stage_weights(s, ckpt)
                     break
         return stage, epoch
 
     def _restore_last(self, save_path: Path, stage: int) -> None:
-        """Weights, optimizer state and history from the stage's
-        ``_last.pth``, for a mid-stage resume."""
-        obj = read_checkpoint(save_path / f"ug_pgunet_stage{stage}_last.pth")
-        self._model(stage).load_state_dict(obj["model_state_dict"], strict=True)
+        """Weights, optimizer state and history from the stage's ``_last``,
+        for a mid-stage resume."""
+        obj = read_checkpoint(find_checkpoint(save_path, f"ug_pgunet_stage{stage}_last"))
+        model = self._model(stage)
+        model.load_state_dict(obj["model_state_dict"], strict=True)
         if obj.get("optimizer_state_dict") is not None:
-            load_optimizer_state(self.optimizer, obj["optimizer_state_dict"])
+            load_optimizer_state(self.optimizer, obj["optimizer_state_dict"],
+                                 param_names(self.optimizer, model), obj.get("lr"))
         distributed.broadcast_module(self._model(stage))
         self._epochs.clear()  # a graph would read the replaced optimizer state
         if isinstance(obj.get("history"), dict):
@@ -778,13 +803,14 @@ class UncertaintyGuidedProgressiveTrainer:
                 if k in self.history and isinstance(v, list):
                     self.history[k] = list(v)
 
-    def load_stage_weights(self, stage: int, checkpoint_path: str) -> None:
-        """Load one stage's weights from a ``.pth`` (strict)."""
-        _, state_dict = load_checkpoint(checkpoint_path)
+    def load_stage_weights(self, stage: int, path: str) -> None:
+        """Load one stage's weights from a ``.pth`` or a msgpack directory
+        (strict)."""
+        _, state_dict = load_checkpoint(path)
         self._model(stage).load_state_dict(state_dict, strict=True)
         distributed.broadcast_module(self._model(stage))
         self._epochs.clear()
-        self._print(f"Loaded weights for stage {stage} from {checkpoint_path}")
+        self._print(f"Loaded weights for stage {stage} from {path}")
 
     def save_uncertainty_analysis(self, data_loader: Iterable, stage: int, save_path):
         """Uncertainty statistics of the first 10 batches, as

@@ -3,8 +3,11 @@
 Dataclasses for the two workloads with the reference's defaults,
 ``apply_overrides`` for command-line values, and JSON ``save_config`` /
 ``load_config``.  The JSON is the JAX package's: a file either package
-writes loads in the other.  ``checkpoint_backend`` is kept for that
-reason; the port's trainers write ``.pth``.
+writes loads in the other.  ``checkpoint_backend`` names a backend the
+port's trainers take: ``msgpack`` (the JAX package's directories, this
+config's default as it is the JAX package's) or ``pth``; ``orbax`` is not
+ported (``io/checkpoint.py::ORBAX_REASON``).  The port's trainers and
+commands themselves default to ``pth``.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ class SegTrainConfig:
     # distribution + checkpoint backend (exposed as --mesh /
     # --checkpoint_backend on the train CLIs; see cli/train_monuseg.py)
     mesh: str | None = None  # "DATA,MODEL" or "auto"; None = single device
-    checkpoint_backend: str = "msgpack"  # msgpack | orbax | orbax-async
+    checkpoint_backend: str = "msgpack"  # msgpack | pth (orbax, orbax-async: not ported)
 
     def stage_configs(self) -> dict[int, dict]:
         res = {1: 32, 2: 64, 3: 128, 4: 256}
