@@ -276,26 +276,28 @@
    halving the learning rate after every epoch, equal, one capture.
    train_monuseg --scan_epochs --scan_chunk_mb 64 on phase 9's tree and
    train_herlev --scan_epochs on phase 11's, at once: exit 0, epoch logged.
-19. The JAX package's checkpoint format, flax-msgpack directories, TF32
-   off.  Phase 5's seeded stage 4 saved as a .pth and as a directory: the
-   directory's variables.msgpack, decoded, equals the state dict bit for
-   bit, and a bucket-64 bf16 Predictor from each answers bit for bit, the
-   directory's call launching 9 double-conv, 4 upsample and 1 uncertainty
-   kernels.  On phase 9's tree, train_monuseg --checkpoint_backend msgpack
-   (stages 1-2, two epochs) in a child, SIGTERM at its first "Stage 2,
-   Batch" line: exit 75 and a ug_pgunet_stage2_last directory, no .pth;
-   --resume in this process with the fused loss: every epoch logged once,
-   one loss forward and backward launch per step; one step from the
-   restored _last equals the resumed run's next step bit for bit (cuDNN
-   deterministic).
-   test_monuseg on the _best directory equals it on the same weights as a
-   .pth, and the serve command (in a child) answers from the seeded
-   directory as from its .pth, bit for bit.  train_herlev
-   --checkpoint_backend msgpack (stage 1, one epoch, on phase 11's tree
-   written again, in a child) and test_herlev on its _best directory.
-   Then the save and restore seconds of a full-width stage-4 _last
-   (weights, RMSprop state, history) as a .pth and as a directory, the
-   median of 3 in turns.
+19. The JAX package's checkpoint formats, flax-msgpack, orbax and
+   orbax-async directories, TF32 off.  Phase 5's seeded stage 4 saved as a
+   .pth and as a directory of each form: the directory's variables,
+   decoded, equal the state dict bit for bit, and a bucket-64 bf16
+   Predictor from each answers as the .pth's bit for bit, each directory's
+   call launching 9 double-conv, 4 upsample and 1 uncertainty kernels.  On
+   phase 9's tree, train_monuseg --checkpoint_backend msgpack, orbax and
+   orbax-async (stages 1-2, two epochs) in three children at once, SIGTERM
+   at each one's first "Stage 2, Batch" line: exit 75 and a
+   ug_pgunet_stage2_last directory of its form, no .pth; --resume in this
+   process with the fused loss: every epoch logged once, one loss forward
+   and backward launch per step (4 + 4); one step from the restored _last
+   equals the resumed run's next step bit for bit (cuDNN deterministic).
+   test_monuseg on the msgpack _best directory equals it on the same
+   weights as a .pth, and the serve command (in a child) answers from the
+   seeded msgpack and orbax-async directories as from their .pth, bit for
+   bit.  train_herlev --checkpoint_backend msgpack (stage 1, one epoch, on
+   phase 11's tree written again, in a child) and test_herlev on its _best
+   directory.  Then the save and restore seconds and the bytes of a
+   full-width stage-4 _last (weights, RMSprop state, history) as a .pth and
+   as a directory of each form, the median of 3 in turns; for orbax-async
+   also the seconds until save_checkpoint returns (the host snapshot).
 20. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -368,9 +370,8 @@ from ugpg_tpu_torch.io.checkpoint import (  # noqa: E402
     load_checkpoint,
     read_checkpoint,
     save_checkpoint,
+    wait_for_async_saves,
 )
-from ugpg_tpu_torch.io.from_jax import state_dict_from_jax  # noqa: E402
-from ugpg_tpu_torch.io.msgpack import msgpack_restore  # noqa: E402
 from ugpg_tpu_torch.models.classifier import (  # noqa: E402
     CLS_STAGE_RESOLUTIONS,
     ENCODER_SPECS,
@@ -4652,55 +4653,74 @@ def whole_epochs(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dict, dict
     return launches, errors, {"segmentation": seg, "herlev": herlev_run, "commands": commands}
 
 
-# ------------------------------------------------------------ phase 19: msgpack checkpoints
-MSG_BUCKET = 64  # the bf16 Predictor's bucket, from the .pth and from the directory
+# ------------------------------------------------------------ phase 19: JAX checkpoint forms
+MSG_BUCKET = 64  # the bf16 Predictor's bucket, from the .pth and from each directory
 MSG_TIMED = 3  # saves and loads of the stage-4 _last per form; the median is kept
+DIR_FORMS = ("msgpack", "orbax", "orbax-async")  # the JAX package's checkpoint directories
+DIR_FILES = {"msgpack": ["metadata.json", "opt_state.msgpack", "variables.msgpack"],
+             "orbax": ["metadata.json", "opt_state_orbax", "variables_orbax"]}
+DIR_FILES["orbax-async"] = DIR_FILES["orbax"]
 
 
-def seeded_directory(tmp: Path) -> tuple[dict, Path, Path]:
-    """Phase 5's seeded stage 4 as a .pth and as a msgpack directory, whose
-    variables.msgpack, decoded, equals the state dict bit for bit."""
+def disk_bytes(path: Path) -> int:
+    """The bytes of a file, or of every file under a directory."""
+    return path.stat().st_size if path.is_file() else sum(
+        f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def seeded_directory(tmp: Path) -> tuple[dict, Path, dict]:
+    """Phase 5's seeded stage 4 as a .pth and as a directory of each form
+    (form -> path), whose variables, decoded, equal the state dict bit for
+    bit."""
     pth = tmp / "seeded_stage4.pth"
     random_checkpoint(pth)
     _, sd = load_checkpoint(pth)
-    folder = save_checkpoint(tmp / "ug_pgunet_stage4_best", sd, backend="msgpack", stage=4,
-                             epoch=0)
-    decoded = state_dict_from_jax(msgpack_restore((folder / "variables.msgpack").read_bytes()))
-    assert set(decoded) == set(sd), sorted(set(decoded) ^ set(sd))
-    for key, value in sd.items():
-        assert torch.equal(decoded[key], value), key
-    return sd, pth, folder
+    folders = {form: save_checkpoint(tmp / f"seeded_{form}" / "ug_pgunet_stage4_best", sd,
+                                     backend=form, stage=4, epoch=0) for form in DIR_FORMS}
+    for form, folder in folders.items():
+        decoded = read_checkpoint(folder)["model_state_dict"]  # waits for orbax-async
+        assert set(decoded) == set(sd), (form, sorted(set(decoded) ^ set(sd)))
+        for key, value in sd.items():
+            assert torch.equal(decoded[key], value), (form, key)
+    return sd, pth, folders
 
 
-def predictor_from_directory(pth: Path, folder: Path, card: str) -> dict:
-    """A bucket-64 bf16 Predictor from the .pth and from the directory
-    answer bit for bit, the directory's call launching 9 double-conv, 4
-    upsample and 1 uncertainty kernels."""
+def predictor_from_directory(pth: Path, folders: dict, card: str) -> dict:
+    """A bucket-64 bf16 Predictor from the .pth and from each directory
+    answer bit for bit, each directory's call launching 9 double-conv, 4
+    upsample and 1 uncertainty kernels; -> the launches of those calls."""
     images = np.random.default_rng(19).random((MSG_BUCKET, 256, 256, 3), dtype=np.float32)
     from_pth = Predictor(str(pth), buckets=(MSG_BUCKET,), dtype=torch.bfloat16)
-    from_dir = Predictor(str(folder), buckets=(MSG_BUCKET,), dtype=torch.bfloat16)
     want = from_pth(images)
-    torch.cuda.synchronize()
-    _lib.reset_launch_counts()
-    got = from_dir(images)
-    torch.cuda.synchronize()
-    launches = _lib.launch_counts()
-    assert_same(got, want, "Predictor from the directory against the .pth")
-    check_response(got, MSG_BUCKET)
-    assert launches == {"fused_double_conv": 9, "upsample2x": 4,
-                        "uncertainty_from_logits": 1}, launches
-    log(f"msgpack: phase 5's seeded stage 4 as a directory ({folder.name}/variables.msgpack, "
-        f"{(folder / 'variables.msgpack').stat().st_size} bytes): decoded equal to the state "
-        f"dict bit for bit; bucket-{MSG_BUCKET} bf16 Predictor from it equal to the .pth's bit "
-        f"for bit, one call's launches {json.dumps(launches)} on {card}")
-    return launches
+    del from_pth
+    total: dict = {}
+    for form, folder in folders.items():
+        from_dir = Predictor(str(folder), buckets=(MSG_BUCKET,), dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        got = from_dir(images)
+        torch.cuda.synchronize()
+        launches = _lib.launch_counts()
+        del from_dir
+        assert_same(got, want, f"Predictor from the {form} directory against the .pth")
+        check_response(got, MSG_BUCKET)
+        assert launches == {"fused_double_conv": 9, "upsample2x": 4,
+                            "uncertainty_from_logits": 1}, (form, launches)
+        for kernel, n in launches.items():
+            total[kernel] = total.get(kernel, 0) + n
+        log(f"{form}: phase 5's seeded stage 4 as a directory ({disk_bytes(folder)} bytes): "
+            f"decoded equal to the state dict bit for bit; bucket-{MSG_BUCKET} bf16 Predictor "
+            f"from it equal to the .pth's bit for bit, one call's launches "
+            f"{json.dumps(launches)} on {card}")
+    return total
 
 
 def save_load_times(tmp: Path, sd: dict, card: str) -> dict:
     """Seconds to save and to restore a full-width stage-4 _last (weights,
     RMSprop square averages, history) in each form, the median of
-    MSG_TIMED, in turns: the trainer's own save, and its restore (read,
-    load the model on the card, load the optimizer)."""
+    MSG_TIMED, in turns: the trainer's own save (for orbax-async until its
+    trees commit, and apart the seconds until save_checkpoint returns), and
+    its restore (read, load the model on the card, load the optimizer)."""
     model = PGUNet4(use_bn=True).to(DEV)
     model.load_state_dict(sd, strict=True)
     opt = torch_rmsprop(model.parameters(), 1e-4, weight_decay=1e-4)
@@ -4710,8 +4730,9 @@ def save_load_times(tmp: Path, sd: dict, card: str) -> dict:
                         "square_avg": torch.rand(p.shape, generator=g, device=DEV)}
     names = param_names(opt, model)
     history = {"train_loss": [0.5] * 40, "val_dice": [0.25] * 40, "stage_transitions": [0]}
-    times = {"pth": {"save_s": [], "load_s": []}, "msgpack": {"save_s": [], "load_s": []}}
-    paths = {"pth": tmp / "timed_last.pth", "msgpack": tmp / "timed_last"}
+    paths = {"pth": tmp / "timed_last.pth",
+             **{form: tmp / f"timed_{form}" / "ug_pgunet_stage4_last" for form in DIR_FORMS}}
+    times = {form: {"save_s": [], "load_s": [], "return_s": []} for form in paths}
     for _ in range(MSG_TIMED):
         for form, path in paths.items():
             torch.cuda.synchronize()
@@ -4719,6 +4740,8 @@ def save_load_times(tmp: Path, sd: dict, card: str) -> dict:
             save_checkpoint(path, model.state_dict(), backend=form, param_names=names,
                             stage=4, epoch=7, optimizer_state_dict=opt.state_dict(),
                             uncertainty_alpha=1.0, history=history, val_dice=0.25)
+            times[form]["return_s"].append(time.perf_counter() - t0)
+            wait_for_async_saves()
             times[form]["save_s"].append(time.perf_counter() - t0)
             fresh = PGUNet4(use_bn=True).to(DEV)
             fresh_opt = torch_rmsprop(fresh.parameters(), 1e-4, weight_decay=1e-4)
@@ -4734,18 +4757,22 @@ def save_load_times(tmp: Path, sd: dict, card: str) -> dict:
                 assert torch.equal(opt.state[p]["square_avg"], fresh_opt.state[q]["square_avg"])
     out = {}
     for form, path in paths.items():
-        size = (sum(f.stat().st_size for f in path.iterdir()) if path.is_dir()
-                else path.stat().st_size)
-        save, load = (statistics.median(times[form][k]) for k in ("save_s", "load_s"))
+        size = disk_bytes(path)
+        save, load, ret = (statistics.median(times[form][k])
+                           for k in ("save_s", "load_s", "return_s"))
         out[form] = {"bytes": size, "save_s": save, "load_s": load,
                      "save_mb_per_s": size / save / 1e6, "load_mb_per_s": size / load / 1e6,
                      "save_s_all": times[form]["save_s"], "load_s_all": times[form]["load_s"]}
-    log("msgpack: a full-width stage-4 _last (weights, RMSprop state, history), save and "
+        if form == "orbax-async":
+            out[form].update(return_s=ret, return_s_all=times[form]["return_s"])
+    log("checkpoints: a full-width stage-4 _last (weights, RMSprop state, history), save and "
         f"restore seconds, median of {MSG_TIMED} in turns (page cache warm): "
         + "; ".join(f"{form} {v['bytes']} bytes, save {v['save_s']:.4f} s "
-                    f"({v['save_mb_per_s']:.1f} MB/s), restore {v['load_s']:.4f} s "
-                    f"({v['load_mb_per_s']:.1f} MB/s), all {json.dumps(v['save_s_all'])} / "
-                    f"{json.dumps(v['load_s_all'])}" for form, v in out.items())
+                    f"({v['save_mb_per_s']:.1f} MB/s)"
+                    + (f", returns after {v['return_s']:.4f} s" if "return_s" in v else "")
+                    + f", restore {v['load_s']:.4f} s ({v['load_mb_per_s']:.1f} MB/s), all "
+                    f"{json.dumps(v['save_s_all'])} / {json.dumps(v['load_s_all'])}"
+                    for form, v in out.items())
         + f" on {card}")
     return out
 
@@ -4758,34 +4785,35 @@ class _FusedAugTrainer(AugMoNuSegTrainer):
         super().__init__(config, **kwargs)
 
 
-def msgpack_argv(mon_root: Path, out: Path) -> list[str]:
-    """train_monuseg --checkpoint_backend msgpack on phase 9's tree, stages
-    1-2 at two epochs."""
+def msgpack_argv(mon_root: Path, out: Path, backend: str = "msgpack") -> list[str]:
+    """train_monuseg --checkpoint_backend ``backend`` on phase 9's tree,
+    stages 1-2 at two epochs."""
     return ["--data_dir", str(mon_root), "--output_dir", str(out), "--stages", "1", "2",
             "--epochs", str(CLI_EPOCHS), "--checkpoint_every", "1", "--batch_size",
-            str(TRAIN_BATCH), "--checkpoint_backend", "msgpack"]
+            str(TRAIN_BATCH), "--checkpoint_backend", backend]
 
 
-def msgpack_training(out: Path, mon_root: Path, stopped: tuple, card: str) -> tuple[dict, Path]:
+def msgpack_training(out: Path, mon_root: Path, stopped: tuple, backend: str,
+                     card: str) -> tuple[dict, Path]:
     """The run of ``msgpack_argv`` that a child ran until SIGTERM at its
     first 'Stage 2, Batch' line (``stopped``: its exit code, output and
-    seconds) must have exited 75 with a _last directory; then --resume in
-    this process with the fused loss (every epoch logged once, one loss
-    forward and backward per step), then one step from the restored _last
-    against the resumed run's own next step, bit for bit."""
+    seconds) must have exited 75 with a _last directory of ``backend``'s
+    form; then --resume in this process with the fused loss (every epoch
+    logged once, one loss forward and backward per step), then one step
+    from the restored _last against the resumed run's own next step, bit
+    for bit."""
     from ugpg_tpu_torch.cli import train_monuseg as train_monuseg_cli
     from ugpg_tpu_torch.train import aug_trainer as aug_trainer_mod
 
-    argv = msgpack_argv(mon_root, out)
+    argv = msgpack_argv(mon_root, out, backend)
     rc, text, dt = stopped
-    log(f"msgpack: train_monuseg --checkpoint_backend msgpack, SIGTERM at its first 'Stage 2, "
-        f"Batch' line: exit {rc} after {dt:.1f} s")
+    log(f"{backend}: train_monuseg --checkpoint_backend {backend}, SIGTERM at its first "
+        f"'Stage 2, Batch' line: exit {rc} after {dt:.1f} s")
     assert rc == 75, text[-4000:]
     last = out / "ug_pgunet_stage2_last"
     meta = json.loads((last / "metadata.json").read_text())
     assert meta["stage"] == 2 and meta["epoch"] == 0, meta
-    assert sorted(p.name for p in last.iterdir()) == [
-        "metadata.json", "opt_state.msgpack", "variables.msgpack"]
+    assert sorted(p.name for p in last.iterdir()) == DIR_FILES[backend]
     assert not list(out.glob("*.pth")), sorted(p.name for p in out.iterdir())
 
     aug_cls = aug_trainer_mod.AugMoNuSegTrainer
@@ -4802,7 +4830,7 @@ def msgpack_training(out: Path, mon_root: Path, stopped: tuple, card: str) -> tu
     steps = math.ceil(AUG_PATCHES / TRAIN_BATCH)  # stage 2's second epoch (CLI_EPOCHS = 2)
     with open(out / "training_log.csv") as f:
         rows = [(int(r["stage"]), int(r["epoch"])) for r in csv.DictReader(f)]
-    log(f"msgpack: train_monuseg --resume (in this process, fused loss) in {wall:.1f} s: "
+    log(f"{backend}: train_monuseg --resume (in this process, fused loss) in {wall:.1f} s: "
         f"launches {json.dumps(counts)}; training_log.csv (stage, epoch) rows {rows}")
     assert resumed.fused_loss and not resumed.preempted
     assert counts == {k: steps for k in LOSS_KERNELS}, counts
@@ -4843,26 +4871,31 @@ def msgpack_training(out: Path, mon_root: Path, stopped: tuple, card: str) -> tu
     for k in m1:
         assert torch.equal(m1[k], m2[k]), (k, m1[k], m2[k])
     same_state("after a step")
-    log(f"msgpack: one stage-2 step from the restored _last equals the resumed run's next step "
-        f"bit for bit (metrics, weights, BN stats, square averages; loss "
+    log(f"{backend}: one stage-2 step from the restored _last equals the resumed run's next "
+        f"step bit for bit (metrics, weights, BN stats, square averages; loss "
         f"{float(m1['final_loss']):.6f}) on {card}")
     return counts, out / "ug_pgunet_stage2_best"
 
 
 def msgpack_checkpoints(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dict]:
-    """Phase 19: the JAX package's msgpack checkpoint directories on the card.
-    The training command, the serve command and the Herlev command run in
-    children while this process checks the Predictor."""
-    sd, seeded_pth, seeded_dir = seeded_directory(tmp)
-    out = tmp / "msgpack_cli"
-    stopped = []
-    trainer_child = threading.Thread(target=lambda: stopped.append(run_command(
-        port_command("ugpg_tpu_torch.cli.train_monuseg", *msgpack_argv(mon_root, out)),
-        stop_at="Stage 2, Batch")), daemon=True)
-    trainer_child.start()
+    """Phase 19: the JAX package's checkpoint directories (msgpack, orbax,
+    orbax-async) on the card.  The training commands, the serve command and
+    the Herlev command run in children while this process checks the
+    Predictor."""
+    sd, seeded_pth, seeded = seeded_directory(tmp)
+    seeded_dir = seeded["msgpack"]
+    outs = {form: tmp / f"{form}_cli" for form in DIR_FORMS}
+    stopped = {}
+    trainer_children = [threading.Thread(target=lambda form=form: stopped.__setitem__(
+        form, run_command(port_command("ugpg_tpu_torch.cli.train_monuseg",
+                                       *msgpack_argv(mon_root, outs[form], form)),
+                          stop_at="Stage 2, Batch")), daemon=True) for form in DIR_FORMS]
+    for child in trainer_children:
+        child.start()
     server = {"proc": start_command(port_command(
         "ugpg_tpu_torch.cli.serve", "--model", f"dir={seeded_dir}", "--model",
-        f"pth={seeded_pth}", "--buckets", "1", "--host", "127.0.0.1", "--port", "0"))}
+        f"orbax={seeded['orbax-async']}", "--model", f"pth={seeded_pth}", "--buckets", "1",
+        "--host", "127.0.0.1", "--port", "0"))}
     herlev_root = tmp / "Herlev"
     write_herlev_tree(herlev_root)
     herlev_out = tmp / "msgpack_herlev"
@@ -4871,11 +4904,17 @@ def msgpack_checkpoints(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dic
         str(herlev_out), "--stages", "1", "--epochs", "1", "--batch_size", str(HERLEV_BATCH),
         "--checkpoint_backend", "msgpack"))
     try:
-        launches = predictor_from_directory(seeded_pth, seeded_dir, card)
-        trainer_child.join()
-        assert stopped, "the training command's child did not run"
-        loss_launches, best = msgpack_training(out, mon_root, stopped[0], card)
-        launches.update(loss_launches)
+        launches = predictor_from_directory(seeded_pth, seeded, card)
+        for child in trainer_children:
+            child.join()
+        for form in DIR_FORMS:
+            assert form in stopped, f"the {form} training command's child did not run"
+            loss_launches, form_best = msgpack_training(outs[form], mon_root, stopped[form],
+                                                        form, card)
+            for kernel, n in loss_launches.items():
+                launches[kernel] = launches.get(kernel, 0) + n
+            if form == "msgpack":
+                best = form_best
 
         # test_monuseg on the _best directory and on the same weights as a .pth
         best_pth = tmp / "stage2_best_copy.pth"
@@ -4902,15 +4941,16 @@ def msgpack_checkpoints(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dic
         assert port is not None, "".join(lines)[-4000:]
         image = np.random.default_rng(20).random((256, 256, 3), dtype=np.float32)
         answers = {}
-        for name in ("dir", "pth"):
+        for name in ("dir", "orbax", "pth"):
             status, body = http_call(port, "POST", f"/v1/models/{name}:predict", npy(image),
                                      "application/x-npy")
             assert status == 200, body[:400]
             answers[name] = npz(body)
         for key, value in answers["pth"].items():
-            np.testing.assert_array_equal(answers["dir"][key], value, err_msg=key)
-        log(f"msgpack: serve --model dir={seeded_dir.name} answers as --model "
-            f"pth={seeded_pth.name}, bit for bit ({sorted(answers['dir'])})")
+            for name in ("dir", "orbax"):
+                np.testing.assert_array_equal(answers[name][key], value, err_msg=(name, key))
+        log(f"msgpack, orbax-async: serve --model dir=<msgpack> --model orbax=<orbax-async> "
+            f"answer as --model pth={seeded_pth.name}, bit for bit ({sorted(answers['dir'])})")
     except BaseException:
         herlev_proc.kill()
         herlev_proc.communicate()
@@ -5021,7 +5061,7 @@ def main():
             t0 = time.perf_counter()
             msgpack_launches, phase19 = msgpack_checkpoints(
                 Path(tmp), Path(mon_tmp) / "MoNuSeg", card)
-            log(f"msgpack checkpoints: phase 19 in {time.perf_counter() - t0:.1f} s")
+            log(f"JAX checkpoint forms: phase 19 in {time.perf_counter() - t0:.1f} s")
     for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's; the int8 path's
         launches[kernel] += stack_launches[kernel] + int8_launches[kernel]
     # the int8 path is the bf16-taps instance's main path; the pipeline's epoch, the loss
@@ -5054,8 +5094,8 @@ def main():
         launches[kernel] += n
     for kernel, err in scan_errors.items():
         errors[kernel] = max(errors[kernel], err)
-    # phase 19: a bucket-64 call of the Predictor read from a msgpack directory, and the loss
-    # kernels of the training command resumed from one
+    # phase 19: a bucket-64 call of the Predictor read from each JAX checkpoint directory,
+    # and the loss kernels of the training command resumed from each form
     for kernel, n in msgpack_launches.items():
         launches[kernel] += n
 
@@ -5177,9 +5217,10 @@ def main():
             for label in ("stage1", "augmented", "plain"))
         + f"; capture s {json.dumps(seg['capture_s'])}; agreement "
         f"{json.dumps(seg['agreement'])}; Herlev {json.dumps(herlev_scan)} on {card}")
-    log("msgpack checkpoints (a full-width stage-4 _last, median seconds): " + "; ".join(
-        f"{form} {v['bytes']} bytes, save {v['save_s']:.4f}, restore {v['load_s']:.4f}"
-        for form, v in phase19.items()) + f" on {card}")
+    log("checkpoints (a full-width stage-4 _last, median seconds): " + "; ".join(
+        f"{form} {v['bytes']} bytes, save {v['save_s']:.4f}"
+        + (f", returns {v['return_s']:.4f}" if "return_s" in v else "")
+        + f", restore {v['load_s']:.4f}" for form, v in phase19.items()) + f" on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

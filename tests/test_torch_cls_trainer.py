@@ -17,7 +17,11 @@ from tests.test_torch_herlev_data import write_herlev_tree
 from ugpg_tpu.io.torch_import import import_torch_checkpoint
 from ugpg_tpu_torch.cli import train_herlev
 from ugpg_tpu_torch.data.synthetic import ArrayLoader
-from ugpg_tpu_torch.io.checkpoint import read_checkpoint, save_checkpoint
+from ugpg_tpu_torch.io.checkpoint import (
+    full_classifier_state_dict,
+    read_checkpoint,
+    save_checkpoint,
+)
 from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS
 from ugpg_tpu_torch.models.pgunet import PGUNet1
 from ugpg_tpu_torch.parallel.mesh import make_mesh
@@ -187,8 +191,9 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
     first train step and validates.  The config's scan_epochs and
     scan_chunk_bytes, ported since, train stages 1-2 (scan_epochs through
     the whole-epoch path).  checkpoint_backend="msgpack", ported since,
-    trains stages 1-2 into the JAX package's directories; orbax still
-    raises, with its reason."""
+    trains stages 1-2 into the JAX package's directories; the orbax
+    backends, ported since, write the trained stage's ``_last`` as orbax
+    directories that read back as the model's state."""
     config = kwargs.pop("config", {})
     if set(config) & {"tb_logdir", "remat", "pipeline_unc", "scan_epochs",
                       "scan_chunk_bytes"} or set(kwargs) & {"mesh", "axis_name",
@@ -223,9 +228,20 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
             assert (tmp_path / "out" / f"herlev_stage{stage}_best" / "variables.msgpack"
                     ).is_file() == msgpack
         if msgpack:
+            want = full_classifier_state_dict(tr.models[2].state_dict(), 2)
             for backend in ("orbax", "orbax-async"):
-                with pytest.raises(NotImplementedError, match="not ported.*tensorstore"):
-                    HerlevTrainer(_config(), device="cpu", checkpoint_backend=backend)
+                assert HerlevTrainer(_config(), device="cpu",
+                                     checkpoint_backend=backend).checkpoint_backend == backend
+                tr.checkpoint_backend = backend
+                last = tr._save(tmp_path / backend, "herlev_stage2_last", 2, 2,
+                                history=tr.history)
+                got = read_checkpoint(last)  # waits for the async save
+                assert sorted(p.name for p in last.iterdir()) == [
+                    "metadata.json", "opt_state_orbax", "variables_orbax"]
+                assert got["stage"] == 2 and got["epoch"] == 2
+                for k, v in want.items():
+                    if not k.endswith("num_batches_tracked"):  # flax has no counter
+                        assert torch.equal(got["model_state_dict"][k], v), k
         if "mesh" in kwargs:
             return
         mesh = make_mesh(2, devices=["cpu"] * 2)
@@ -240,7 +256,7 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
 @pytest.mark.parametrize("flags", [
     ["--mesh", "4,2"], ["--scan_epochs"], ["--scan_chunk_mb", "512"], ["--tb_logdir", "tb"],
     ["--remat"], ["--pipeline_unc", "1"], ["--checkpoint_backend", "msgpack"],
-    ["--checkpoint_backend", "orbax"],
+    ["--checkpoint_backend", "orbax"], ["--checkpoint_backend", "orbax-async"],
 ])
 def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys, monkeypatch):
     """Exit 2 naming the flag.  Ported since: --tb_logdir, --remat,
@@ -250,10 +266,11 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
     beside --pipeline_unc exits 2 with the JAX package's ValueError);
     under a coordinator --mesh joins the processes first
     (``init_process_group`` records its call here) and, without a process
-    count, exits 2 before any rendezvous.  --checkpoint_backend msgpack,
+    count, exits 2 before any rendezvous.  --checkpoint_backend msgpack, orbax and
+    orbax-async,
     ported since, reaches the trainer; orbax exits 2 with its reason."""
     if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh", "--scan_epochs",
-                    "--scan_chunk_mb") or flags == ["--checkpoint_backend", "msgpack"]:
+                    "--scan_chunk_mb", "--checkpoint_backend"):
         from ugpg_tpu_torch.train import cls_trainer
 
         seen = {}
@@ -285,7 +302,7 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
         else:
             key = flags[0][2:]
             want = {"tb_logdir": "tb", "remat": True, "pipeline_unc": 1, "scan_epochs": True,
-                    "checkpoint_backend": "msgpack"}
+                    "checkpoint_backend": flags[-1]}
             assert key == "scan_chunk_mb" or seen[key] == want[key]
             assert seen["scan_chunk_bytes"] == (512 << 20 if key == "scan_chunk_mb" else 1 << 30)
             with pytest.raises(KeyboardInterrupt):
@@ -303,8 +320,6 @@ def test_command_flags_outside_the_slice_exit_not_ported(flags, tmp_path, capsys
     err = capsys.readouterr().err
     missing = "no process count" if flags[0] == "--mesh" else "not ported"
     assert info.value.code == 2 and missing in err and flags[0] in err
-    if flags[0] == "--checkpoint_backend":
-        assert "tensorstore" in err
 
 
 def test_command_line_trains_stage_1(tmp_path, monkeypatch):

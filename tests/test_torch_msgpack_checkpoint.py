@@ -25,9 +25,9 @@ stated.
 * Readers: ``Predictor``, the MoNuSeg evaluator and ``test_monuseg --model
   <dir>`` on a JAX-written ``_best`` directory answer as the JAX package's
   own within 1e-4.
-* Refusals and forms: an orbax directory raises with the reason, a
-  directory without ``variables.msgpack`` is no checkpoint, and of a
-  ``.pth`` and a directory of one name the later epoch's is taken.
+* Forms: an orbax save that never committed is no checkpoint, one that did
+  reads back, a directory without either tree is none, and of a ``.pth``
+  and a directory of one name the later epoch's is taken.
 """
 
 import json
@@ -509,20 +509,31 @@ def test_readers_take_a_jax_best_directory(jax_best, tmp_path):
     _metrics_match(res["metrics"], want_metrics)
 
 
-# ---------------------------------------------------------------- refusals and forms
+# ---------------------------------------------------------------- forms
 def test_orbax_and_incomplete_directories(tmp_path):
+    """An orbax save that never committed (its tree still in
+    ``variables_orbax.orbax-checkpoint-tmp``) is no checkpoint; saved again
+    with ``backend="orbax"``, ported since, the directory is one and reads
+    back as the model's state.  A directory with neither tree is none."""
     orbax = tmp_path / "ug_pgunet_stage2_last"
-    (orbax / "variables_orbax").mkdir(parents=True)
+    (orbax / "variables_orbax.orbax-checkpoint-tmp").mkdir(parents=True)
     (orbax / "metadata.json").write_text(json.dumps({"stage": 2, "epoch": 3}))
-    assert not has_checkpoint(orbax)
-    for call in (read_checkpoint, load_checkpoint, lambda p: find_checkpoint(p.parent, p.name)):
-        with pytest.raises(NotImplementedError, match="orbax.*tensorstore"):
+    assert not has_checkpoint(orbax) and find_checkpoint(tmp_path, orbax.name) is None
+    for call in (read_checkpoint, load_checkpoint):
+        with pytest.raises(FileNotFoundError, match="variables_orbax"):
             call(orbax)
-    with pytest.raises(NotImplementedError, match="not ported.*tensorstore"):
-        save_checkpoint(tmp_path / "x", {}, backend="orbax")
+    model = STAGE_MODELS[2](num_classes=1, use_bn=True, width=W)
+    save_checkpoint(orbax, model.state_dict(), backend="orbax", stage=2, epoch=3)
+    assert sorted(p.name for p in orbax.iterdir()) == ["metadata.json", "variables_orbax"]
+    assert has_checkpoint(orbax) and find_checkpoint(tmp_path, orbax.name) == orbax
+    stage, sd = load_checkpoint(orbax)
+    assert stage == 2
+    for k, v in model.state_dict().items():
+        if not k.endswith("num_batches_tracked"):  # flax has no counter
+            assert torch.equal(sd[k], v), k
     bare = tmp_path / "empty"
     bare.mkdir()
-    assert not has_checkpoint(bare) and latest_checkpoint(tmp_path) is None
+    assert not has_checkpoint(bare) and latest_checkpoint(tmp_path, "empty") is None
     with pytest.raises(FileNotFoundError, match="variables.msgpack"):
         read_checkpoint(bare)
 

@@ -29,6 +29,7 @@ from ugpg_tpu_torch.eval.slide import ExportedSlidePredictor, SlidePredictor
 from ugpg_tpu_torch.io.checkpoint import (
     full_classifier_state_dict,
     load_checkpoint,
+    read_checkpoint,
     save_checkpoint,
 )
 from ugpg_tpu_torch.models.classifier import HerlevClassificationModel
@@ -70,7 +71,7 @@ def test_imports_with_jax_and_ugpg_tpu_blocked():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|msgpack|orbax|PIL)\b"  # imports
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|msgpack|orbax|tensorstore|zstandard|PIL)\b"
     r"|\bugpg_tpu\.|\bugpg_tpu\s+import\b|import_module\(\s*['\"]ugpg_tpu['\".]",
     re.MULTILINE,
 )
@@ -153,8 +154,9 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
     and validates.  scan_epochs and scan_chunk_bytes, ported since, train
     two stages (scan_epochs through the whole-epoch path, the cap alone
     through the per-step path).  checkpoint_backend="msgpack", ported
-    since, trains two stages into the JAX package's directories; orbax
-    still raises, with its reason."""
+    since, trains two stages into the JAX package's directories; the orbax
+    backends, ported since, write the trained stage's ``_last`` as orbax
+    directories that read back as the model's state."""
     if set(kwargs) & {"tb_logdir", "remat", "pipeline_unc", "mesh", "shard_model",
                       "axis_name", "scan_epochs", "scan_chunk_bytes", "checkpoint_backend"}:
         monkeypatch.setitem(sys.modules, "tensorflow", None)
@@ -187,10 +189,20 @@ def test_trainer_options_outside_the_slice_raise(kwargs, tmp_path, monkeypatch,
             assert (tmp_path / "out" / f"ug_pgunet_stage{stage}_best" / "variables.msgpack"
                     ).is_file() == msgpack
         if msgpack:
+            want = tr.models[2].state_dict()
             for backend in ("orbax", "orbax-async"):
-                with pytest.raises(NotImplementedError, match="not ported.*tensorstore"):
-                    UncertaintyGuidedProgressiveTrainer(device="cpu", verbose=False,
-                                                        checkpoint_backend=backend)
+                assert UncertaintyGuidedProgressiveTrainer(
+                    device="cpu", verbose=False, checkpoint_backend=backend
+                ).checkpoint_backend == backend
+                tr.checkpoint_backend = backend
+                last = tr._checkpoint(tmp_path / backend, "ug_pgunet_stage2_last", 2, 0)
+                got = read_checkpoint(last)  # waits for the async save
+                assert sorted(p.name for p in last.iterdir()) == [
+                    "metadata.json", "opt_state_orbax", "variables_orbax"]
+                assert got["stage"] == 2 and got["epoch"] == 0
+                for k, v in want.items():
+                    if not k.endswith("num_batches_tracked"):  # flax has no counter
+                        assert torch.equal(got["model_state_dict"][k], v), k
         if "mesh" in kw or "shard_model" in kw:
             return
         mesh = make_mesh(2, devices=["cpu"] * 2)
@@ -348,8 +360,8 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
     command does, and serve exits 2 naming --mesh and the JAX fetch that
     refuses it; --native_finetune fine-tunes the last stage over the mesh
     (native size, the W axis) and without --mesh exits with JAX's message.
-    --checkpoint_backend msgpack, ported since, reaches the trainer;
-    orbax-async exits 2 naming the flag and the reason."""
+    --checkpoint_backend msgpack and orbax-async, ported since, reach the
+    trainer."""
     import torch.distributed as dist
 
     joined = []
@@ -359,8 +371,8 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
                 "--device", "cpu", *flags]
         main = train_monuseg.main
         if flags[0] in ("--tb_logdir", "--remat", "--pipeline_unc", "--mesh",
-                        "--native_finetune", "--scan_epochs", "--scan_chunk_mb") or \
-                flags == ["--checkpoint_backend", "msgpack"]:
+                        "--native_finetune", "--scan_epochs", "--scan_chunk_mb",
+                        "--checkpoint_backend"):
             real = aug_trainer.AugMoNuSegTrainer
             monkeypatch.setattr(aug_trainer, "AugMoNuSegTrainer", _StubTrainer)
             if flags[0] == "--native_finetune":
@@ -388,7 +400,7 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
                              "--pipeline_unc": ("pipeline_unc", 1),
                              "--scan_epochs": ("scan_epochs", True),
                              "--scan_chunk_mb": ("scan_chunk_bytes", 512 << 20),
-                             "--checkpoint_backend": ("checkpoint_backend", "msgpack")}[flags[0]]
+                             "--checkpoint_backend": ("checkpoint_backend", flags[-1])}[flags[0]]
                 assert main(argv).kwargs[key] == want
                 mesh_kwargs = main(argv + ["--mesh", "2"]).kwargs
                 assert mesh_kwargs["mesh"].shape == {"data": 2, "model": 1}
@@ -431,8 +443,6 @@ def test_command_flags_outside_the_slice_exit_not_ported(command, flags, tmp_pat
                           "serve": "ugpg_tpu/eval/serving.py:473"}.get(command)}.get(
         flags[0], "not ported")
     assert info.value.code == 2 and missing in err and flags[0] in err
-    if flags[0] == "--checkpoint_backend":
-        assert "tensorstore" in err
     assert joined == []
 
 

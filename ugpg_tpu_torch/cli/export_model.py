@@ -29,7 +29,7 @@ import sys
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Export a checkpoint as a torch.export serving "
                                             "artifact (PyTorch/CUDA)")
-    p.add_argument("--model", required=True, help="checkpoint (.pth or a msgpack checkpoint "
+    p.add_argument("--model", required=True, help="checkpoint (.pth or a JAX checkpoint "
                                              "directory)")
     p.add_argument("--out", required=True, help="artifact output directory")
     p.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 64])

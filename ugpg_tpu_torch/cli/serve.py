@@ -11,7 +11,7 @@ Endpoints: ``GET /v1/health``, ``GET /v1/models[/<name>]``, ``GET
 /v1/stats``, ``POST /v1/models/<name>:predict`` (``application/x-npy`` or
 ``application/json``), see ``eval/http_server.py``.  Single-image requests
 from concurrent clients share device calls through the micro-batcher.
-Checkpoints (``.pth`` files or msgpack directories, ``io/checkpoint.py``)
+Checkpoints (``.pth`` files or msgpack or orbax directories, ``io/checkpoint.py``)
 serve in their own float32.  Prints ``serving [names] on
 http://HOST:PORT`` once it listens (``--port 0`` picks a free port) and
 stops on SIGINT.  ``--mesh N[,M]`` serves ``--model`` and ``--cls_model``
@@ -57,10 +57,10 @@ def resolve_buckets(buckets, mesh=None) -> list[int]:
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="HTTP serving front end (PyTorch/CUDA)")
     p.add_argument("--model", action="append", default=[], metavar="NAME=CKPT",
-                   help="segmentation checkpoint (.pth or a msgpack checkpoint directory) to "
+                   help="segmentation checkpoint (.pth or a JAX checkpoint directory) to "
                         "serve (repeatable)")
     p.add_argument("--cls_model", action="append", default=[], metavar="NAME=CKPT",
-                   help="classification checkpoint (.pth or a msgpack checkpoint directory) "
+                   help="classification checkpoint (.pth or a JAX checkpoint directory) "
                         "to serve (repeatable)")
     p.add_argument("--slide_model", action="append", default=[], metavar="NAME=CKPT",
                    help="segmentation checkpoint served at native resolution: requests of "

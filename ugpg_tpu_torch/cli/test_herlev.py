@@ -21,7 +21,7 @@ import sys
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Evaluate a trained Herlev classification model (PyTorch/CUDA)")
-    p.add_argument("--model", required=True, help="checkpoint (.pth or a msgpack checkpoint "
+    p.add_argument("--model", required=True, help="checkpoint (.pth or a JAX checkpoint "
                                              "directory)")
     p.add_argument("--data_dir", required=True, help="Herlev dataset root")
     p.add_argument("--split", default="test")

@@ -44,7 +44,7 @@ def resolve_dataset_path(data_arg: str | None) -> str | None:
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate / run inference with a trained "
                                 "UG-PG-UNet on MoNuSeg (PyTorch/CUDA)")
-    p.add_argument("--model", required=True, help="checkpoint (.pth or a msgpack checkpoint "
+    p.add_argument("--model", required=True, help="checkpoint (.pth or a JAX checkpoint "
                                              "directory)")
     p.add_argument("--data", type=str, default=None, help="MoNuSeg root")
     p.add_argument("--split", type=str, default="val")

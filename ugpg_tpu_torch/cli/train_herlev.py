@@ -8,17 +8,15 @@ runs the plain PyTorch path).  One dataset per stage at that stage's
 resolution, the train loader shuffled with seed 42 + stage; class weights
 from the stage-1 training split.  Checkpoints are reference-format
 ``.pth`` files (``--checkpoint_backend pth``, the port's default) or the
-JAX package's msgpack directories (``--checkpoint_backend msgpack``, the
-JAX command's default); ``--resume`` reads either.  ``--tb_logdir DIR``,
+JAX package's directories (``--checkpoint_backend msgpack``, the JAX
+command's default, ``orbax`` or ``orbax-async``); ``--resume`` reads any.  ``--tb_logdir DIR``,
 ``--remat`` and ``--pipeline_unc N`` as in ``train_monuseg`` (one card and
 N = 1 exits 2 with the JAX package's message); with ``--pipeline_unc`` the
 train loaders drop the ragged final batch, as the JAX command's do.
 ``--mesh DATA[,MODEL]`` trains data-parallel (and column-parallel) over a
 mesh, as ``train_monuseg``'s does, across processes under a coordinator.
 ``--scan_epochs`` and ``--scan_chunk_mb`` (default 1024, 0 = unbounded) as
-in ``train_monuseg``.  ``--checkpoint_backend orbax`` or ``orbax-async`` is
-not to be ported: it exits with status 2, a "not ported" message and the
-reason.
+in ``train_monuseg``.
 
 SIGTERM stops the run at the end of the current epoch with a
 ``herlev_stage{S}_last`` written, and ``cli`` exits 75 (EX_TEMPFAIL);
@@ -53,15 +51,15 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="gradient accumulation: each batch (size K*m) as K "
                         "micro-batches with one optimizer update")
     p.add_argument("--resume", action="store_true",
-                   help="resume mid-stage from the herlev_stage{S}_last (.pth or msgpack "
+                   help="resume mid-stage from the herlev_stage{S}_last (.pth or "
                         "directory) a preempted run wrote in output_dir")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the plain PyTorch path)")
     p.add_argument("--checkpoint_backend", default="pth",
                    choices=["pth", "msgpack", "orbax", "orbax-async"],
-                   help="checkpoint format: pth (default; the reference's files) or msgpack "
-                        "(the JAX package's directories, the JAX command's default); orbax "
-                        "is not ported")
+                   help="checkpoint format: pth (default; the reference's files), or the JAX "
+                        "package's directories: msgpack (the JAX command's default), orbax "
+                        "or orbax-async")
     p.add_argument("--tb_logdir", type=str, default=None,
                    help="write per-epoch TensorBoard scalars to this directory")
     p.add_argument("--remat", action="store_true",
@@ -74,7 +72,6 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
                    help="shard over a (data, model) device mesh (e.g. '4,2'; 'auto' = all "
                         "devices data-parallel)")
-    # not to be ported: given, they exit with "not ported"
     p.add_argument("--scan_epochs", action="store_true",
                    help="run each epoch as whole chunks, stacked and moved to the device once, "
                         "the steps replayed from a CUDA graph on one card (eagerly elsewhere); "
@@ -85,18 +82,9 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
-    from ugpg_tpu_torch.io.checkpoint import ORBAX_REASON
-
-    if args.checkpoint_backend.startswith("orbax"):
-        parser.error(f"not ported to ugpg_tpu_torch: --checkpoint_backend "
-                     f"{args.checkpoint_backend}: {ORBAX_REASON}")
-
-
 def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
-    _refuse_not_ported(parser, args)
 
     import torch
 

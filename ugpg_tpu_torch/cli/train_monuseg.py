@@ -6,8 +6,9 @@ Takes the JAX command's flags, plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain PyTorch path), where the JAX package reads
 ``JAX_PLATFORMS``.  Checkpoints are reference-format ``.pth`` files
 (``--checkpoint_backend pth``, the port's default) or the JAX package's
-msgpack directories (``--checkpoint_backend msgpack``, the JAX command's
-default; ``io/checkpoint.py``).  ``--tb_logdir DIR``
+directories: msgpack (``--checkpoint_backend msgpack``, the JAX command's
+default), ``orbax`` or ``orbax-async`` (``io/checkpoint.py``; the command
+returns, and exits 75, only once the async saves have committed).  ``--tb_logdir DIR``
 writes per-epoch TensorBoard scalars, ``--remat`` recomputes every
 DoubleConv in the backward, ``--pipeline_unc N`` runs the frozen previous
 stage on the last N devices (``parallel/pipeline.py``; on ``cuda`` the
@@ -27,9 +28,7 @@ after an interrupt.  ``--scan_epochs`` runs every epoch as whole chunks of
 at most ``--scan_chunk_mb`` MiB (default 1024, 0 = unbounded), stacked and
 moved to the device once, the steps replayed from a CUDA graph on one card
 and run eagerly on the CPU or a mesh (the trainer's ``scan_epochs``).
-``--checkpoint_backend orbax`` or ``orbax-async`` is not to be ported: it
-exits with status 2, a "not ported" message and the reason; no flag is
-ignored.
+No flag is ignored.
 
 ``--resume`` loads every requested stage that has a ``_best`` and no
 ``_last``, and ``train_progressive`` continues mid-stage from the latest
@@ -88,8 +87,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; cpu runs the plain PyTorch path)")
     p.add_argument("--checkpoint_backend", default="pth",
                    choices=["pth", "msgpack", "orbax", "orbax-async"],
-                   help="checkpoint format: pth (default; the reference's files) or msgpack "
-                        "(the JAX package's directories); orbax is not ported")
+                   help="checkpoint format: pth (default; the reference's files), or the JAX "
+                        "package's directories: msgpack, orbax or orbax-async")
     p.add_argument("--accum_steps", type=int, default=1, metavar="K",
                    help="gradient accumulation: each batch (size K*m) as K "
                         "micro-batches with one optimizer update")
@@ -115,7 +114,6 @@ def build_argparser() -> argparse.ArgumentParser:
                         "MoNuSeg full TIFF resolution)")
     p.add_argument("--native_w_axis", action="store_true",
                    help="2-D spatial grid for --native_finetune: W sharded over 'model'")
-    # not to be ported: given, they exit with "not ported"
     p.add_argument("--scan_epochs", action="store_true",
                    help="run each epoch as whole chunks, stacked and moved to the device once, "
                         "the steps replayed from a CUDA graph on one card (eagerly elsewhere); "
@@ -126,18 +124,9 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_not_ported(parser: argparse.ArgumentParser, args) -> None:
-    from ugpg_tpu_torch.io.checkpoint import ORBAX_REASON
-
-    if args.checkpoint_backend.startswith("orbax"):
-        parser.error(f"not ported to ugpg_tpu_torch: --checkpoint_backend "
-                     f"{args.checkpoint_backend}: {ORBAX_REASON}")
-
-
 def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
-    _refuse_not_ported(parser, args)
     config = create_config()
     for key, val in (("data_dir", args.data_dir), ("output_dir", args.output_dir),
                      ("lr", args.lr)):

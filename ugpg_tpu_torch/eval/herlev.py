@@ -1,6 +1,6 @@
 """Herlev classification evaluation (counterpart of ``ugpg_tpu/eval/herlev.py``).
 
-``HerlevEvaluator`` reads a classifier ``.pth`` or msgpack checkpoint
+``HerlevEvaluator`` reads a classifier ``.pth`` or msgpack or orbax checkpoint
 directory (``io/checkpoint.py``; its stage from the
 container, the class count and the binary flag from its ``config``) and
 builds the stage's classifier as ``Predictor`` does: BN folded, the

@@ -1,6 +1,6 @@
 """MoNuSeg evaluation and inference (counterpart of ``ugpg_tpu/eval/monuseg.py``).
 
-* ``MoNuSegEvaluator``: reads a ``.pth`` or a msgpack checkpoint directory
+* ``MoNuSegEvaluator``: reads a ``.pth`` or a msgpack or orbax checkpoint directory
   (``io/checkpoint.py``; its stage from the container, a bare state dict
   is stage 4) and builds the stage's model as ``Predictor``
   does: BN folded, the kernels' weight layouts packed once.  One forward:

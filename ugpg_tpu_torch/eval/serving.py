@@ -169,7 +169,7 @@ class Predictor(_BucketRouter):
         device: str | torch.device | None = None,
         calibration_batches: Iterable[np.ndarray] | None = None,
     ):
-        """``checkpoint``: a reference-format ``.pth``, or a msgpack
+        """``checkpoint``: a reference-format ``.pth``, or a msgpack or orbax
         checkpoint directory that the JAX package or the port wrote
         (``io/checkpoint.py``).
         ``dtype``: compute dtype of the network body (heads stay float32);

@@ -141,7 +141,7 @@ class _SlideBase(_BucketRouter):
 
 class SlidePredictor(_SlideBase):
     """Native-resolution segmentation predictor over a checkpoint (a ``.pth``
-    or a msgpack directory).
+    or a msgpack or orbax directory).
 
     Example:
         p = SlidePredictor("out/ug_pgunet_stage4_best.pth")

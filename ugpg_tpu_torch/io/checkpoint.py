@@ -1,5 +1,6 @@
 """Checkpoints: the reference's ``.pth`` files and the JAX package's
-flax-msgpack directories, read and written both.
+checkpoint directories (flax msgpack, orbax and orbax-async), read and
+written all.
 
 The container is the reference trainer's schema ``{stage, epoch,
 model_state_dict, optimizer_state_dict, val_dice, train_dice,
@@ -18,15 +19,29 @@ bare state dict is stage 4, as the reference's loader assumes.
   as ``lr``).  The bytes are flax's for the same tree (``io/msgpack.py``),
   so the JAX package loads the directory with its own templates and its
   trainers resume from it; ``num_batches_tracked``, which flax lacks,
-  reads back as 0.  The readers (``read_checkpoint``, ``load_checkpoint``,
-  ``has_checkpoint``, ``sniff_stage``) take either form, by the kind of
-  path.  An orbax directory (``variables_orbax/``) raises: see
-  ``ORBAX_REASON``.
+  reads back as 0.
+* ``backend="orbax"``: the same trees and ``metadata.json``, the trees as
+  orbax PyTree directories ``variables_orbax/`` and ``opt_state_orbax/``
+  (``io/orbax.py``: zarr arrays in an OCDBT store, zstd frames), each
+  written beside its name and renamed into place when whole.
+* ``backend="orbax-async"``: the same files, written by one background
+  thread per tree (``"vars"``, ``"opt"``), as the JAX package's
+  ``AsyncCheckpointer``s.  ``save_checkpoint`` returns once the trees are
+  host copies (a tensor on the card is copied by a blocking ``.cpu()``, so
+  the next optimizer step cannot reach the checkpoint); a save waits for
+  the previous save of its tree before it replaces the directory;
+  ``read_checkpoint`` and ``load_checkpoint`` wait for every save, and so
+  does ``wait_for_async_saves()``, which raises a writer's error.
+
+The readers (``read_checkpoint``, ``load_checkpoint``, ``has_checkpoint``,
+``sniff_stage``) take any form, by the kind of path; a directory with
+``variables_orbax/`` reads as orbax, as the JAX package's loader does.
 
 Each file is written beside its name and renamed into place, so a ``.pth``
 that exists is whole; a directory's ``metadata.json`` is removed first and
-written last, so a directory that has it is whole (the JAX trainers'
-resume test).
+written last, so a directory that has it and its variables is whole (the
+JAX trainers' resume test; an orbax-async save writes ``metadata.json``
+before its trees commit, as the JAX package's does).
 
 The reference's Herlev classifier holds a whole ``PGUNet{stage}``, so its
 ``.pth`` carries the decoder's keys too, which its forward never reads.
@@ -42,25 +57,24 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["BACKENDS", "ORBAX_REASON", "save_checkpoint", "load_checkpoint",
+__all__ = ["BACKENDS", "save_checkpoint", "wait_for_async_saves", "load_checkpoint",
            "read_checkpoint", "container_stage", "has_checkpoint", "sniff_stage",
            "latest_checkpoint", "checkpoint_backend_of", "checkpoint_metadata",
            "checkpoint_path", "find_checkpoint", "classifier_decoder_fill",
            "full_classifier_state_dict", "classifier_state_dict"]
 
-BACKENDS = ("pth", "msgpack")
-ORBAX_REASON = (
-    "orbax stores its arrays in tensorstore's format, which needs the orbax and tensorstore "
-    "packages, and the port imports torch, numpy and the standard library only; save with the "
-    "JAX package's backend='msgpack' instead (ROADMAP.md, \"Not to port\")")
-_VARS, _OPT, _META, _ORBAX = "variables.msgpack", "opt_state.msgpack", "metadata.json", \
-    "variables_orbax"
+BACKENDS = ("pth", "msgpack", "orbax", "orbax-async")
+_VARS, _OPT, _META = "variables.msgpack", "opt_state.msgpack", "metadata.json"
+_ORBAX_VARS, _ORBAX_OPT = "variables_orbax", "opt_state_orbax"
 
 
 def _to_cpu(obj):
@@ -107,14 +121,15 @@ def save_checkpoint(path: str | os.PathLike, state_dict: Mapping[str, torch.Tens
     ``train_dice``, ``uncertainty_alpha``, ``history``.
 
     ``backend="pth"``: one file, which appears whole or not at all.
-    ``backend="msgpack"``: the JAX package's directory (see the module's
-    docstring); a torch ``optimizer_state_dict`` is converted to the optax
-    tree with ``param_names``, the state-dict names of the optimizer's
-    parameters in its order (``train.optim.param_names``); an optax tree is
-    written as it is."""
+    ``backend="msgpack"``, ``"orbax"``, ``"orbax-async"``: the JAX
+    package's directory (see the module's docstring); a torch
+    ``optimizer_state_dict`` is converted to the optax tree with
+    ``param_names``, the state-dict names of the optimizer's parameters in
+    its order (``train.optim.param_names``); an optax tree is written as it
+    is."""
     path = Path(path)
-    if checkpoint_backend_of(backend) == "msgpack":
-        return _save_directory(path, state_dict, param_names, metadata)
+    if checkpoint_backend_of(backend) != "pth":
+        return _save_directory(path, state_dict, param_names, metadata, backend)
     path.parent.mkdir(parents=True, exist_ok=True)
     obj = _to_cpu({**metadata, "model_state_dict": dict(state_dict)})
     tmp = path.with_name(path.name + f".{os.getpid()}.tmp")
@@ -124,20 +139,76 @@ def save_checkpoint(path: str | os.PathLike, state_dict: Mapping[str, torch.Tens
 
 
 def checkpoint_backend_of(backend: str) -> str:
-    """``backend`` if the port writes it; orbax raises
-    ``NotImplementedError`` with ``ORBAX_REASON``, anything else
-    ``ValueError``."""
+    """``backend`` if it is one of ``BACKENDS``, else ``ValueError``."""
     if backend in BACKENDS:
         return backend
-    if backend in ("orbax", "orbax-async"):
-        raise NotImplementedError(f"checkpoint_backend={backend!r} is not ported to "
-                                  f"ugpg_tpu_torch: {ORBAX_REASON}")
     raise ValueError(f"unknown checkpoint backend: {backend!r}")
 
 
-def _save_directory(path: Path, state_dict, param_names, metadata: dict) -> Path:
+class _AsyncWriter:
+    """One background thread that writes one kind of tree; a writer's error
+    is raised by the next ``wait``."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(1)
+        self._pending: Future | None = None
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def submit(self, target: Path, tree) -> None:
+        self.wait()
+        old = target.with_name(target.name + ".replaced")
+        if target.exists():  # no old tree beside the new metadata; deleted off this thread
+            shutil.rmtree(old, ignore_errors=True)
+            os.rename(target, old)
+        self._pending = self._pool.submit(self._write, target, tree, old)
+
+    @staticmethod
+    def _write(target: Path, tree, old: Path) -> None:
+        from ugpg_tpu_torch.io import orbax
+
+        shutil.rmtree(old, ignore_errors=True)
+        orbax.write_pytree(target, tree)
+
+
+_writers_lock = threading.Lock()
+_WRITERS: dict[str, _AsyncWriter] = {}
+
+
+def _writer(kind: str) -> _AsyncWriter:
+    with _writers_lock:
+        return _WRITERS.setdefault(kind, _AsyncWriter())
+
+
+def wait_for_async_saves() -> None:
+    """Block until every orbax-async save has committed; raise the first
+    error a writer met."""
+    with _writers_lock:
+        writers = list(_WRITERS.values())
+    errors = []
+    for w in writers:
+        try:
+            w.wait()
+        except Exception as e:  # every writer is waited for before one error is raised
+            errors.append(e)
+    if errors:
+        raise errors[0]
+
+
+def _host_copy(tree):
+    """A nested dict of numpy arrays that shares no memory with ``tree``."""
+    if isinstance(tree, Mapping):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    return np.array(tree, order="C")
+
+
+def _save_directory(path: Path, state_dict, param_names, metadata: dict, backend: str) -> Path:
     from ugpg_tpu_torch.io.from_jax import jax_variables_from_state_dict
     from ugpg_tpu_torch.io.msgpack import to_bytes
+    from ugpg_tpu_torch.io.orbax import write_pytree
     from ugpg_tpu_torch.train.optim import is_jax_optimizer_state, optimizer_state_to_jax
 
     metadata = dict(metadata)
@@ -145,19 +216,36 @@ def _save_directory(path: Path, state_dict, param_names, metadata: dict) -> Path
         state_dict = classifier_state_dict(state_dict, container_stage(metadata))
     variables = jax_variables_from_state_dict(state_dict)
     opt = metadata.pop("optimizer_state_dict", None)
-    if opt is not None and not is_jax_optimizer_state(opt):
+    if opt is not None and is_jax_optimizer_state(opt):
+        opt = _host_copy(opt)  # a tree given as it is may be changed in place later
+    elif opt is not None:
         if param_names is None:
-            raise ValueError("a msgpack checkpoint of a torch optimizer state needs "
+            raise ValueError(f"a {backend} checkpoint of a torch optimizer state needs "
                              "param_names")
         metadata["lr"] = float(opt["param_groups"][0]["lr"])
         opt = optimizer_state_to_jax(opt, param_names, variables["params"])
     path.mkdir(parents=True, exist_ok=True)
     (path / _META).unlink(missing_ok=True)  # the directory is whole again once it is back
-    _write(path / _VARS, to_bytes(variables))
-    if opt is not None:
-        _write(path / _OPT, to_bytes(opt))
-    else:
-        (path / _OPT).unlink(missing_ok=True)
+    trees = ((path / _ORBAX_VARS, path / _VARS, "vars", variables),
+             (path / _ORBAX_OPT, path / _OPT, "opt", opt))
+    for folder, file, kind, tree in trees:
+        if backend == "msgpack":
+            _writer(kind).wait()  # an orbax-async save of this tree must not land after
+            shutil.rmtree(folder, ignore_errors=True)
+            if tree is not None:
+                _write(file, to_bytes(tree))
+            else:
+                file.unlink(missing_ok=True)
+            continue
+        file.unlink(missing_ok=True)
+        if backend == "orbax-async" and tree is not None:
+            _writer(kind).submit(folder, tree)
+        else:
+            _writer(kind).wait()
+            if tree is not None:
+                write_pytree(folder, tree)
+            else:
+                shutil.rmtree(folder, ignore_errors=True)
     _write(path / _META, json.dumps(_json_plain(metadata), indent=2).encode())
     return path
 
@@ -165,26 +253,33 @@ def _save_directory(path: Path, state_dict, param_names, metadata: dict) -> Path
 def _read_directory(path: Path) -> dict[str, Any]:
     from ugpg_tpu_torch.io.from_jax import state_dict_from_jax
     from ugpg_tpu_torch.io.msgpack import msgpack_restore
+    from ugpg_tpu_torch.io.orbax import read_pytree
 
-    if not (path / _VARS).is_file():
-        if (path / _ORBAX).exists():
-            raise NotImplementedError(f"{path}: {ORBAX_REASON}")
-        raise FileNotFoundError(f"{path}: no {_VARS}, not a checkpoint directory")
-    obj = {**checkpoint_metadata(path), "model_state_dict": state_dict_from_jax(
-        msgpack_restore((path / _VARS).read_bytes()))}
+    wait_for_async_saves()  # a just-written orbax-async checkpoint must be whole
+    if (path / _ORBAX_VARS).is_dir():
+        variables = read_pytree(path / _ORBAX_VARS)
+        opt = read_pytree(path / _ORBAX_OPT) if (path / _ORBAX_OPT).is_dir() else None
+    elif (path / _VARS).is_file():
+        variables = msgpack_restore((path / _VARS).read_bytes())
+        opt = msgpack_restore((path / _OPT).read_bytes()) if (path / _OPT).is_file() else None
+    else:
+        raise FileNotFoundError(f"{path}: no {_VARS} and no {_ORBAX_VARS}/, not a checkpoint "
+                                "directory")
+    obj = {**checkpoint_metadata(path), "model_state_dict": state_dict_from_jax(variables)}
     if _is_classifier(obj["model_state_dict"]):
         obj["model_state_dict"] = full_classifier_state_dict(obj["model_state_dict"],
                                                              container_stage(obj))
-    if (path / _OPT).is_file():
-        obj["optimizer_state_dict"] = msgpack_restore((path / _OPT).read_bytes())
+    if opt is not None:
+        obj["optimizer_state_dict"] = opt
     return obj
 
 
 def read_checkpoint(path: str | os.PathLike) -> dict[str, Any]:
     """The whole container as a dict (a bare state dict comes back as
     ``{'model_state_dict': ...}``), tensors on the CPU.  ``path`` is a
-    ``.pth`` file or a msgpack directory; a directory's optimizer state is
-    the optax tree (``train.optim.load_optimizer_state`` takes it)."""
+    ``.pth`` file or a msgpack or orbax directory (read once every
+    orbax-async save has committed); a directory's optimizer state is the
+    optax tree (``train.optim.load_optimizer_state`` takes it)."""
     if Path(path).is_dir():
         return _read_directory(Path(path))
     obj = torch.load(path, map_location="cpu", weights_only=True)
@@ -209,9 +304,11 @@ def load_checkpoint(path: str | os.PathLike) -> tuple[int, dict[str, torch.Tenso
 
 def has_checkpoint(path: str | os.PathLike) -> bool:
     """True if ``path`` is a checkpoint file or a directory with
-    ``variables.msgpack`` (the JAX package's test)."""
+    ``variables.msgpack`` or a committed ``variables_orbax/`` (the JAX
+    package's test: an orbax-async save still in flight has neither)."""
     path = Path(path)
-    return path.is_file() or (path / _VARS).is_file()
+    return (path.is_file() or (path / _VARS).is_file()
+            or (path / _ORBAX_VARS / "_METADATA").is_file())
 
 
 def sniff_stage(path: str | os.PathLike, default: int = 4) -> int:
@@ -239,13 +336,11 @@ def checkpoint_metadata(path: str | os.PathLike) -> dict[str, Any]:
 
 def find_checkpoint(directory: str | os.PathLike, name: str) -> Path | None:
     """The whole checkpoint ``name`` in ``directory`` in either form:
-    ``name.pth``, or the directory ``name`` with its ``metadata.json``.
-    Where both are there, the later epoch's (then the later written); an
-    orbax directory raises (``ORBAX_REASON``)."""
+    ``name.pth``, or the directory ``name`` with its ``metadata.json`` and
+    committed variables.  Where both are there, the later epoch's (then the
+    later written)."""
     pth, folder = checkpoint_path(directory, name, "pth"), checkpoint_path(directory, name,
                                                                             "msgpack")
-    if folder.is_dir() and not (folder / _VARS).is_file() and (folder / _ORBAX).exists():
-        raise NotImplementedError(f"{folder}: {ORBAX_REASON}")
     found = [p for p in (pth, folder)
              if p.is_file() or (has_checkpoint(p) and (p / _META).is_file())]
     if len(found) < 2:

@@ -138,17 +138,19 @@ def jax_leaf(name: str) -> tuple[str, ...] | None:
 def to_jax_layout(value) -> np.ndarray:
     """A port tensor in flax's layout: OIHW -> HWIO, (out, in) -> (in, out);
     a C-ordered host copy with the tensor's dtype (a tensor is permuted
-    where it lives, then copied)."""
+    where it lives, then copied; a copy even where nothing moved, so that
+    the value may change in place after the call)."""
     if isinstance(value, torch.Tensor):
         t = value.detach()
         t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t() if t.dim() == 2 else t
-        return t.contiguous().cpu().numpy()
+        out = t.contiguous().cpu()
+        return (out.clone() if out.data_ptr() == t.data_ptr() else out).numpy()
     arr = np.asarray(value)
     if arr.ndim == 4:
         arr = arr.transpose(2, 3, 1, 0)
     elif arr.ndim == 2:
         arr = arr.T
-    return np.ascontiguousarray(arr)
+    return np.array(arr, order="C")
 
 
 def jax_variables_from_state_dict(state_dict: Mapping[str, Any]) -> dict[str, Any]:

@@ -1,8 +1,10 @@
 """ctypes bindings for the port's host C++: the polygon rasterizers, the
 PNG, TIFF and BMP decoders (copies of ``rasterize.cpp``, ``png_decode.cpp``,
 ``tiff_decode.cpp`` and ``bmp_decode.cpp`` of the JAX package, the
-rasterizer extended with Pillow's polygon fill) and Pillow's Gaussian blur
-(``gaussian_blur.cpp``, for the offline augmentation).
+rasterizer extended with Pillow's polygon fill), Pillow's Gaussian blur
+(``gaussian_blur.cpp``, for the offline augmentation) and zstd frames and
+CRC-32C for orbax checkpoints (``zstd.cpp``, linked to the system's
+``libzstd.so.1``).
 
 Each source compiles at first use with ``g++`` into its own shared library
 under ``ugpg_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
@@ -36,6 +38,9 @@ __all__ = [
     "decode_bmp",
     "image_hw",
     "gaussian_blur",
+    "zstd_compress",
+    "zstd_decompress",
+    "crc32c",
 ]
 
 _HERE = Path(__file__).resolve().parent
@@ -44,7 +49,7 @@ BUILD_DIR = _HERE.parent / "_build"
 # fuse a multiply and an add
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 _LDFLAGS = {"rasterize": ("-lpthread",), "png_decode": ("-lz",), "tiff_decode": ("-lz",),
-            "bmp_decode": (), "gaussian_blur": ()}
+            "bmp_decode": (), "gaussian_blur": (), "zstd": ("-l:libzstd.so.1",)}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -79,7 +84,18 @@ _SIGNATURES = {
         "gaussian_blur_rgb8": [_P_U8, _P_U8, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
                                ctypes.c_float, ctypes.c_int],
     },
+    "zstd": {
+        "zstd_version": [],
+        "zstd_compress_bound": [ctypes.c_int64],
+        "zstd_compress": [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int64, ctypes.c_int],
+        "zstd_content_size": [_P_U8, ctypes.c_int64],
+        "zstd_decompress": [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int64, _P_I64],
+        "crc32c": [_P_U8, ctypes.c_int64, ctypes.c_uint32],
+    },
 }
+# return types other than the decoders' int status
+_RESTYPES = {"zstd_compress_bound": ctypes.c_int64, "zstd_compress": ctypes.c_int64,
+             "zstd_content_size": ctypes.c_int64, "crc32c": ctypes.c_uint32}
 
 
 def _library_path(name: str) -> Path:
@@ -128,7 +144,8 @@ def _library(name: str) -> ctypes.CDLL:
             for symbol, argtypes in _SIGNATURES[name].items():
                 fn = getattr(lib, symbol)
                 fn.argtypes = argtypes
-                fn.restype = None if name == "rasterize" else ctypes.c_int
+                fn.restype = (None if name == "rasterize"
+                              else _RESTYPES.get(symbol, ctypes.c_int))
             _libs[name] = lib
         return lib
 
@@ -273,3 +290,59 @@ def gaussian_blur(image: np.ndarray, radius: float) -> np.ndarray:
     if rc != 0:
         raise ValueError(f"gaussian_blur: radius {radius} out of range, or an empty image")
     return out
+
+
+# ---------------------------------------------------------------- zstd, CRC-32C
+def _bytes_view(data) -> np.ndarray:
+    """A uint8 view of any bytes-like object (no copy)."""
+    return np.frombuffer(memoryview(data).cast("B"), np.uint8)
+
+
+def zstd_compress(data, level: int = 1) -> np.ndarray:
+    """One zstd frame of ``data`` (bytes-like) at ``level``, with its
+    content size: a uint8 array."""
+    lib = _library("zstd")
+    src = _bytes_view(data)
+    out = np.empty(lib.zstd_compress_bound(src.size), np.uint8)
+    n = lib.zstd_compress(out.ctypes.data_as(_P_U8), out.size, src.ctypes.data_as(_P_U8),
+                          src.size, level)
+    if n < 0:
+        raise ValueError(f"zstd: level {level} refused")
+    return out[:n]
+
+
+def zstd_decompress(data, size: int | None = None) -> np.ndarray:
+    """Every zstd frame of ``data`` (bytes-like), decoded: a uint8 array.
+    With ``size``, the frames must decode to exactly that many bytes;
+    without it, to the first frame's declared content size, or to however
+    many they hold.  Corrupt frames raise ``ValueError``."""
+    lib = _library("zstd")
+    src = _bytes_view(data)
+    ptr = src.ctypes.data_as(_P_U8)
+    if size is None:
+        declared = lib.zstd_content_size(ptr, src.size)
+        if declared == -2:
+            raise ValueError("zstd: not a zstd frame")
+        cap = declared if declared >= 0 else max(4 * src.size, 1 << 16)
+    else:
+        cap = size
+    written = ctypes.c_int64()
+    while True:
+        out = np.empty(cap, np.uint8)
+        rc = lib.zstd_decompress(out.ctypes.data_as(_P_U8), cap, ptr, src.size,
+                                 ctypes.byref(written))
+        if rc == 1 and size is None:
+            cap *= 2
+            continue
+        if rc != 0:
+            raise ValueError("zstd: corrupt frame" if rc < 0 else
+                             f"zstd: the frames hold more than the {size} bytes expected")
+        if size is not None and written.value != size:
+            raise ValueError(f"zstd: the frames hold {written.value} bytes, {size} expected")
+        return out[:written.value]
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of ``data`` (bytes-like), continuing ``crc``."""
+    src = _bytes_view(data)
+    return _library("zstd").crc32c(src.ctypes.data_as(_P_U8), src.size, crc)

@@ -11,8 +11,8 @@
   or msgpack directory into a stage's encoder and freezes it
   (``freeze_subtrees``)
 * per stage the best-validation-accuracy ``herlev_stage{S}_best.pth`` with
-  the config (reference schema and key set; ``checkpoint_backend="msgpack"``:
-  the JAX package's directory ``herlev_stage{S}_best``, and so for every
+  the config (reference schema and key set; ``checkpoint_backend="msgpack"``,
+  ``"orbax"`` or ``"orbax-async"``: the JAX package's directory ``herlev_stage{S}_best``, and so for every
   checkpoint below; resume reads either form), early stopping after 15
   epochs without improvement, ``training_log.csv``, the history JSON, and
   the NaN guard (``herlev_stage{S}_diverged.pth``, then
@@ -61,6 +61,7 @@ from ugpg_tpu_torch.io.checkpoint import (
     full_classifier_state_dict,
     read_checkpoint,
     save_checkpoint,
+    wait_for_async_saves,
 )
 from ugpg_tpu_torch.models.blocks import DoubleConv, init_parameters
 from ugpg_tpu_torch.models.classifier import CLS_STAGE_RESOLUTIONS, HerlevClassificationModel
@@ -194,9 +195,10 @@ class HerlevTrainer:
         (on a card such a trainer takes the capturable optimizer for every
         step, ``train/optim.py``).
 
-        ``checkpoint_backend``: ``"pth"`` (the port's default) or
-        ``"msgpack"`` (the JAX package's directories); orbax raises
-        ``NotImplementedError`` with the reason.  ``pipeline_unc`` with a
+        ``checkpoint_backend``: ``"pth"`` (the port's default),
+        ``"msgpack"``, ``"orbax"`` or ``"orbax-async"`` (the JAX package's
+        directories; the trainer waits for the async saves before it raises
+        or returns).  ``pipeline_unc`` with a
         ``mesh`` raises ``ValueError``."""
         self.config = dict(config)
         self.device = resolve_device(device)
@@ -629,6 +631,7 @@ class HerlevTrainer:
                             save_path, f"herlev_stage{stage}_diverged", stage, epoch + 1,
                             diverged_metrics={k: repr(v) for k, v in bad.items()},
                             history=self.history)
+                        wait_for_async_saves()
                         raise TrainingDivergedError(stage, epoch + 1, bad, ckpt)
 
                 # strict > as the reference, but at least one checkpoint a stage
@@ -672,6 +675,7 @@ class HerlevTrainer:
                 {"stage": stage, "best_val_acc": best_val_acc, "best_val_loss": best_val_loss})
             self._print(f"Stage {stage} completed. Best Val Acc: {best_val_acc:.2f}%")
 
+        wait_for_async_saves()  # durable checkpoints before returning
         tb.close()
         hist_path = save_path / "training_history.json"
         if writer:

@@ -7,9 +7,9 @@
 * BCE-with-logits(pos_weight=5) base loss, weighted by ``1 + alpha A`` where
   A comes from the frozen previous stage (stages > 1)
 * weight transfer at stage entry; the best-val-Dice checkpoint per stage,
-  as a reference-format ``.pth`` (``checkpoint_backend="msgpack"``: the
-  JAX package's directory of the same name without ``.pth``,
-  ``io/checkpoint.py``); history, ``training_log.csv``, plots (with
+  as a reference-format ``.pth`` (``checkpoint_backend="msgpack"``,
+  ``"orbax"`` or ``"orbax-async"``: the JAX package's directory of the
+  same name without ``.pth``, ``io/checkpoint.py``); history, ``training_log.csv``, plots (with
   matplotlib) and the uncertainty analysis JSON
 * ``checkpoint_every=N``: a rolling ``ug_pgunet_stage{S}_last.pth``
   (weights, optimizer state, epoch, history); ``resume=True`` continues
@@ -59,6 +59,7 @@ from ugpg_tpu_torch.io.checkpoint import (
     load_checkpoint,
     read_checkpoint,
     save_checkpoint,
+    wait_for_async_saves,
 )
 from ugpg_tpu_torch.models.blocks import DoubleConv, init_parameters
 from ugpg_tpu_torch.models.pgunet import STAGE_MODELS
@@ -164,9 +165,10 @@ class UncertaintyGuidedProgressiveTrainer:
         initialisation.  ``nan_guard``: a NaN/Inf epoch loss saves a
         ``*_diverged`` checkpoint and raises ``TrainingDivergedError``.
         ``checkpoint_backend``: ``"pth"`` (the reference's files, the
-        port's default) or ``"msgpack"`` (the JAX package's directories,
-        its default); orbax raises ``NotImplementedError`` with the reason
-        (``io.checkpoint.ORBAX_REASON``).
+        port's default), ``"msgpack"`` (the JAX package's directories,
+        its default), ``"orbax"`` or ``"orbax-async"`` (its orbax
+        directories; the trainer waits for the async saves before it
+        raises or returns).
         ``device``: ``cuda`` unless given; raises without CUDA.
         ``dtype``: None or float32, or bfloat16 compute (parameters and
         optimizer state stay float32).
@@ -644,6 +646,7 @@ class UncertaintyGuidedProgressiveTrainer:
                         ckpt = self._checkpoint(
                             save_path, f"ug_pgunet_stage{stage}_diverged", stage, epoch,
                             diverged_metrics={k: repr(v) for k, v in bad.items()})
+                        wait_for_async_saves()
                         raise TrainingDivergedError(stage, epoch + 1, bad, ckpt)
                 if va_dice > best_val_dice:
                     best_val_dice = va_dice
@@ -661,6 +664,7 @@ class UncertaintyGuidedProgressiveTrainer:
                         f"rolling checkpoint saved at stage {stage}, epoch {epoch + 1}; "
                         "restart with resume=True to continue")
                     break
+        wait_for_async_saves()  # durable checkpoints before returning
         tb.close()
         self._print("Uncertainty-guided progressive training "
                     + ("preempted — resumable from the _last checkpoint"
@@ -754,6 +758,7 @@ class UncertaintyGuidedProgressiveTrainer:
                             optimizer_state_dict=optimizer.state_dict(),
                             stage=stage, native_finetune=True, epochs=epochs,
                             uncertainty_alpha=self.uncertainty_alpha, history=hist)
+            wait_for_async_saves()
         distributed.barrier()
         return hist
 

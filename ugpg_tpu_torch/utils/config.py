@@ -5,9 +5,9 @@ Dataclasses for the two workloads with the reference's defaults,
 ``load_config``.  The JSON is the JAX package's: a file either package
 writes loads in the other.  ``checkpoint_backend`` names a backend the
 port's trainers take: ``msgpack`` (the JAX package's directories, this
-config's default as it is the JAX package's) or ``pth``; ``orbax`` is not
-ported (``io/checkpoint.py::ORBAX_REASON``).  The port's trainers and
-commands themselves default to ``pth``.
+config's default as it is the JAX package's), ``orbax``, ``orbax-async``
+(its orbax directories) or ``pth``.  The port's trainers and commands
+themselves default to ``pth``.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ class SegTrainConfig:
     # distribution + checkpoint backend (exposed as --mesh /
     # --checkpoint_backend on the train CLIs; see cli/train_monuseg.py)
     mesh: str | None = None  # "DATA,MODEL" or "auto"; None = single device
-    checkpoint_backend: str = "msgpack"  # msgpack | pth (orbax, orbax-async: not ported)
+    checkpoint_backend: str = "msgpack"  # msgpack | pth | orbax | orbax-async
 
     def stage_configs(self) -> dict[int, dict]:
         res = {1: 32, 2: 64, 3: 128, 4: 256}
