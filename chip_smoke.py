@@ -298,7 +298,20 @@
    full-width stage-4 _last (weights, RMSprop state, history) as a .pth and
    as a directory of each form, the median of 3 in turns; for orbax-async
    also the seconds until save_checkpoint returns (the host snapshot).
-20. Prints a "kernels" JSON line, then as its last line
+20. The .pth conversion commands on phase 19's files, TF32 off.
+   export_torch in children on phase 19's seeded stage-4 msgpack and orbax
+   directories: exit 0, each .pth's tensors the directory's decoded state
+   dict bit for bit with int64 zero num_batches_tracked, and a bucket-64
+   bf16 Predictor from each .pth answering as from its directory bit for
+   bit, each call launching 9 double-conv, 4 upsample and 1 uncertainty
+   kernels.  import_torch in a child on phase 5's seeded .pth: exit 0, its
+   variables.msgpack decoded equal to the .pth's tensors bit for bit, and
+   test_monuseg on the imported directory giving the .pth's metrics with
+   the same launches.  export_torch --task classification of phase 19's
+   Herlev _best directory: test_herlev on the .pth gives the directory's
+   results with the same launches.  Logs whether matplotlib is present and
+   the plot files the evaluation wrote (none without it).
+21. Prints a "kernels" JSON line, then as its last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failure raises and exits non-zero without the last line.  Without
@@ -4971,7 +4984,145 @@ def msgpack_checkpoints(tmp: Path, mon_root: Path, card: str) -> tuple[dict, dic
     log(f"msgpack: train_herlev --checkpoint_backend msgpack (stage 1, one epoch) wrote "
         f"{herlev_best.name}/; test_herlev on it: accuracy {herlev_res['accuracy']:.4f}")
     times = save_load_times(tmp, sd, card)
-    return launches, times
+    files = {"pth": seeded_pth, "dirs": seeded, "herlev_best": herlev_best,
+             "herlev_root": herlev_root}
+    return launches, times, files
+
+
+# ------------------------------------------------------------ phase 20: .pth conversion commands
+def conversion_children(tmp: Path, files: dict) -> tuple[dict, dict]:
+    """export_torch on the seeded msgpack and orbax directories and on the
+    Herlev _best directory (classification), import_torch on the seeded
+    .pth: four children at once, each exiting 0.  -> (the written paths,
+    each command's seconds)."""
+    out = {"msgpack": tmp / "exported_msgpack.pth", "orbax": tmp / "exported_orbax.pth",
+           "herlev": tmp / "exported_herlev.pth", "imported": tmp / "imported_stage4"}
+    cmds = {form: port_command("ugpg_tpu_torch.cli.export_torch", "--ckpt",
+                               str(files["dirs"][form]), "--out", str(out[form]))
+            for form in ("msgpack", "orbax")}
+    cmds["herlev"] = port_command("ugpg_tpu_torch.cli.export_torch", "--ckpt",
+                                  str(files["herlev_best"]), "--out", str(out["herlev"]),
+                                  "--task", "classification")
+    cmds["imported"] = port_command("ugpg_tpu_torch.cli.import_torch", "--pth",
+                                    str(files["pth"]), "--out", str(out["imported"]))
+    t0 = time.perf_counter()
+    procs = {name: start_command(cmd) for name, cmd in cmds.items()}
+    seconds = {}
+    try:
+        for name, proc in procs.items():
+            finish_command(proc, f"{cmds[name][3]} ({name})", timeout=300)
+            seconds[name] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out, seconds
+
+
+def assert_reference_pth(got: dict, want: dict, label: str) -> None:
+    """``got`` (an exported .pth's state dict) equals ``want`` bit for bit,
+    each BN's num_batches_tracked an int64 zero."""
+    assert set(got) == set(want), (label, sorted(set(got) ^ set(want))[:8])
+    for key, value in want.items():
+        assert got[key].dtype == value.dtype and torch.equal(got[key], value), (label, key)
+        if key.endswith("num_batches_tracked"):
+            assert got[key].dtype == torch.int64 and int(got[key]) == 0, (label, key)
+
+
+def pth_conversions(tmp: Path, mon_root: Path, files: dict, card: str) -> dict:
+    """Phase 20: the .pth conversion commands on phase 19's files (its
+    seeded .pth and directories, its Herlev _best directory and tree) on the
+    card.  -> the kernel launches of the main path's calls."""
+    import importlib.util
+
+    from ugpg_tpu_torch.io.from_jax import state_dict_from_jax
+    from ugpg_tpu_torch.io.msgpack import msgpack_restore
+
+    out, seconds = conversion_children(tmp, files)
+    log("conversions: export_torch (msgpack, orbax, Herlev classification) and import_torch in "
+        "four children at once, exit 0, done after "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + f" on {card}")
+    launches: dict = {}
+    _lib.reset_launch_counts()
+
+    # the exported .pth files against their directories, and a Predictor from each
+    images = np.random.default_rng(19).random((MSG_BUCKET, 256, 256, 3), dtype=np.float32)
+    for form in ("msgpack", "orbax"):
+        folder = files["dirs"][form]
+        exported = torch.load(out[form], map_location="cpu", weights_only=True)
+        assert exported["stage"] == 4 and exported["epoch"] == 0, (form, exported["stage"])
+        assert_reference_pth(exported["model_state_dict"],
+                             read_checkpoint(folder)["model_state_dict"], form)
+        from_dir = Predictor(str(folder), buckets=(MSG_BUCKET,), dtype=torch.bfloat16)
+        want = from_dir(images)
+        del from_dir
+        from_pth = Predictor(str(out[form]), buckets=(MSG_BUCKET,), dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        drain_launches(launches)
+        got = from_pth(images)
+        torch.cuda.synchronize()
+        counts = _lib.launch_counts()
+        drain_launches(launches)
+        del from_pth
+        assert_same(got, want, f"Predictor from the .pth exported from the {form} directory")
+        check_response(got, MSG_BUCKET)
+        assert counts == {"fused_double_conv": 9, "upsample2x": 4,
+                          "uncertainty_from_logits": 1}, (form, counts)
+        log(f"conversions: export_torch of the seeded {form} directory: "
+            f"{out[form].stat().st_size} bytes, tensors the directory's bit for bit; bucket-"
+            f"{MSG_BUCKET} bf16 Predictor from it equal to the directory's bit for bit, one "
+            f"call's launches {json.dumps(counts)} on {card}")
+
+    # import_torch: the directory decodes to the .pth's tensors; test_monuseg on both
+    imported = out["imported"]
+    assert sorted(p.name for p in imported.iterdir()) == ["metadata.json", "variables.msgpack"]
+    meta = json.loads((imported / "metadata.json").read_text())
+    assert meta["stage"] == 4 and meta["imported_from"] == str(files["pth"]), meta
+    decoded = state_dict_from_jax(msgpack_restore((imported / "variables.msgpack").read_bytes()))
+    _, pth_sd = load_checkpoint(files["pth"])
+    assert_reference_pth(decoded, pth_sd, "imported")
+    results, counts = {}, {}
+    for label, model in (("dir", imported), ("pth", files["pth"])):
+        drain_launches(launches)
+        results[label] = test_monuseg.main([
+            "--model", str(model), "--data", str(mon_root), "--eval_full", "--output_dir",
+            str(tmp / f"imported_eval_{label}")])["metrics"]
+        torch.cuda.synchronize()
+        counts[label] = _lib.launch_counts()
+        drain_launches(launches)
+    assert results["dir"] == results["pth"] and results["dir"]["stage"] == 4, results
+    assert counts["dir"] == counts["pth"] and counts["dir"].get("fused_double_conv"), counts
+    log(f"conversions: import_torch of the seeded .pth: variables.msgpack decoded equal to its "
+        f"tensors bit for bit; test_monuseg on the directory equals it on the .pth: dice_mean "
+        f"{results['dir']['dice_mean']:.6f}, launches {json.dumps(counts['dir'])} each on {card}")
+
+    # Herlev: the classifier exported from phase 19's _best directory
+    exported = torch.load(out["herlev"], map_location="cpu", weights_only=True)
+    assert exported["stage"] == 1 and exported["config"]["stage"] == 1, exported["config"]
+    assert_reference_pth(exported["model_state_dict"],
+                         read_checkpoint(files["herlev_best"])["model_state_dict"], "herlev")
+    has_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    results, counts, plots = {}, {}, {}
+    for label, model in (("dir", files["herlev_best"]), ("pth", out["herlev"])):
+        eval_dir = tmp / f"exported_herlev_eval_{label}"
+        drain_launches(launches)
+        results[label] = test_herlev.main(["--model", str(model), "--data_dir",
+                                           str(files["herlev_root"]), "--output_dir",
+                                           str(eval_dir)])
+        torch.cuda.synchronize()
+        counts[label] = _lib.launch_counts()
+        drain_launches(launches)
+        plots[label] = sorted(p.name for p in eval_dir.glob("*.png"))
+    assert results["dir"] == results["pth"] and np.isfinite(results["pth"]["accuracy"]), results
+    assert counts["dir"] == counts["pth"] and counts["dir"].get("fused_double_conv"), counts
+    assert plots["dir"] == plots["pth"] and bool(plots["pth"]) == has_matplotlib, plots
+    log(f"conversions: export_torch --task classification of {files['herlev_best'].name}: "
+        f"test_herlev on the .pth equals it on the directory (accuracy "
+        f"{results['pth']['accuracy']:.4f}), launches {json.dumps(counts['pth'])} each; "
+        f"matplotlib {'present' if has_matplotlib else 'absent'}, plot files written: "
+        f"{plots['pth'] or 'none'} on {card}")
+    return launches
 
 
 def main():
@@ -5059,9 +5210,14 @@ def main():
         torch.cuda.empty_cache()
         with tf32(False), tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
-            msgpack_launches, phase19 = msgpack_checkpoints(
+            msgpack_launches, phase19, phase19_files = msgpack_checkpoints(
                 Path(tmp), Path(mon_tmp) / "MoNuSeg", card)
             log(f"JAX checkpoint forms: phase 19 in {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            conversion_launches = pth_conversions(Path(tmp), Path(mon_tmp) / "MoNuSeg",
+                                                  phase19_files, card)
+            log(f".pth conversions: phase 20 in {time.perf_counter() - t0:.1f} s")
     for kernel in SERVING_KERNELS:  # the artifacts' and the HTTP server's; the int8 path's
         launches[kernel] += stack_launches[kernel] + int8_launches[kernel]
     # the int8 path is the bf16-taps instance's main path; the pipeline's epoch, the loss
@@ -5097,6 +5253,10 @@ def main():
     # phase 19: a bucket-64 call of the Predictor read from each JAX checkpoint directory,
     # and the loss kernels of the training command resumed from each form
     for kernel, n in msgpack_launches.items():
+        launches[kernel] += n
+    # phase 20: the Predictor calls from the exported .pth files, test_monuseg on the imported
+    # directory and its .pth, test_herlev on the exported classifier and its directory
+    for kernel, n in conversion_launches.items():
         launches[kernel] += n
 
     rows = []

@@ -59,9 +59,14 @@ def test_evaluator_matches_jax(ckpt, tmp_path):
     assert got == want and got["num_samples"] == len(dataset) > 8
     assert 0.0 <= got["roc_auc"] <= 1.0
     assert json.loads((tmp_path / "out" / "evaluation_results.json").read_text()) == got
-    assert ours.plot_confusion_matrix(np.zeros((7, 7)), tmp_path / "cm.png") is None
-    assert ours.plot_class_metrics(got["classification_report"], tmp_path / "m.png") is None
-    assert ours.plot_sample_predictions(dataset, tmp_path / "s.png") is None
+    for name in ("confusion_matrix.png", "class_metrics.png"):  # drawn as JAX's (matplotlib)
+        assert (tmp_path / "out" / name).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", name
+    for path, drawn in (
+            (tmp_path / "cm.png", ours.plot_confusion_matrix(np.zeros((7, 7)), tmp_path / "cm.png")),
+            (tmp_path / "m.png", ours.plot_class_metrics(got["classification_report"],
+                                                         tmp_path / "m.png")),
+            (tmp_path / "s.png", ours.plot_sample_predictions(dataset, tmp_path / "s.png"))):
+        assert drawn == path and path.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", path
 
 
 def test_test_command_and_predict(ckpt, tmp_path, capsys):
@@ -71,6 +76,7 @@ def test_test_command_and_predict(ckpt, tmp_path, capsys):
                             "--output_dir", str(out), "--split", "val"]) == 0
     results = json.loads((out / "evaluation_results.json").read_text())
     assert results["stage"] == STAGE and np.isfinite(results["accuracy"])
+    assert (out / "sample_predictions.png").is_file()  # the JAX command's grid
     image = HerlevDataset(str(root), split="val", verbose=False).samples[0]
     capsys.readouterr()
     assert test_herlev.cli(["--model", str(pth), "--data_dir", str(root), "--device", "cpu",

@@ -5,7 +5,7 @@ against the JAX package's, on the CPU.
 dictionaries exactly (the same polygons, the same Pillow-exact fill; the
 port reads a file with its own decoders where JAX asks PIL, which agree on
 a valid tree and on a truncated file).  The two plotting helpers draw
-nothing in the port, which has no matplotlib.
+PNGs with matplotlib, as the JAX package's.
 """
 
 import numpy as np
@@ -68,7 +68,13 @@ def test_check_data_integrity_is_jax_s(case, root, tmp_path):
 
 
 def test_plots_draw_nothing(root, tmp_path):
+    """The two plots draw as JAX's where matplotlib is installed (byte for
+    byte in ``tests/test_torch_plots.py``); the report returns the
+    statistics."""
     ds = MoNuSegDataset(str(root), image_size=32, split="val")
-    assert preprocessing.visualize_samples(ds, [0], str(tmp_path / "v.png")) is None
-    assert preprocessing.create_data_quality_report(ds, str(tmp_path / "r.png")) is None
-    assert not list(tmp_path.iterdir())
+    assert preprocessing.visualize_samples(ds, [0], str(tmp_path / "v.png")) == str(
+        tmp_path / "v.png")
+    stats = preprocessing.create_data_quality_report(ds, str(tmp_path / "r.png"))
+    assert stats == preprocessing.analyze_dataset(ds)
+    for name in ("v.png", "r.png"):
+        assert (tmp_path / name).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", name

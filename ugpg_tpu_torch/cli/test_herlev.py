@@ -5,8 +5,10 @@
         --data_dir DIR [--predict IMAGE] [--device cpu]
 
 Evaluates a split (``test`` by default) and writes
-``evaluation_results.json`` to ``--output_dir``, or classifies one image
-with ``--predict``.  ``cli`` returns 0 after a run (the JAX command's
+``evaluation_results.json`` to ``--output_dir``, with ``confusion_matrix.png``,
+``class_metrics.png`` and a grid of ``--num_samples`` predictions,
+``sample_predictions.png``, where matplotlib is installed; or classifies
+one image with ``--predict``.  ``cli`` returns 0 after a run (the JAX command's
 console script points at ``main``, which returns its results dict, so that
 script exits 1 after a successful run).
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -28,7 +31,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--output_dir", default="./herlev_test_results")
     p.add_argument("--num_samples", type=int, default=16,
-                   help="sample-prediction grid size (the port draws no plots)")
+                   help="sample-prediction grid size")
     p.add_argument("--predict", type=str, default=None,
                    help="classify a single image instead of a dataset")
     p.add_argument("--device", type=str, default="cuda",
@@ -54,6 +57,9 @@ def main(argv=None):
                             verbose=False)
     results = evaluator.evaluate_dataset(dataset, batch_size=args.batch_size,
                                          output_dir=args.output_dir)
+    evaluator.plot_sample_predictions(dataset,
+                                      os.path.join(args.output_dir, "sample_predictions.png"),
+                                      num_samples=args.num_samples)
     print(f"Accuracy: {results['accuracy']:.4f}  ROC-AUC: {results['roc_auc']:.4f}")
     print(json.dumps(results["classification_report"]["weighted avg"], indent=2))
     return results

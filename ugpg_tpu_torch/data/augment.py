@@ -41,6 +41,7 @@ __all__ = [
     "apply_monuseg_params",
     "random_flips",
     "random_rotate",
+    "random_affine",
     "color_jitter",
     "augment_monuseg_batch",
     "affine_matrices",
@@ -265,6 +266,21 @@ def random_rotate(generator: torch.Generator, images: torch.Tensor, masks=None,
     if masks is None:
         return rotate(images, angles)
     return rotate(images, angles), rotate(masks, angles, nearest=True)
+
+
+def random_affine(generator: torch.Generator, images: torch.Tensor, max_deg: float = 0.0,
+                  translate: float = 0.1, scale_range: tuple[float, float] = (0.9, 1.1)
+                  ) -> torch.Tensor:
+    """torchvision's RandomAffine(degrees, translate, scale) per sample of
+    a (B, C, H, W) batch: angle U(-max_deg, max_deg), translation
+    U(-translate, translate) of the width and the height, scale
+    U(*scale_range); bilinear, zero fill."""
+    b, _, h, w = images.shape
+    angles = _uniform(generator, b, -max_deg, max_deg)
+    t = _uniform(generator, (b, 2), -translate, translate) * torch.tensor(
+        [w, h], dtype=torch.float32, device=generator.device)
+    scales = _uniform(generator, b, scale_range[0], scale_range[1])
+    return affine_sample(images, affine_matrices(angles, t, scales))
 
 
 def color_jitter(generator: torch.Generator, images: torch.Tensor, brightness: float = 0.2,

@@ -9,16 +9,18 @@ and XML parser, where the JAX package asks PIL's ``Image.verify``; a file
 outside a decoder's profile (a 16-bit or palette PNG, a tiled TIFF) is
 listed as unreadable here, as training would fail on it.
 
-``visualize_samples`` and ``create_data_quality_report`` draw with
-matplotlib in the JAX package; the port has no matplotlib, so they draw
-nothing and return None, as the JAX package's do when matplotlib is
-missing (``create_data_quality_report``'s statistics are
-``analyze_dataset``'s).
+``visualize_samples`` (image, mask and overlay panels) and
+``create_data_quality_report`` (the six-panel report; it returns
+``analyze_dataset``'s statistics) are the JAX package's, drawn with
+matplotlib where it is installed (imported inside each function, the Agg
+backend); without it they draw nothing and return None, as the JAX
+package's do.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
 import numpy as np
 
@@ -79,17 +81,81 @@ def analyze_dataset(dataset, max_samples: int | None = None) -> dict:
 
 
 def visualize_samples(dataset, indices, output_path: str):
-    """Image / mask / overlay panels: drawn with matplotlib in the JAX
-    package; the port has no matplotlib, so this draws nothing and returns
-    None."""
-    return None
+    """Image / mask / overlay panels of ``dataset.load_raw(i)`` for each
+    index -> ``output_path``; None without matplotlib."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    rows = len(indices)
+    fig, axes = plt.subplots(rows, 3, figsize=(12, 4 * rows))
+    axes = np.atleast_2d(axes)
+    for r, idx in enumerate(indices):
+        image, mask = dataset.load_raw(idx)
+        axes[r, 0].imshow(image)
+        axes[r, 0].set_title(f"Image {idx}")
+        axes[r, 1].imshow(mask, cmap="gray")
+        axes[r, 1].set_title("Mask")
+        axes[r, 2].imshow(image)
+        axes[r, 2].imshow(mask, alpha=0.4, cmap="Reds")
+        axes[r, 2].set_title("Overlay")
+        for c in range(3):
+            axes[r, c].axis("off")
+    fig.tight_layout()
+    Path(output_path).parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(output_path, dpi=100, bbox_inches="tight")
+    plt.close(fig)
+    return output_path
 
 
 def create_data_quality_report(dataset, output_path: str, max_samples=None):
-    """The six-panel quality report: drawn with matplotlib in the JAX
-    package; the port has no matplotlib, so this draws nothing and returns
-    None (``analyze_dataset`` gives the report's statistics)."""
-    return None
+    """The six-panel quality report (nuclei per image, mask coverage, a
+    summary, three sample overlays) -> ``output_path``; returns
+    ``analyze_dataset``'s statistics, or None without matplotlib."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    stats = analyze_dataset(dataset, max_samples=max_samples)
+    fig, axes = plt.subplots(2, 3, figsize=(16, 9))
+
+    axes[0, 0].hist(stats["counts"], bins=20, color="tab:blue")
+    axes[0, 0].set_title("Nuclei per image")
+    axes[0, 1].hist(stats["coverages"], bins=20, color="tab:green")
+    axes[0, 1].set_title("Mask coverage fraction")
+    axes[0, 2].axis("off")
+    lines = [
+        f"samples: {stats['num_samples']}",
+        f"nuclei/img: {stats['nuclei_per_image']['mean']:.1f} "
+        f"± {stats['nuclei_per_image']['std']:.1f}",
+        f"area(px): {stats['nucleus_area_px']['mean']:.1f} "
+        f"± {stats['nucleus_area_px']['std']:.1f}",
+        f"coverage: {stats['mask_coverage']['mean']:.3f}",
+    ]
+    axes[0, 2].text(0.05, 0.7, "\n".join(lines), fontsize=12, family="monospace")
+    axes[0, 2].set_title("Summary")
+
+    # sample overlays in the bottom row
+    n_show = min(3, len(dataset))
+    for c in range(3):
+        ax = axes[1, c]
+        if c < n_show:
+            image, mask = dataset.load_raw(c)
+            ax.imshow(image)
+            ax.imshow(mask, alpha=0.4, cmap="Reds")
+            ax.set_title(f"Sample {c}")
+        ax.axis("off")
+    fig.tight_layout()
+    Path(output_path).parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(output_path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+    return stats
 
 
 def check_data_integrity(data_dir: str, splits=("train", "val")) -> dict:

@@ -1,7 +1,8 @@
-"""Synthetic data (a copy of ``disk_dataset`` and ``ArrayLoader`` from
-``ugpg_tpu/data/synthetic.py``), in numpy.
+"""Synthetic data (a copy of ``DummyDataset``, ``disk_dataset`` and
+``ArrayLoader`` from ``ugpg_tpu/data/synthetic.py``), in numpy.
 
-``disk_dataset`` is a learnable task (bright disks on a noisy background,
+``DummyDataset`` holds random images and random binary masks (the
+reference's demo fixture); ``disk_dataset`` is a learnable task (bright disks on a noisy background,
 mask = disk), so a run can show that the loss falls.  Batches are NHWC
 numpy arrays, the layout the train and eval steps take.
 """
@@ -10,7 +11,26 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["disk_dataset", "ArrayLoader"]
+__all__ = ["DummyDataset", "disk_dataset", "ArrayLoader"]
+
+
+class DummyDataset:
+    """Random image/mask pairs: images (S, S, C) float32 in [0, 1), masks
+    (S, S, 1) float32 in {0, 1}, drawn from ``seed``."""
+
+    def __init__(self, num_samples: int = 20, image_size: int = 64, in_channels: int = 3,
+                 seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.images = rng.random((num_samples, image_size, image_size, in_channels)
+                                 ).astype(np.float32)
+        self.masks = (rng.random((num_samples, image_size, image_size, 1)) > 0.5
+                      ).astype(np.float32)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx):
+        return self.images[idx], self.masks[idx]
 
 
 def disk_dataset(num_samples: int = 32, image_size: int = 64, in_channels: int = 3,

@@ -10,9 +10,11 @@ classifier -> softmax; this order is the JAX evaluator's (training
 normalises before it resizes).  Single-image prediction, batched dataset
 evaluation and the metric suite (accuracy, the per-class report,
 confusion matrix, per-class accuracy, ROC-AUC binary or macro
-one-vs-rest), dumped as ``evaluation_results.json``.  The port draws no
-plots: ``plot_*`` return None, as the JAX package's do without
-matplotlib.
+one-vs-rest), dumped as ``evaluation_results.json`` with the plots
+``confusion_matrix.png`` and ``class_metrics.png``.  The plots
+(``plot_*``) are the JAX evaluator's, drawn with matplotlib where it is
+installed (imported inside each function, the Agg backend); without it
+they draw nothing and return None, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -116,17 +118,103 @@ class HerlevEvaluator:
             out = Path(output_dir)
             out.mkdir(parents=True, exist_ok=True)
             (out / "evaluation_results.json").write_text(json.dumps(results, indent=2))
+            self.plot_confusion_matrix(cm, out / "confusion_matrix.png")
+            self.plot_class_metrics(report, out / "class_metrics.png")
         return results
 
     # ------------------------------------------------------------------
     def plot_confusion_matrix(self, cm: np.ndarray, path):
-        """None: the port draws no plots."""
-        return None
+        """Confusion heatmap with counts -> ``path``; None without matplotlib."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return None
+        fig, ax = plt.subplots(figsize=(8, 7))
+        im = ax.imshow(cm, cmap="Blues")
+        ax.set_xticks(range(len(self.class_names)))
+        ax.set_yticks(range(len(self.class_names)))
+        ax.set_xticklabels(self.class_names, rotation=45, ha="right")
+        ax.set_yticklabels(self.class_names)
+        for i in range(cm.shape[0]):
+            for j in range(cm.shape[1]):
+                ax.text(j, i, str(cm[i, j]), ha="center", va="center",
+                        color="white" if cm[i, j] > cm.max() / 2 else "black")
+        ax.set_xlabel("Predicted")
+        ax.set_ylabel("True")
+        ax.set_title("Confusion Matrix")
+        fig.colorbar(im)
+        fig.tight_layout()
+        fig.savefig(path, dpi=120)
+        plt.close(fig)
+        return path
 
     def plot_class_metrics(self, report: dict, path):
-        """None: the port draws no plots."""
-        return None
+        """Per-class precision, recall and F1 bars beside the support bars
+        -> ``path``; None without matplotlib."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return None
+        names = [n for n in self.class_names if n in report]
+        precision = [report[n]["precision"] for n in names]
+        recall = [report[n]["recall"] for n in names]
+        f1 = [report[n]["f1-score"] for n in names]
+        support = [report[n]["support"] for n in names]
+        x = np.arange(len(names))
+        fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(15, 5))
+        width = 0.27
+        ax1.bar(x - width, precision, width, label="Precision")
+        ax1.bar(x, recall, width, label="Recall")
+        ax1.bar(x + width, f1, width, label="F1")
+        ax1.set_xticks(x)
+        ax1.set_xticklabels(names, rotation=45, ha="right")
+        ax1.set_ylim(0, 1.05)
+        ax1.legend()
+        ax1.set_title("Per-class metrics")
+        ax2.bar(x, support, color="tab:gray")
+        ax2.set_xticks(x)
+        ax2.set_xticklabels(names, rotation=45, ha="right")
+        ax2.set_title("Class distribution (support)")
+        fig.tight_layout()
+        fig.savefig(path, dpi=120)
+        plt.close(fig)
+        return path
 
     def plot_sample_predictions(self, dataset, path, num_samples: int = 16, seed: int = 42):
-        """None: the port draws no plots."""
-        return None
+        """Grid of ``num_samples`` predictions drawn with ``seed``, titles
+        green where right and red where wrong -> ``path``; each image is one
+        ``predict_probs`` call.  None without matplotlib."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return None
+        rng = np.random.default_rng(seed)
+        idxs = rng.choice(len(dataset), size=min(num_samples, len(dataset)), replace=False)
+        cols = 4
+        rows = (len(idxs) + cols - 1) // cols
+        fig, axes = plt.subplots(rows, cols, figsize=(3.2 * cols, 3.2 * rows))
+        axes = np.atleast_2d(axes)
+        for ax in axes.ravel():
+            ax.axis("off")
+        for ax, idx in zip(axes.ravel(), idxs):
+            img, label = dataset[idx]
+            probs = self.predict_probs(img[None])[0]
+            pred = int(probs.argmax())
+            ok = pred == label
+            ax.imshow(img)
+            ax.set_title(f"P: {self.class_names[pred]}\nT: {self.class_names[label]}",
+                         color="green" if ok else "red", fontsize=8)
+            ax.axis("off")
+        fig.tight_layout()
+        fig.savefig(path, dpi=110)
+        plt.close(fig)
+        return path

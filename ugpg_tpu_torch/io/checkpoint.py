@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 __all__ = ["BACKENDS", "save_checkpoint", "wait_for_async_saves", "load_checkpoint",
-           "read_checkpoint", "container_stage", "has_checkpoint", "sniff_stage",
+           "read_checkpoint", "read_trees", "container_stage", "has_checkpoint", "sniff_stage",
            "latest_checkpoint", "checkpoint_backend_of", "checkpoint_metadata",
            "checkpoint_path", "find_checkpoint", "classifier_decoder_fill",
            "full_classifier_state_dict", "classifier_state_dict"]
@@ -250,11 +250,14 @@ def _save_directory(path: Path, state_dict, param_names, metadata: dict, backend
     return path
 
 
-def _read_directory(path: Path) -> dict[str, Any]:
-    from ugpg_tpu_torch.io.from_jax import state_dict_from_jax
+def read_trees(path: str | os.PathLike) -> tuple[dict, Any]:
+    """The flax variable tree and the optax tree (None where there is none)
+    of a msgpack or orbax checkpoint directory, numpy leaves, read once
+    every orbax-async save has committed."""
     from ugpg_tpu_torch.io.msgpack import msgpack_restore
     from ugpg_tpu_torch.io.orbax import read_pytree
 
+    path = Path(path)
     wait_for_async_saves()  # a just-written orbax-async checkpoint must be whole
     if (path / _ORBAX_VARS).is_dir():
         variables = read_pytree(path / _ORBAX_VARS)
@@ -265,6 +268,13 @@ def _read_directory(path: Path) -> dict[str, Any]:
     else:
         raise FileNotFoundError(f"{path}: no {_VARS} and no {_ORBAX_VARS}/, not a checkpoint "
                                 "directory")
+    return variables, opt
+
+
+def _read_directory(path: Path) -> dict[str, Any]:
+    from ugpg_tpu_torch.io.from_jax import state_dict_from_jax
+
+    variables, opt = read_trees(path)
     obj = {**checkpoint_metadata(path), "model_state_dict": state_dict_from_jax(variables)}
     if _is_classifier(obj["model_state_dict"]):
         obj["model_state_dict"] = full_classifier_state_dict(obj["model_state_dict"],

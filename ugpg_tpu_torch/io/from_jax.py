@@ -62,13 +62,16 @@ def from_jax_layout(arr: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(arr)
 
 
-def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(variables: Mapping[str, Any],
+                        unmapped: list[str] | None = None) -> dict[str, torch.Tensor]:
     """Convert ``{'params': ..., 'batch_stats': ...}`` of a PGUNet stage or
-    a Herlev classifier to reference-named float32 tensors; raise
-    ``ValueError`` on a leaf the table does not map."""
+    a Herlev classifier to reference-named float32 tensors.  A leaf the
+    table does not map raises ``ValueError``, or, where a list ``unmapped``
+    is given, is left out and its path (``params/blk/leaf``) appended."""
     sd: dict[str, torch.Tensor] = {}
     bn_bases = set()
-    unmapped = []
+    collect = unmapped is not None
+    unmapped = unmapped if collect else []
     for path, value in _flatten(variables):
         coll, *scope = path
         arr = np.array(value, dtype=np.float32)  # a writable copy
@@ -98,7 +101,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
             unmapped.append("/".join(path))
             continue
         sd[name] = torch.from_numpy(from_jax_layout(arr))
-    if unmapped:
+    if unmapped and not collect:
         raise ValueError(f"unmapped variables: {unmapped[:5]}")
     for base in bn_bases:
         sd[f"{base}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
